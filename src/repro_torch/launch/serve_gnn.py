@@ -1,0 +1,207 @@
+"""Online GNN inference serving driver (PyTorch port, single replica).
+
+Serves per-node prediction requests against a synthetic SBM graph
+through the ``repro_torch.serving`` stack: Poisson workload → bucketed
+micro-batching → fixed-shape neighbor sampling → historical-embedding +
+feature caching → forward on the device (the hand-written Hopper
+aggregation kernels on a CUDA device).  Runs the same workload twice
+(no-cache baseline, then the layered cache) and reports the traffic
+saved.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --nodes 512 \\
+      --requests 256 --arch sage --device cuda
+
+GraphSAGE at Reddit's widths:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --arch sage \\
+      --nodes 232965 --classes 41 --feat-dim 602 --hidden 256 \\
+      --fanouts 10 25 --requests 256 --device cuda
+
+The flags of the reference's other modes are accepted and refused with
+the ROADMAP.md item that ports them; none is silently ignored.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import sys
+
+# flag -> (is it set?, the ROADMAP.md "Queue 1" item that ports it)
+_NOT_PORTED = {
+    "--replicas > 1 / --autoscale": (
+        lambda a: a.replicas > 1 or a.autoscale,
+        "replica/router (replicated serving)"),
+    "--ckpt-dir": (lambda a: bool(a.ckpt_dir), "checkpoint"),
+    "--update-stream": (lambda a: bool(a.update_stream),
+                        "updates (dynamic graphs)"),
+    "--reorder": (lambda a: a.reorder != "none", "reordering"),
+    "--train-epochs": (lambda a: a.train_epochs > 0,
+                       "optim, train steps, launch/train_gnn.py"),
+    "--dataset": (lambda a: bool(a.dataset), "datasets"),
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--nodes", type=int, default=512)
+    ap.add_argument("--classes", type=int, default=4)
+    ap.add_argument("--feat-dim", type=int, default=32)
+    ap.add_argument("--hidden", type=int, default=64)
+    ap.add_argument("--arch", default="sage",
+                    choices=["gcn", "sage", "gat", "gin", "ggnn"])
+    ap.add_argument("--dataset", default="",
+                    help="named dataset (not ported yet: refused)")
+    ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--rate", type=float, default=2000.0,
+                    help="offered load, requests/s (virtual clock)")
+    ap.add_argument("--fanouts", type=int, nargs="+", default=[5, 5],
+                    help="per-layer fanouts, innermost first")
+    ap.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 16, 64])
+    ap.add_argument("--max-wait-ms", type=float, default=2.0)
+    ap.add_argument("--cache", default="degree",
+                    choices=["none", "degree", "importance", "random"])
+    ap.add_argument("--cache-frac", type=float, default=0.2,
+                    help="fraction of nodes admitted to the caches")
+    ap.add_argument("--staleness", type=int, default=0,
+                    help="max staleness (version-clock ticks) served")
+    ap.add_argument("--wire-codec", default="fp32",
+                    choices=["fp32", "bf16", "int8"],
+                    help="communication-plane wire codec "
+                         "(repro_torch.core.comm) for remote feature "
+                         "pulls and cache-fill payloads; fp32 is "
+                         "bit-exact")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="accepted for parity with the reference; the "
+                         "device decides (cuda runs the Hopper kernels)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; "
+                         "raises when CUDA is missing)")
+    ap.add_argument("--reorder", default="none",
+                    choices=["none", "degree", "bfs", "rcm"],
+                    help="locality reordering (not ported yet: refused)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica count (> 1 not ported yet: refused)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="autoscaling (not ported yet: refused)")
+    ap.add_argument("--update-stream", default="",
+                    help="graph-update stream (not ported yet: refused)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory (not ported yet: refused)")
+    ap.add_argument("--train-epochs", type=int, default=0,
+                    help="pre-training epochs (not ported yet: refused)")
+    ap.add_argument("--metrics-out", default="",
+                    help="enable telemetry and write the Prometheus "
+                         "text-format exposition here on exit "
+                         "(repro_torch.core.telemetry)")
+    ap.add_argument("--trace-out", default="",
+                    help="enable telemetry and write the JSONL span "
+                         "trace here on exit")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    for flag, (is_set, item) in _NOT_PORTED.items():
+        if is_set(args):
+            raise SystemExit(
+                f"serve_gnn: {flag} is not ported to repro_torch yet; "
+                f"see ROADMAP.md, Queue 1: {item}")
+    return args
+
+
+def main(argv=None):
+    """Parse args, serve the workload, and (when asked) dump the
+    telemetry plane on exit — metrics as Prometheus text, spans as JSONL
+    (see docs/observability.md)."""
+    args = parse_args(argv)
+    from repro_torch.core import telemetry
+    if args.metrics_out or args.trace_out:
+        telemetry.set_enabled(True)
+    try:
+        return run(args)
+    finally:
+        if args.metrics_out:
+            telemetry.get_registry().write_prometheus(args.metrics_out)
+            print(f"telemetry: metrics -> {args.metrics_out}")
+        if args.trace_out:
+            n = telemetry.get_registry().tracer.export_jsonl(args.trace_out)
+            print(f"telemetry: {n} trace events -> {args.trace_out}")
+
+
+def run(args):
+    """The serving driver; ``main`` wraps it with the telemetry dump.
+    Returns the cached run's summary with the baseline's under
+    ``"no_cache"`` (or the baseline's alone under ``--cache none``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import device as D
+    from repro_torch.graph import generators as G
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.models.gnn.model import GNNConfig
+    from repro_torch.serving import GNNInferenceServer, poisson_workload
+
+    device = D.resolve(args.device)
+    g = G.sbm(args.nodes, args.classes, p_in=0.9, p_out=0.02,
+              seed=args.seed)
+    g = G.featurize(g, args.feat_dim, seed=args.seed, class_sep=1.5)
+    print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
+          f"{g.num_classes} classes")
+
+    cfg = GNNConfig(arch=args.arch, feat_dim=args.feat_dim,
+                    hidden=args.hidden, num_classes=g.num_classes,
+                    num_layers=len(args.fanouts),
+                    use_kernel=args.use_kernel,
+                    wire_codec=args.wire_codec)
+    params = GM.init_gnn(cfg, torch.Generator().manual_seed(args.seed),
+                         device=device)
+    print(f"model: {cfg.arch} {cfg.feat_dim}->{cfg.hidden}->"
+          f"{cfg.num_classes}, fanouts {args.fanouts}, on {device}")
+
+    workload = poisson_workload(args.requests, np.arange(g.num_nodes),
+                                args.rate, seed=args.seed + 1)
+    capacity = int(g.num_nodes * args.cache_frac)
+
+    def serve(policy: str) -> dict:
+        srv = GNNInferenceServer(
+            g, cfg, params, fanouts=args.fanouts, buckets=args.buckets,
+            cache_policy=policy, cache_capacity=capacity,
+            max_staleness=args.staleness,
+            max_wait_s=args.max_wait_ms / 1e3, seed=args.seed)
+        srv.warmup()
+        wl = copy.deepcopy(workload)
+        srv.run(wl)
+        out = srv.summary()
+        out["forward_calls"] = srv.forward_calls
+        out["all_logits_finite"] = all(
+            r.logits is not None and bool(np.isfinite(r.logits).all())
+            for r in wl)
+        return out
+
+    base = serve("none")
+    print(f"[no-cache ] {base['throughput_rps']:8.1f} req/s  "
+          f"p50 {base['p50_ms']:6.2f} ms  p99 {base['p99_ms']:6.2f} ms  "
+          f"feature bytes {base['feature_bytes'] / 2**20:.2f} MiB")
+
+    if args.cache == "none":
+        print("done (cache disabled)")
+        return base
+
+    res = serve(args.cache)
+    saved = base["feature_bytes"] - res["feature_bytes"]
+    print(f"[{args.cache:9s}] {res['throughput_rps']:8.1f} req/s  "
+          f"p50 {res['p50_ms']:6.2f} ms  p99 {res['p99_ms']:6.2f} ms  "
+          f"feature bytes {res['feature_bytes'] / 2**20:.2f} MiB")
+    print(f"embedding hit rate {res['embedding_hit_ratio']:.2%}  "
+          f"feature hit rate {res['feature_hit_ratio']:.2%}  "
+          f"pad overhead {res['pad_overhead']:.2%}  "
+          f"jit entries {res['jit_entries']}")
+    print(f"wire codec {res['wire_codec']}: feature "
+          f"{res['feature_bytes'] / 2**20:.2f} MiB + cache-fill "
+          f"{res['fill_bytes'] / 2**20:.2f} MiB = "
+          f"{res['wire_bytes'] / 2**20:.2f} MiB on the wire")
+    print(f"bytes saved vs no-cache: {saved / 2**20:.2f} MiB "
+          f"({saved / max(base['feature_bytes'], 1):.1%})")
+    res["no_cache"] = base
+    return res
+
+
+if __name__ == "__main__":
+    sys.exit(0 if main() is not None else 1)

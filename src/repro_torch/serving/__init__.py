@@ -1,0 +1,31 @@
+"""Online GNN inference serving (survey §3.2.2 / §3.2.4 applied at
+inference time), single-replica.
+
+* :mod:`repro_torch.serving.request`  — request objects, FIFO queue,
+  synthetic arrival processes.
+* :mod:`repro_torch.serving.batcher`  — dynamic micro-batcher that pads
+  every batch to one of a small set of declared bucket sizes.
+* :mod:`repro_torch.serving.sampler`  — fixed-shape inference-time
+  neighbor sampling built on
+  :func:`repro_torch.core.sampling.sample_block_padded`.
+* :mod:`repro_torch.serving.cache`    — layered historical-embedding cache
+  with staleness bounds, built on
+  :class:`repro_torch.core.caching.FeatureStore`.
+* :mod:`repro_torch.serving.server`   — the serve loop: admit → batch →
+  sample → fetch/cache → forward on the device → account latency.
+
+The reference's replicated tier (``replica``, ``router``) is still to
+port.
+"""
+from repro_torch.serving.batcher import BucketedBatcher, MicroBatch
+from repro_torch.serving.cache import EmbeddingCache
+from repro_torch.serving.request import (InferenceRequest, RequestQueue,
+                                         poisson_workload)
+from repro_torch.serving.sampler import ServingSampler
+from repro_torch.serving.server import GNNInferenceServer, ServeStats
+
+__all__ = [
+    "BucketedBatcher", "MicroBatch", "EmbeddingCache", "InferenceRequest",
+    "RequestQueue", "poisson_workload", "ServingSampler",
+    "GNNInferenceServer", "ServeStats",
+]
