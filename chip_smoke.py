@@ -8,9 +8,9 @@ Phases, in order; any failure makes the exit code nonzero:
 
 1. the card (``nvidia-smi`` name and power limit); build the Hopper
    kernels from ``src/repro_torch/kernels/csrc`` and time the build;
-2. each kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3 GAT
-   attention) at the full-width shapes of the GraphSAGE-Reddit serving
-   path plus edge cases: max abs error against its plain PyTorch
+2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
+   GAT attention) at the full-width shapes of the GraphSAGE-Reddit
+   serving path plus edge cases: max abs error against its plain PyTorch
    version (bound 1e-4 · max|plain|), bitwise repeatability, and the
    median over 25 timed launches (CUDA events around one launch queued
    behind a device sleep, L2 flushed before each) of the kernel, the
@@ -18,15 +18,41 @@ Phases, in order; any failure makes the exit code nonzero:
    that call; beside the least time the card could take (bytes over
    3.35 TB/s, or flops over 67 TFLOP/s fp32);
 3. serve GraphSAGE at Reddit's widths (602 → 256 → 41, fanouts 10/25,
-   232 965 nodes) through ``repro_torch.launch.serve_gnn``: 256
+   232 965 nodes) through ``repro_torch.launch.serve_gnn``: 128
    requests, throughput, p50/p99, the sample/forward span split; K1 must
    launch twice per forward; one bucket-64 batch of SAGE, GIN and GAT
    each on the card agrees with the CPU to 1e-4; ``torch.profiler``
    splits one SAGE forward's device time by kernel and copy;
 4. serve GIN (602 → 256 → 41) and GAT (602 → 256 → 40: its output layer
    splits the classes over 4 heads, and 41 does not split) at Reddit's
-   widths and fanouts, 64 requests each; K2 and K3 must launch twice per
-   forward.
+   widths and fanouts, 64 requests each; each forward launches exactly
+   its kernels (GIN: K2 twice and K5, its Scatter, twice; GAT: K3
+   twice);
+5. the training kernels at every shape the full-batch trainers feed
+   them, checked and timed as in phase 2, over the whole graph: K1 (F
+   602, 256, 41) and its transpose over the src-grouped layout (F 256,
+   41, and 4 heads x 64 and x 10), K2 (602, 256, 4 wide; either layout),
+   K5 (602 and 256 wide), K3 and K6 (4 x 64, 4 x 10; K6 also 1 x 256) on
+   GAT's 40-class graph, K4 on the int8 rows of a batch-1024 block, the
+   GAT backward at both layers; and each autograd Function's gradients
+   (K1, K2, the Scatter gather, K3) against autograd through the plain
+   versions;
+6. full-batch training at Reddit's widths through
+   ``repro_torch.launch.train_gnn``: GCN, SAGE, GIN (602 → 256 → 41) and
+   GAT (→ 40), 10 epochs each: the loss is finite and falls, every step
+   launches exactly the kernels of its design and nothing plain, a second
+   run from the same init ends in bitwise-equal parameters, one step's
+   gradients on the card agree with the same step on the CPU (in
+   float64) to 1e-4 of the model's largest gradient; ms per epoch, peak
+   device memory, a
+   ``torch.profiler`` split of one GCN step by kernel, matrix product and
+   copy (alone in a profiling session, and after a profiled warm-up
+   step), and CUDA-event times of its two large products;
+7. mini-batch GraphSAGE at Reddit's widths: ``--batch 1024 --epochs 1
+   --cache degree`` with ``--wire-codec fp32`` and then ``int8
+   --use-kernel`` (wire rows into K4); K4 launches once per int8 step
+   and never under fp32; step time, cache
+   hit ratio, fetched MiB and the loss trend.
 
 The last lines are the card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line, and
@@ -35,6 +61,7 @@ when CUDA is not available.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -57,10 +84,28 @@ BUCKET = 64
 # GAT reshapes its output layer's classes into 4 heads: 40 is the class
 # count nearest Reddit's 41 that splits (4 x 10)
 GAT_HEADS, GAT_CLASSES = 4, 40
-# each served path: (arch, classes, the kernel it aggregates with)
-SERVED = (("sage", CLASSES, "gather_scale_segment_sum"),
-          ("gin", CLASSES, "segment_sum"),
-          ("gat", GAT_CLASSES, "gat_attention"))
+# each served path: (arch, classes, its kernel launches per forward)
+SERVED = (("sage", CLASSES, {"gather_scale_segment_sum": 2}),
+          ("gin", CLASSES, {"segment_sum": 2, "gather_rows": 2}),
+          ("gat", GAT_CLASSES, {"gat_attention": 2}))
+TRAIN_EPOCHS = 10
+# the kernel launches of one full-batch training step (2 layers), by
+# design: a backward runs only what needs_input_grad asks for (layer 0's
+# input features carry no gradient, so SAGE and GIN skip that transpose)
+STEP_LAUNCHES = {
+    "gcn": {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 2},
+    "sage": {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 1},
+    "gin": {"gather_rows": 3, "segment_sum": 3},
+    "gat": {"gat_attention": 2, "gather_scale_segment_sum_t": 2,
+            "edge_dot": 2,
+            "segment_sum": 6},
+}
+# the launches of the forward that measures the final accuracy
+EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
+                 "sage": {"gather_scale_segment_sum": 2},
+                 "gin": {"gather_rows": 2, "segment_sum": 2},
+                 "gat": {"gat_attention": 2}}
+MB_BATCH = 1024
 
 failures: list = []
 
@@ -176,9 +221,10 @@ def phase_build(torch):
                 print(f"   ptxas {name}: {line.strip()}")
 
 
-def reddit_graph():
+def reddit_graph(classes=CLASSES):
+    """The graph ``train_gnn``/``serve_gnn`` make at Reddit's widths."""
     from repro_torch.graph import generators as G
-    g = G.sbm(NODES, CLASSES, p_in=0.9, p_out=0.02, seed=0)
+    g = G.sbm(NODES, classes, p_in=0.9, p_out=0.02, seed=0)
     return G.featurize(g, FEAT, seed=0, class_sep=1.5)
 
 
@@ -224,62 +270,114 @@ def _distinct_src(g) -> int:
     return int(g.edge_src[g.order.long()].unique().numel())
 
 
-@phase("2. kernels vs plain versions")
-def phase_kernels(torch, blocks, x_np, results):
-    from repro_torch.kernels import gat_fused, segment_sum as ss
-    dev = torch.device("cuda")
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    flush = torch.empty(64 * 2**20 // 4, device=dev)     # > 50 MB L2
-    inner, outer = blocks
+class Checker:
+    """Kernel-against-plain checks on the card (``check_case``), with the
+    bytes and operations of each case's bound and its one-call library
+    counterpart where PyTorch has one; inputs from one CPU generator."""
 
-    def k1(g, h, label, timed=False):
-        coef = g.edge_mask.to(torch.float32)
-        nnz = int(g.order.numel())
-        U = _distinct_src(g)
-        D, F = g.num_dst, h.shape[1]
-        A = torch.sparse_csr_tensor(
-            g.row_ptr.long(), g.edge_src[g.order.long()].long(),
-            coef[g.order.long()], size=(D, h.shape[0]))
+    def __init__(self, torch, seed):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.gen = torch.Generator(device="cpu").manual_seed(seed)
+        self.flush = torch.empty(64 * 2**20 // 4, device=self.dev)  # > L2
+
+    def randn(self, *shape):
+        return self.torch.randn(shape, generator=self.gen).to(self.dev)
+
+    def k1(self, label, h, idx, coef, order, row_ptr, num_out, *,
+           transpose=False, timed=True):
+        """K1 ``out[d] = sum coef_e h[idx_e]`` over a grouped layout; over
+        the src layout (gathering through ``edge_dst``) it is the
+        transpose.  ``coef`` (E,) or (E, heads)."""
+        torch = self.torch
+        from repro_torch.kernels import segment_sum as ss
+        nnz, F = int(order.numel()), h.shape[1]
+        heads = 1 if coef.dim() == 1 else coef.shape[1]
+        cols = idx[order.long()].long()
+        U = int(cols.unique().numel())
+        library = None
+        if heads == 1:
+            A = torch.sparse_csr_tensor(row_ptr.long(), cols,
+                                        coef[order.long()],
+                                        size=(num_out, h.shape[0]))
+            library = lambda: torch.sparse.mm(A, h)
+        kernel = functools.partial(ss.gather_scale_segment_sum_cuda,
+                                   transpose=transpose)
         return check_case(
-            torch, label, ss.gather_scale_segment_sum_cuda,
-            ss.gather_scale_segment_sum_plain,
-            (h, g.edge_src, coef, g.order, g.row_ptr, D), timed=timed,
-            library=lambda: torch.sparse.mm(A, h),
-            bytes_=4 * (U * F + D * F) + 12 * nnz, flops=2 * nnz * F,
-            flush=flush)
+            torch, label, kernel, ss.gather_scale_segment_sum_plain,
+            (h, idx, coef, order, row_ptr, num_out), timed=timed,
+            library=library,
+            bytes_=4 * (U * F + num_out * F) + (8 + 4 * heads) * nnz,
+            flops=2 * nnz * F, flush=self.flush)
 
-    def k2(g, F, label, timed=False):
-        E = g.edge_src.numel()
-        msgs = torch.randn((E, F), generator=gen).to(dev)
-        msgs = msgs * g.edge_mask[:, None].to(msgs.dtype)
-        nnz, D = int(g.order.numel()), g.num_dst
-        seg = g.edge_dst.long()
+    def k2(self, label, msgs, seg, order, row_ptr, num_out, *, timed=True):
+        """K2 ``out[d] = sum msgs[e]`` over the layout grouped by ``seg``;
+        the library call adds every edge's row (masked rows are zero)."""
+        torch = self.torch
+        from repro_torch.kernels import segment_sum as ss
+        nnz, F = int(order.numel()), msgs.shape[1]
+        idx = seg.long()
         return check_case(
             torch, label, ss.segment_sum_cuda, ss.segment_sum_plain,
-            (msgs, g.order, g.row_ptr, D), timed=timed,
-            library=lambda: torch.zeros((D, F), device=dev).index_add_(
-                0, seg, msgs),
-            bytes_=4 * (nnz * F + D * F) + 8 * nnz, flops=nnz * F,
-            flush=flush)
+            (msgs, order, row_ptr, num_out), timed=timed,
+            library=lambda: torch.zeros((num_out, F), device=self.dev
+                                        ).index_add_(0, idx, msgs),
+            bytes_=4 * (nnz * F + num_out * F) + 8 * nnz, flops=nnz * F,
+            flush=self.flush)
 
-    def k3(g, heads, hd, label, timed=False):
+    def k3(self, label, g, heads, hd, *, timed=True):
+        """K3 over ``g``'s dst layout with random projections."""
+        from repro_torch.kernels import gat_fused
         S, D = g.num_src, g.num_dst
-        hs = torch.randn((S, heads * hd), generator=gen).to(dev)
-        es = torch.randn((S, heads), generator=gen).to(dev)
-        ed = torch.randn((D, heads), generator=gen).to(dev)
+        hs, es, ed = (self.randn(S, heads * hd), self.randn(S, heads),
+                      self.randn(D, heads))
         nnz, U = int(g.order.numel()), _distinct_src(g)
         return check_case(
-            torch, label, gat_fused.gat_attention_cuda,
+            self.torch, label, gat_fused.gat_attention_cuda,
             gat_fused.gat_attention_plain,
             (hs, es, ed, g.edge_src, g.order, g.row_ptr, D), timed=timed,
             bytes_=(4 * (U * heads * hd + D * heads * hd + U * heads
                          + D * heads) + 12 * nnz),
-            flops=nnz * heads * (8 + 2 * hd), flush=flush)
+            flops=nnz * heads * (8 + 2 * hd), flush=self.flush)
+
+    def k5(self, label, rows, seg, order, num_edges, *, timed=True):
+        """K5 ``out[e] = rows[seg_e]`` on the listed edges."""
+        torch = self.torch
+        from repro_torch.kernels import segment_sum as ss
+        nnz, F = int(order.numel()), rows.shape[1]
+        U = int(seg[order.long()].unique().numel())
+        idx = seg.long()
+        return check_case(
+            torch, label, ss.gather_rows_cuda, ss.gather_rows_plain,
+            (rows, seg, order, num_edges), timed=timed,
+            library=lambda: torch.index_select(rows, 0, idx),
+            bytes_=4 * (U * F + nnz * F) + 8 * nnz, flush=self.flush)
+
+
+@phase("2. kernels vs plain versions")
+def phase_kernels(torch, blocks, x_np, results):
+    c = Checker(torch, seed=0)
+    dev = c.dev
+    inner, outer = blocks
+
+    def k1(g, h, label, timed=False):
+        return c.k1(label, h, g.edge_src, g.edge_mask.to(torch.float32),
+                    g.order, g.row_ptr, g.num_dst, timed=timed)
+
+    def k2(g, F, label, timed=False):
+        msgs = c.randn(g.edge_src.numel(), F) * \
+            g.edge_mask[:, None].to(torch.float32)
+        return c.k2(label, msgs, g.edge_dst, g.order, g.row_ptr, g.num_dst,
+                    timed=timed)
+
+    def k5(g, rows, label, timed=False):
+        return c.k5(label, rows, g.edge_src, g.order, g.edge_src.numel(),
+                    timed=timed)
 
     g_in, g_out = _dev_graph(torch, inner, dev), _dev_graph(torch, outer, dev)
     g_full = _dev_graph(torch, inner, dev, all_valid=True)
     x = torch.from_numpy(x_np).to(dev)
-    h1 = torch.randn((g_out.num_src, HIDDEN), generator=gen).to(dev)
+    h1 = c.randn(g_out.num_src, HIDDEN)
     print(f"   inner block: {g_in.num_dst} dst, {g_in.num_src} src, "
           f"{g_in.edge_src.numel()} slots, {g_in.order.numel()} valid; "
           f"outer: {g_out.num_dst} dst, {g_out.num_src} src, "
@@ -294,25 +392,32 @@ def phase_kernels(torch, blocks, x_np, results):
                                 "(16640x602 -> 1664)", timed=True)
     results["segment_sum.full"] = k2(g_full, FEAT, "K2 every slot valid",
                                      timed=True)
-    results["gat_attention"] = k3(g_in, 4, HIDDEN // 4, "K3 inner sampled "
-                                  "(18304x4x64 -> 1664)", timed=True)
-    results["gat_attention.full"] = k3(g_full, 4, HIDDEN // 4,
-                                       "K3 every slot valid", timed=True)
+    results["gat_attention"] = c.k3("K3 inner sampled (18304x4x64 -> 1664)",
+                                    g_in, 4, HIDDEN // 4)
+    results["gat_attention.full"] = c.k3("K3 every slot valid", g_full, 4,
+                                         HIDDEN // 4)
+    # GIN's Scatter (K5) on the served blocks: 602-wide rows take the
+    # float2 path, 256-wide rows the float4 path
+    results["gather_rows.serve"] = k5(
+        g_in, x, "K5 GIN layer 0 sampled Scatter (16640 x 602)", timed=True)
+    results["gather_rows.serve.outer"] = k5(
+        g_out, h1, "K5 GIN layer 1 sampled Scatter (1600 x 256)", timed=True)
     # the other shapes the served paths feed the kernels: GIN's layer 1
     # (F 256: float4 loads), GAT's 40-class output layer (4 x 10), and
     # the launcher's default widths (F 32 and 64, 4 x 16, 4 x 1)
     k2(g_out, HIDDEN, "K2 GIN layer 1 sampled (1600x256 -> 64)")
-    k3(g_out, GAT_HEADS, GAT_CLASSES // GAT_HEADS,
-       "K3 outer, 4 heads of width 10")
+    c.k3("K3 outer, 4 heads of width 10", g_out, GAT_HEADS,
+         GAT_CLASSES // GAT_HEADS, timed=False)
     k2(g_in, 32, "K2 inner, F=32")
     k2(g_out, 64, "K2 outer, F=64")
-    k3(g_in, 4, 16, "K3 inner, 4 heads of width 16")
-    k3(g_out, 4, 1, "K3 outer, 4 heads of width 1")
+    c.k3("K3 inner, 4 heads of width 16", g_in, 4, 16, timed=False)
+    c.k3("K3 outer, 4 heads of width 1", g_out, 4, 1, timed=False)
     for E, masked, what in [(0, False, "E=0"), (40, True, "all masked")]:
         tg = _tiny_graph(dev, 30, 20, E, masked)
-        k1(tg, torch.randn((30, 37), generator=gen).to(dev), f"K1 {what}")
+        k1(tg, c.randn(30, 37), f"K1 {what}")
         k2(tg, 5, f"K2 {what}")
-        k3(tg, 4, 3, f"K3 {what}")
+        c.k3(f"K3 {what}", tg, 4, 3, timed=False)
+        k5(tg, c.randn(30, 6), f"K5 {what}")
     # empty destinations: every pad dst slot of the sampled blocks
     empty = int((g_in.row_ptr[1:] == g_in.row_ptr[:-1]).sum())
     print(f"   empty destinations in the inner block: {empty}")
@@ -341,7 +446,7 @@ def phase_serve(torch, results):
     res = serve_gnn.main([
         "--arch", "sage", "--nodes", str(NODES), "--classes", str(CLASSES),
         "--feat-dim", str(FEAT), "--hidden", str(HIDDEN), "--fanouts",
-        *map(str, FANOUTS), "--requests", "256", "--device", "cuda"])
+        *map(str, FANOUTS), "--requests", "128", "--device", "cuda"])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     wall = time.perf_counter() - t0
@@ -360,7 +465,7 @@ def phase_serve(torch, results):
     print("   serve: " + json.dumps(summary), flush=True)
     results["serve"] = summary
     results["launches.sage"] = counts
-    require(res["served"] == 256 and base["served"] == 256,
+    require(res["served"] == 128 and base["served"] == 128,
             "every request served")
     require(res["all_logits_finite"] and base["all_logits_finite"],
             "finite logits")
@@ -473,7 +578,7 @@ def phase_profile(torch, blocks, x_np):
 def phase_gin_gat(torch, results):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_gnn
-    for arch, classes, kernel in SERVED[1:]:
+    for arch, classes, per_forward in SERVED[1:]:
         ops.reset_launch_counts()
         res = serve_gnn.main([
             "--arch", arch, "--nodes", str(NODES), "--classes", str(classes),
@@ -497,27 +602,541 @@ def phase_gin_gat(torch, results):
                 f"{arch}: every request served")
         require(res["all_logits_finite"] and base["all_logits_finite"],
                 f"{arch}: finite logits")
-        require(counts[kernel] == 2 * forwards
-                and sum(counts.values()) == counts[kernel],
-                f"{arch}: only {kernel}, twice per forward: {counts}, "
-                f"{forwards} forwards")
+        want = {k: n * forwards for k, n in per_forward.items()}
+        require({k: v for k, v in counts.items() if v} == want,
+                f"{arch}: launches {counts} for {forwards} forwards, "
+                f"expected {want}")
+
+
+# ---------------------------------------------------------------------------
+# training phases
+# ---------------------------------------------------------------------------
+
+def check_grads(torch, label, fn, plain, inputs, cot):
+    """Gradients of ``fn`` (an autograd Function through the kernels)
+    against autograd through the plain version, on the same inputs and
+    output cotangent: within 1e-4 · max|ref| per input, and bitwise
+    repeatable."""
+    def grads(f):
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(f(*ins), ins, cot)
+    g1, g2, ref = grads(fn), grads(fn), grads(plain)
+    torch.cuda.synchronize()
+    res = {"case": label, "inputs": []}
+    ok = True
+    for a, b, r in zip(g1, g2, ref):
+        err = (a - r).abs().max().item() if r.numel() else 0.0
+        scale = r.abs().max().item() if r.numel() else 0.0
+        bitwise = torch.equal(a, b)
+        good = bitwise and bool(torch.isfinite(a).all()) and \
+            err <= 1e-4 * scale
+        res["inputs"].append({"shape": list(a.shape), "max_abs_err": err,
+                              "max_abs_ref": scale, "bitwise": bitwise})
+        ok = ok and good
+    res["ok"] = ok
+    print("   " + json.dumps(res), flush=True)
+    if not ok:
+        failures.append(f"{label}: gradients {res['inputs']}")
+    return res
+
+
+def median_bwd_ms(torch, out, inputs, cot, flush) -> float:
+    """Median device time of one backward through a kept graph."""
+    return median_ms(torch, lambda: torch.autograd.grad(
+        out, inputs, cot, retain_graph=True), flush)
+
+
+def minibatch_block(torch, g, dev):
+    """The inner block of one ``--batch 1024``, fanouts 5/5 mini-batch of
+    the training sampler, and its int8 wire rows (``fetch_masked_wire``
+    through a degree cache, as the trainer fetches them)."""
+    from repro_torch.core import caching as CA
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.core.sampling import NeighborSampler
+    seeds = np.random.default_rng(2).choice(g.num_nodes, MB_BATCH,
+                                            replace=False)
+    mb = NeighborSampler(g, [5, 5], seed=2).sample(seeds)
+    store = CA.FeatureStore(g, CA.degree_cache(g, g.num_nodes // 10),
+                            codec="int8")
+    src = mb.blocks[0].src_nodes
+    wire = store.fetch_masked_wire(src, src >= 0)
+    q, mn, scale = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in wire)
+    return DeviceGraph.from_block(mb.blocks[0], dev), q, mn, scale
+
+
+def gat_backward_case(torch, c, dg, heads, hd, *, timed):
+    """The GAT backward (K1 over the src layout with an (E, heads)
+    coefficient, K6 with ``heads``, three K2s) from the forward's saved
+    ``(m, l)``, against autograd through the plain forward; timed, its
+    plain version is that autograd backward."""
+    from repro_torch.kernels import gat_fused as gf
+    N, E, nnz = dg.num_src, dg.edge_src.numel(), int(dg.order.numel())
+    src, dst, order, row_ptr = dg.edge_src, dg.edge_dst, dg.order, dg.row_ptr
+    F = heads * hd
+    hs, es, ed, gout = (c.randn(N, F), c.randn(N, heads), c.randn(N, heads),
+                        c.randn(N, F))
+    _, m, l = gf.gat_attention_cuda(hs, es, ed, src, order, row_ptr, N,
+                                    stats=True)
+    bwd_args = (gout, hs, es, ed, m, l, src, dst, dg.edge_mask, order,
+                row_ptr, dg.src_layout)
+    b1 = gf.gat_attention_backward(*bwd_args)
+    b2 = gf.gat_attention_backward(*bwd_args)
+    ins = [t.detach().clone().requires_grad_(True) for t in (hs, es, ed)]
+    out_p = gf.gat_attention_plain(*ins, src, order, row_ptr, N)
+    refs = torch.autograd.grad(out_p, ins, gout, retain_graph=True)
+    errs = [(a - r).abs().max().item() for a, r in zip(b1, refs)]
+    scales = [r.abs().max().item() for r in refs]
+    bitwise = all(torch.equal(a, b) for a, b in zip(b1, b2))
+    res = {"case": f"GAT backward, {heads} x {hd} ({E} edges)",
+           "max_abs_err": max(errs), "max_abs_ref": max(scales),
+           "errs": errs, "bitwise_repeatable": bitwise}
+    if timed:
+        # read g, hs, es, ed, m, l, the edge lists and both layouts once;
+        # write dhs, des, ded once
+        res["ms"] = median_ms(torch, lambda: gf.gat_attention_backward(
+            *bwd_args), c.flush)
+        res["plain_ms"] = median_bwd_ms(torch, out_p, ins, gout, c.flush)
+        res["library_ms"] = None
+        res["bound_ms"], res["bound_by"] = bound(
+            4 * (3 * N * F + 6 * N * heads) + 9 * E + 8 * nnz + 8 * (N + 1),
+            nnz * (4 * F + 20 * heads))
+    res["ok"] = bitwise and all(e <= 1e-4 * s for e, s in zip(errs, scales))
+    print("   " + json.dumps(res), flush=True)
+    if not res["ok"]:
+        failures.append(f"GAT backward {heads} x {hd}: errs {errs}, "
+                        f"bitwise {bitwise}")
+    return res, (hs, es, ed, gout)
+
+
+@phase("5. training kernels and autograd Functions vs plain versions")
+def phase_train_kernels(torch, g, g_gat, results):
+    """``g`` is the 41-class graph GCN, SAGE and GIN train on, ``g_gat``
+    the 40-class graph GAT trains on."""
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.kernels import gat_fused as gf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+    c = Checker(torch, seed=5)
+    dev, flush, randn = c.dev, c.flush, c.randn
+    dg = DeviceGraph.from_graph(g, dev, src_layout=True)
+    N, E = g.num_nodes, dg.edge_src.numel()
+    src, dst, order, row_ptr = dg.edge_src, dg.edge_dst, dg.order, dg.row_ptr
+    order_s, row_ptr_s = dg.src_layout
+    nnz = int(order.numel())
+    U_src, U_dst = int(src.unique().numel()), int(dst.unique().numel())
+    print(f"   full graph: {N} nodes, {E} edges ({nnz} listed), "
+          f"{U_src} distinct sources, {U_dst} distinct destinations")
+
+    coef = torch.rsqrt(dg.out_deg)[src.long()] * \
+        torch.rsqrt(dg.in_deg)[dst.long()]
+    mask = dg.edge_mask.to(torch.float32)
+    # the forward kernels over the whole graph's dst layout: SAGE's layer
+    # 0 (602 wide, the mask as coefficient), GCN's layer 0 and SAGE's
+    # layer 1 (256), GCN's layer 1 (41)
+    results["k1.full.602"] = c.k1(
+        f"K1 full graph, SAGE layer 0 (F {FEAT})", randn(N, FEAT), src, mask,
+        order, row_ptr, N)
+    for F in (HIDDEN, CLASSES):
+        results[f"k1.full.{F}"] = c.k1(
+            f"K1 full graph, F {F}", randn(N, F), src, coef, order,
+            row_ptr, N)
+    # the transposes: K1 over the src layout, gathering through edge_dst,
+    # at GCN's widths and with the GAT backward's (E, 4) coefficients
+    for F in (HIDDEN, CLASSES):
+        results[f"k1_transpose.{F}"] = c.k1(
+            f"K1 over the src layout, GCN F={F} ({N} sources)",
+            randn(N, F), dst, coef, order_s, row_ptr_s, N, transpose=True)
+    # GAT's kernels on its own graph
+    dga = DeviceGraph.from_graph(g_gat, dev, src_layout=True)
+    Ea, nnz_a = dga.edge_src.numel(), int(dga.order.numel())
+    print(f"   GAT's graph: {g_gat.num_nodes} nodes, {Ea} edges ({nnz_a} "
+          f"listed)")
+    alpha = torch.rand((Ea, GAT_HEADS), generator=c.gen).to(dev) * \
+        dga.edge_mask[:, None].to(torch.float32)
+    for F in (HIDDEN, GAT_CLASSES):
+        results[f"k1_transpose.4x{F // GAT_HEADS}"] = c.k1(
+            f"K1 over the src layout, 4 heads x {F // GAT_HEADS}",
+            randn(N, F), dga.edge_dst, alpha, *dga.src_layout, N,
+            transpose=True)
+    # K2: GIN's layer-0 and layer-1 sums, the Scatter's transpose (src
+    # layout), the GAT backward's 4-wide sums over either layout
+    for F in (FEAT, HIDDEN):
+        results[f"segment_sum.full.{F}"] = c.k2(
+            f"K2 full graph, GIN ({E} x {F} -> {N})",
+            randn(E, F) * mask[:, None], dst, order, row_ptr, N)
+    results["segment_sum.src.256"] = c.k2(
+        f"K2 over the src layout ({E} x {HIDDEN} -> {N})",
+        randn(E, HIDDEN) * mask[:, None], src, order_s, row_ptr_s, N)
+    for seg, (o, rp), what in ((dga.edge_dst, dga.layout, "dst"),
+                               (dga.edge_src, dga.src_layout, "src")):
+        c.k2(f"K2 over GAT's {what} layout ({Ea} x {GAT_HEADS} -> {N})",
+             randn(Ea, GAT_HEADS) * dga.edge_mask[:, None].to(torch.float32),
+             seg, o, rp, N)
+    # K5: GIN's layer-0 Scatter (602 wide: float2 loads), its layer-1
+    # Scatter and K2's backward (256 wide: float4 loads)
+    results["gather_rows.602"] = c.k5(
+        f"K5 gather ({E} x {FEAT})", randn(N, FEAT), src, order, E)
+    results["gather_rows"] = c.k5(
+        f"K5 gather ({E} x {HIDDEN})", randn(N, HIDDEN), dst, order, E)
+    # K3 over the whole graph at GAT's two layers
+    for heads, hd in ((GAT_HEADS, HIDDEN // GAT_HEADS),
+                      (GAT_HEADS, GAT_CLASSES // GAT_HEADS)):
+        results[f"gat_attention.full.{heads}x{hd}"] = c.k3(
+            f"K3 GAT's full graph, {heads} x {hd}", dga, heads, hd)
+    # K6: the reference's single-head edge dot (K1's dcoef) and the GAT
+    # backward's dalpha at its two layers
+    for heads, hd, gr in ((1, HIDDEN, dg), (GAT_HEADS, HIDDEN // GAT_HEADS,
+                                            dga),
+                          (GAT_HEADS, GAT_CLASSES // GAT_HEADS, dga)):
+        F = heads * hd
+        a, b = randn(N, F), randn(N, F)
+        o, gs, gd = gr.order, gr.edge_src, gr.edge_dst
+        n_l = int(o.numel())
+        us = int(gs[o.long()].unique().numel())
+        ud = int(gd[o.long()].unique().numel())
+        lib = None
+        if heads == 1:
+            S_csr = torch.sparse_csr_tensor(
+                gr.row_ptr.long(), gs[o.long()].long(),
+                torch.ones(n_l, device=dev), size=(N, N))
+            lib = lambda: torch.sparse.sampled_addmm(S_csr, b, a.t(),
+                                                     beta=0.0)
+        results[f"edge_dot.{heads}x{hd}"] = check_case(
+            torch, f"K6 edge dot, {heads} x {hd} ({gs.numel()} edges)",
+            ss.edge_dot_cuda, ss.edge_dot_plain,
+            (a, b, gs, gd, o, heads), timed=True, library=lib,
+            bytes_=4 * (us * F + ud * F + n_l * heads) + 12 * n_l,
+            flops=2 * n_l * F, flush=flush)
+    results["edge_dot"] = results[f"edge_dot.1x{HIDDEN}"]
+
+    blk, q, mn, scale = minibatch_block(torch, g, dev)
+    bnnz = int(blk.order.numel())
+    bU = _distinct_src(blk)
+    print(f"   batch-{MB_BATCH} inner block: {blk.num_src} x {FEAT} uint8 "
+          f"rows -> {blk.num_dst}, {blk.edge_src.numel()} slots, {bnnz} "
+          f"valid")
+    results["gather_scale_segment_sum_q"] = check_case(
+        torch, f"K4 int8-in ({blk.num_src} x {FEAT} -> {blk.num_dst})",
+        ss.gather_scale_segment_sum_q_cuda,
+        ss.gather_scale_segment_sum_q_plain,
+        (q, mn, scale, blk.edge_src, blk.edge_mask.to(torch.float32),
+         blk.order, blk.row_ptr, blk.num_dst), timed=True,
+        bytes_=bU * FEAT + 8 * bU + 4 * blk.num_dst * FEAT + 12 * bnnz,
+        flops=4 * bnnz * FEAT, flush=flush)
+
+    # the GAT backward at both layers' shapes; the 4 x 64 case is timed
+    results["gat_backward"], (hs, es, ed, gout) = gat_backward_case(
+        torch, c, dga, GAT_HEADS, HIDDEN // GAT_HEADS, timed=True)
+    gat_backward_case(torch, c, dga, GAT_HEADS, GAT_CLASSES // GAT_HEADS,
+                      timed=False)
+
+    # each autograd Function against autograd through its plain version
+    h, cf = randn(N, HIDDEN), coef.clone()
+    check_grads(torch, "K1 Function (dh by K1 transpose, dcoef by K6)",
+                lambda h, c: ops.GatherScaleSegmentSum.apply(
+                    h, src, dst, c, order, row_ptr, dg.src_layout, N),
+                lambda h, c: ss.gather_scale_segment_sum_plain(
+                    h, src, c, order, row_ptr, N), [h, cf], randn(N, HIDDEN))
+    check_grads(torch, "K2 Function (dmsgs by K5)",
+                lambda m: ops.SegmentSum.apply(m, dst, order, row_ptr, N),
+                lambda m: ss.segment_sum_plain(m, order, row_ptr, N),
+                [randn(E, HIDDEN)], randn(N, HIDDEN))
+    check_grads(torch, "Scatter gather Function (dx by K2 over src layout)",
+                lambda x: ops.GatherRows.apply(x, src, order, dg.src_layout),
+                lambda x: ss.gather_rows_plain(x, src, order, E),
+                [randn(N, HIDDEN)], randn(E, HIDDEN))
+    check_grads(torch, "K3 Function (the GAT VJP)",
+                lambda a, b, c: ops.GatAttention.apply(
+                    a, b, c, dga.edge_src, dga.edge_dst, dga.edge_mask,
+                    dga.order, dga.row_ptr, dga.src_layout, N),
+                lambda a, b, c: gf.gat_attention_plain(
+                    a, b, c, dga.edge_src, dga.order, dga.row_ptr, N),
+                [hs, es, ed], gout)
+
+
+def train_args(arch, classes, extra=()):
+    return ["--arch", arch, "--nodes", str(NODES), "--classes", str(classes),
+            "--feat-dim", str(FEAT), "--hidden", str(HIDDEN), "--device",
+            "cuda", *extra]
+
+
+def _expected(arch, epochs):
+    want = {k: v * epochs for k, v in STEP_LAUNCHES[arch].items()}
+    for k, v in EVAL_LAUNCHES[arch].items():
+        want[k] = want.get(k, 0) + v
+    return want
+
+
+def _params_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                  b.parameters()))
+
+
+@phase("6. full-batch training at Reddit widths")
+def phase_fullbatch(torch, results):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_gnn
+    for arch in ("gcn", "sage", "gin", "gat"):
+        classes = GAT_CLASSES if arch == "gat" else CLASSES
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_gnn.main(train_args(arch, classes, [
+            "--epochs", str(TRAIN_EPOCHS)]))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = res["losses"]
+        summary = {"losses": losses, "epoch_ms": [s * 1e3 for s in
+                                                  res["epoch_s"]],
+                   "median_epoch_ms": float(np.median(res["epoch_s"][1:]))
+                   * 1e3, "setup_s": res["setup_s"],
+                   "accuracy": res["accuracy"], "launches": counts,
+                   "max_memory_allocated": peak, "wall_s": wall}
+        print(f"   {arch} 602->256->{classes}: " + json.dumps(summary),
+              flush=True)
+        results[f"train.{arch}"] = summary
+        results[f"launches.train.{arch}"] = counts
+        require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+                f"{arch}: finite, falling loss {losses}")
+        want = _expected(arch, TRAIN_EPOCHS)
+        require(counts == want, f"{arch}: launches {counts}, by design "
+                f"{want}")
+        _repeat_and_cpu_step(torch, arch, classes, res, results)
+        if arch == "gcn":
+            _profile_gcn_step(torch, res["graph"], results)
+
+
+def _repeat_and_cpu_step(torch, arch, classes, res, results):
+    """A second run from the same init, through the train step itself,
+    must end in bitwise-equal parameters; then one step's gradients on
+    the card against the same step on the CPU."""
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import AdamW
+    g = res["graph"]
+    cfg = GM.GNNConfig(arch=arch, feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=classes)
+    dev = torch.device("cuda")
+    dg = DeviceGraph.from_graph(g, dev, src_layout=True)
+    x = torch.from_numpy(g.features).to(dev)
+    y = torch.from_numpy(g.labels).to(dev)
+    mask = torch.ones(y.shape, device=dev)
+    model = GM.init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    step = GM.make_fullgraph_train_step(
+        cfg, AdamW(model.parameters(), lr=1e-2, weight_decay=0.0))
+    for _ in range(TRAIN_EPOCHS):
+        step(model, dg, x, y, mask)
+    torch.cuda.synchronize()
+    same = _params_equal(torch, model, res["model"])
+    print(f"   {arch}: second run from the same init bitwise equal: {same}",
+          flush=True)
+    require(same, f"{arch}: two runs end in bitwise-equal parameters")
+
+    grads = {}
+    for d in ("cuda", "cpu"):
+        m = GM.init_gnn(cfg, torch.Generator().manual_seed(0), device=d)
+        gd, xd = dg, x
+        if d == "cpu":
+            # the CPU step runs in float64, so its own rounding (sums over
+            # 232 965 rows in another order) drops out of the comparison
+            m = m.double()
+            gd = DeviceGraph.from_graph(g, "cpu", src_layout=True)
+            xd = x.cpu().double()
+        loss = GM.nll_loss(GM.forward_full(cfg, m, gd, xd), y.to(d))
+        loss.backward()
+        grads[d] = [p.grad.detach().cpu().double() for p in m.parameters()]
+    # held to 1e-4 of the model's largest gradient: a float32 sum over
+    # 232 965 rows can miss its own parameter's max by about 1e-4
+    # (SAGE's and GIN's layer-0 weights), the errors are printed per
+    # parameter
+    top = max(b.abs().max().item() for b in grads["cpu"])
+    errs = []
+    for (name, _), a, b in zip(m.named_parameters(), grads["cuda"],
+                               grads["cpu"]):
+        err = (a - b).abs().max().item()
+        errs.append({"param": name, "err": err,
+                     "max_abs_cpu": b.abs().max().item()})
+        require(err <= 1e-4 * top, f"{arch} {name}: gradient cuda vs cpu "
+                f"{err}, model's max |grad| {top}")
+    print(f"   {arch}: one step's gradients, cuda vs cpu (float64; model's "
+          f"max |grad| {top:.6g}): " + json.dumps(errs), flush=True)
+    results[f"train.{arch}"]["grad_cuda_vs_cpu"] = errs
+
+
+def _profile_gcn_step(torch, g, results):
+    """One full-batch GCN training step under ``torch.profiler``: device
+    time split into the port's kernels, matrix products, copies and the
+    rest (elementwise, the optimizer); beside it, CUDA-event times of the
+    step's two 602-wide products (the forward ``x @ w`` and the weight
+    gradient ``x^T @ dh``), each 72 GFLOP.  The step is profiled twice:
+    alone in a profiling session, and as the active step of a session
+    that first profiles one warm-up step (``torch.profiler.schedule``):
+    alone, the session misses the step's first device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import AdamW
+    dev = torch.device("cuda")
+    cfg = GM.GNNConfig(arch="gcn", feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=CLASSES)
+    dg = DeviceGraph.from_graph(g, dev, src_layout=True)
+    x = torch.from_numpy(g.features).to(dev)
+    y = torch.from_numpy(g.labels).to(dev)
+    mask = torch.ones(y.shape, device=dev)
+    model = GM.init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    step = GM.make_fullgraph_train_step(
+        cfg, AdamW(model.parameters(), lr=1e-2, weight_decay=0.0))
+    for _ in range(3):
+        step(model, dg, x, y, mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    float(step(model, dg, x, y, mask))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def kind(key):
+        k = key.lower()
+        if any(n in k for n in ("segmented_rows", "gather_rows_kernel",
+                                "edge_dot_kernel", "gat_attention_kernel")):
+            return "port kernels"
+        if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
+                                "sm80_", "ampere_", "volta_", "matmul",
+                                "nvjet", "splitk")):
+            return "matrix products"
+        if k.startswith(("memcpy", "memset")):
+            return "copies"
+        return "other"
+
+    profiles = {}
+    for label, warmup in (("alone", 0), ("after a warm-up step", 1)):
+        for _ in range(2):         # the first session pays CUPTI's start-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=warmup, active=1,
+                                           repeat=1) if warmup else None
+                         ) as prof:
+                for _ in range(warmup + 1):
+                    float(step(model, dg, x, y, mask))
+                    prof.step()
+        # device-side kernels and copies; GPU ranges of user annotations
+        # (the optimizer's step) overlap the kernels inside them
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and dev_us(e) > 0
+                and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer.")]
+        split = {"port kernels": 0.0, "matrix products": 0.0, "copies": 0.0,
+                 "other": 0.0}
+        for e in rows:
+            split[kind(e.key)] += dev_us(e) / 1e3
+        total = sum(split.values())
+        listing = [{"kernel": e.key, "kind": kind(e.key), "count": e.count,
+                    "ms": dev_us(e) / 1e3}
+                   for e in sorted(rows, key=dev_us, reverse=True)]
+        print(f"   GCN step profiled {label}: wall {wall_ms:.3f} ms, device "
+              f"{total:.3f} ms ({total / wall_ms:.2%} busy), "
+              f"{sum(e.count for e in rows)} device events; split (ms): "
+              + json.dumps(split), flush=True)
+        for r in listing[:12]:
+            print(f"   {r['ms']:9.3f} ms  x{r['count']:<3d} {r['kind']:15s} "
+                  f"{r['kernel'][:80]}")
+        profiles[label] = {"device_ms": total, "split_ms": split,
+                           "kernels": listing}
+    flush = torch.empty(64 * 2**20 // 4, device=dev)
+    w0 = model[0].w.detach()
+    dh0 = torch.randn((g.num_nodes, HIDDEN),
+                      generator=torch.Generator().manual_seed(3)).to(dev)
+    gflop = 2 * g.num_nodes * FEAT * HIDDEN / 1e9
+    fwd_ms = median_ms(torch, lambda: x @ w0, flush)
+    wgrad_ms = median_ms(torch, lambda: x.t() @ dh0, flush)
+    print(f"   layer-0 products by CUDA events: x @ w {fwd_ms:.3f} ms, "
+          f"x^T @ dh {wgrad_ms:.3f} ms ({gflop:.1f} GFLOP each: "
+          f"{gflop / fwd_ms:.1f} and {gflop / wgrad_ms:.1f} TFLOP/s)",
+          flush=True)
+    results["profile.gcn"] = {"wall_ms": wall_ms, "profiles": profiles,
+                              "x_w_ms": fwd_ms, "xT_dh_ms": wgrad_ms,
+                              "gflop_each": gflop}
+
+
+@phase("7. mini-batch GraphSAGE at Reddit widths, fp32 and int8")
+def phase_minibatch(torch, results):
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_gnn
+    for codec in ("fp32", "int8"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_gnn.main(train_args("sage", CLASSES, [
+            "--minibatch", "--batch", str(MB_BATCH), "--epochs", "1",
+            "--cache", "degree", "--wire-codec", codec,
+            *(["--use-kernel"] if codec == "int8" else [])]))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        losses, steps = res["losses"], res["steps"]
+        summary = {"steps": steps, "wall_s": time.perf_counter() - t0,
+                   "median_step_ms": float(np.median(res["step_s"])) * 1e3,
+                   "p90_step_ms": float(np.percentile(res["step_s"], 90))
+                   * 1e3,
+                   "cache_hit_ratio": res["cache_hit_ratio"],
+                   "fetched_mib": res["fetched_bytes"] / 2**20,
+                   "loss_first10": float(np.mean(losses[:10])),
+                   "loss_last10": float(np.mean(losses[-10:])),
+                   "launches": counts}
+        print(f"   minibatch sage {codec}: " + json.dumps(summary),
+              flush=True)
+        results[f"minibatch.{codec}"] = summary
+        results[f"launches.minibatch.{codec}"] = counts
+        require(bool(np.isfinite(losses).all())
+                and summary["loss_last10"] < summary["loss_first10"],
+                f"{codec}: finite, falling loss")
+        k4 = counts.get("gather_scale_segment_sum_q", 0)
+        require(k4 == (steps if codec == "int8" else 0),
+                f"{codec}: K4 launched {k4} times in {steps} steps")
+        # layer 0 (K4 under int8) and layer 1 forward, layer 1 backward
+        want = {"gather_scale_segment_sum": steps * (1 if codec == "int8"
+                                                     else 2),
+                "gather_scale_segment_sum_t": steps}
+        if codec == "int8":
+            want["gather_scale_segment_sum_q"] = steps
+        require(counts == want, f"{codec}: launches {counts}, by design "
+                f"{want}")
+
 
 
 def kernels_line(results) -> dict:
+    """One row per kernel: its times from phase 2 or 5, its launches from
+    the phase that trains through it (phases 6 and 7)."""
     rows = []
-    meta = [("gather_scale_segment_sum", "segment_sum.cu",
-             "src/repro/kernels/segment_sum.py:345", "launches.sage"),
-            ("segment_sum", "segment_sum.cu",
-             "src/repro/kernels/segment_sum.py:152", "launches.gin"),
-            ("gat_attention", "gat_fused.cu",
-             "src/repro/kernels/gat_fused.py:163", "launches.gat")]
-    for name, src, replaces, path in meta:
-        r = results[name]
+    meta = [("gather_scale_segment_sum", "gather_scale_segment_sum",
+             "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
+             "launches.train.gcn"),
+            ("gather_scale_segment_sum_t", f"k1_transpose.{HIDDEN}",
+             "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
+             "launches.train.gcn"),
+            ("segment_sum", "segment_sum", "segment_sum.cu",
+             "src/repro/kernels/segment_sum.py:152", "launches.train.gin"),
+            ("gat_attention", "gat_attention", "gat_fused.cu",
+             "src/repro/kernels/gat_fused.py:163", "launches.train.gat"),
+            ("gather_scale_segment_sum_q", "gather_scale_segment_sum_q",
+             "segment_sum.cu", "src/repro/kernels/segment_sum.py:580",
+             "launches.minibatch.int8"),
+            ("gather_rows", "gather_rows", "segment_sum.cu",
+             "src/repro/kernels/segment_sum.py:221", "launches.train.gin"),
+            ("edge_dot", "edge_dot", "segment_sum.cu",
+             "src/repro/kernels/segment_sum.py:411", "launches.train.gat")]
+    for name, key, src, replaces, path in meta:
+        r = results[key]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": results[path][name],
+            "launches": results[path].get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -547,6 +1166,10 @@ def main() -> int:
     phase_cpu_parity(torch, blocks, x_np)
     phase_profile(torch, blocks, x_np)
     phase_gin_gat(torch, results)
+    phase_train_kernels(torch, g, reddit_graph(GAT_CLASSES), results)
+    del blocks, x_np
+    phase_fullbatch(torch, results)
+    phase_minibatch(torch, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as f:

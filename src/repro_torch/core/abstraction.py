@@ -7,15 +7,19 @@
   used by the model zoo.
 
 The Gather step runs over a dst-grouped layout (``order``, ``row_ptr``)
-that :class:`DeviceGraph` builds once per graph or block on the host.
-:mod:`repro_torch.kernels.ops` sends it to the hand-written Hopper
-kernels for CUDA tensors and to their plain versions for CPU tensors;
-the reference's ``use_kernel`` switch has no counterpart here.
+that :class:`DeviceGraph` builds once per graph or block on the host;
+trainers also ask for the src-grouped layout, which the transposes in
+the backward walk.  :mod:`repro_torch.kernels.ops` sends both to the
+hand-written Hopper kernels for CUDA tensors and to their plain versions
+for CPU tensors; the reference's ``use_kernel`` switch has no
+counterpart here.  Every reduction, forward or backward, is a kernel
+with one writer per output row: no float atomics, so a training step is
+bitwise repeatable on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -25,9 +29,7 @@ from repro_torch.core.comm import QuantizedRows
 from repro_torch.core.sampling import Block
 from repro_torch.graph.structure import Graph
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.segment_sum import dst_layout
-
-Layout = Tuple[torch.Tensor, torch.Tensor]
+from repro_torch.kernels.segment_sum import Layout, dst_layout
 
 
 def _to(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -42,7 +44,11 @@ class DeviceGraph:
     a prefix of source nodes.  ``order`` lists the valid edges stably
     sorted by destination and ``row_ptr`` (num_dst + 1, int32) delimits
     each destination's range; both are built on the host with numpy, as
-    are the degrees (integer counts of valid edges, so exact)."""
+    are the degrees (integer counts of valid edges, so exact).  Built
+    with ``src_layout=True`` it also holds the same edges grouped by
+    source (``order_src``, ``row_ptr_src`` over ``num_src``), which a
+    gradient with respect to source rows needs; serving leaves them
+    None."""
     edge_src: torch.Tensor     # (E,) int32 — index into src features
     edge_dst: torch.Tensor     # (E,) int32 — index into dst features
     edge_mask: torch.Tensor    # (E,) bool
@@ -52,15 +58,24 @@ class DeviceGraph:
     out_deg: torch.Tensor      # (num_src,) float32 (>= 1)
     order: torch.Tensor        # (nnz,) int32
     row_ptr: torch.Tensor      # (num_dst + 1,) int32
+    order_src: Optional[torch.Tensor] = None     # (nnz,) int32
+    row_ptr_src: Optional[torch.Tensor] = None   # (num_src + 1,) int32
 
     @property
     def layout(self) -> Layout:
         return self.order, self.row_ptr
 
+    @property
+    def src_layout(self) -> Optional[Layout]:
+        if self.order_src is None:
+            return None
+        return self.order_src, self.row_ptr_src
+
     @staticmethod
     def _build(es: np.ndarray, ed: np.ndarray, mask: np.ndarray,
                num_src: int, num_dst: int,
-               device: Union[str, torch.device]) -> "DeviceGraph":
+               device: Union[str, torch.device],
+               src_layout: bool) -> "DeviceGraph":
         device = torch.device(device)
         es = es.astype(np.int32)
         ed = ed.astype(np.int32)
@@ -75,26 +90,29 @@ class DeviceGraph:
         indeg = np.maximum(np.diff(row_ptr), 1).astype(np.float32)
         outdeg = np.maximum(np.bincount(es[mask], minlength=num_src),
                             1).astype(np.float32)
+        by_src = (tuple(_to(a, device) for a in dst_layout(es, num_src, mask))
+                  if src_layout else (None, None))
         return DeviceGraph(_to(es, device), _to(ed, device),
                            _to(mask, device), num_src, num_dst,
                            _to(indeg, device), _to(outdeg, device),
-                           _to(order, device), _to(row_ptr, device))
+                           _to(order, device), _to(row_ptr, device),
+                           *by_src)
 
     @staticmethod
-    def from_graph(g: Graph,
-                   device: Union[str, torch.device]) -> "DeviceGraph":
+    def from_graph(g: Graph, device: Union[str, torch.device], *,
+                   src_layout: bool = False) -> "DeviceGraph":
         e = g.edges()
         n = g.num_nodes
         return DeviceGraph._build(e[:, 0], e[:, 1], np.ones(len(e), bool),
-                                  n, n, device)
+                                  n, n, device, src_layout)
 
     @staticmethod
-    def from_block(b: Block,
-                   device: Union[str, torch.device]) -> "DeviceGraph":
+    def from_block(b: Block, device: Union[str, torch.device], *,
+                   src_layout: bool = False) -> "DeviceGraph":
         return DeviceGraph._build(np.asarray(b.edge_src),
                                   np.asarray(b.edge_dst),
                                   np.asarray(b.edge_mask), b.num_src,
-                                  b.num_dst, device)
+                                  b.num_dst, device, src_layout)
 
 
 # ---------------------------------------------------------------------------
@@ -105,31 +123,43 @@ def segment_sum(msgs: torch.Tensor, seg_ids: torch.Tensor,
                 num_segments: int, *, layout: Layout) -> torch.Tensor:
     """Gather-step segment reduction over ``layout``, the dst-grouped
     ``(order, row_ptr)`` of ``seg_ids`` (``DeviceGraph.layout``).  1-D
-    messages (per-edge scalars) are reduced as one column."""
+    messages (per-edge scalars) are reduced as one column.  Its backward
+    gathers the cotangent rows back onto the listed edges (K5)."""
     order, row_ptr = layout
+    seg_ids = seg_ids.to(torch.int32)
     if msgs.dim() == 1:
-        return kops.segment_sum(msgs[:, None].contiguous(), order, row_ptr,
-                                num_segments)[:, 0]
-    return kops.segment_sum(msgs.contiguous(), order, row_ptr, num_segments)
+        return kops.SegmentSum.apply(msgs[:, None].contiguous(), seg_ids,
+                                     order, row_ptr, num_segments)[:, 0]
+    return kops.SegmentSum.apply(msgs.contiguous(), seg_ids, order, row_ptr,
+                                 num_segments)
 
 
 def gather_scale_segment_sum(h, edge_src: torch.Tensor,
                              edge_dst: torch.Tensor, coef: torch.Tensor,
-                             num_dst: int, *, layout: Layout
+                             num_dst: int, *, layout: Layout,
+                             src_layout: Optional[Layout] = None
                              ) -> torch.Tensor:
     """Fused Scatter -> ApplyEdge(scale) -> Gather:
     ``out[d] = sum_{e: edge_dst[e]=d} coef[e] * h[edge_src[e]]``.
 
     ``coef`` is the per-edge coefficient with the validity mask folded in
     (masked/pad edges carry 0).  On a CUDA tensor this is one kernel that
-    never materializes the (E, F) message tensor.  ``QuantizedRows`` are
-    decoded first on this slice (the int8-in kernel is still to port)."""
+    never materializes the (E, F) message tensor.  A gradient with
+    respect to ``h`` runs the same kernel over ``src_layout`` (the
+    src-grouped layout of the same edges); one with respect to ``coef``
+    runs the edge-dot kernel.  ``QuantizedRows`` (int8 wire rows, which
+    carry no gradient) go to the int8-in kernel as they are: ``q``,
+    ``mn`` and ``scale`` are uploaded and dequantized in registers, with
+    no decoded copy of the rows."""
     order, row_ptr = layout
     if isinstance(h, QuantizedRows):
-        h = _to(h.dequantize(), edge_src.device)
-    return kops.gather_scale_segment_sum(h.contiguous(), edge_src,
-                                         coef.contiguous(), order, row_ptr,
-                                         num_dst)
+        dev = edge_src.device
+        return kops.gather_scale_segment_sum_q(
+            _to(h.q, dev), _to(h.mn, dev), _to(h.scale, dev), edge_src,
+            coef.contiguous(), order, row_ptr, num_dst)
+    return kops.GatherScaleSegmentSum.apply(
+        h.contiguous(), edge_src, edge_dst, coef.contiguous(), order,
+        row_ptr, src_layout, num_dst)
 
 
 def segment_mean(msgs: torch.Tensor, seg_ids: torch.Tensor,
@@ -171,16 +201,25 @@ def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor,
 def saga_layer(g: DeviceGraph, x_src: torch.Tensor, x_dst: torch.Tensor, *,
                apply_edge: Callable, gather: str = "sum",
                apply_vertex: Callable,
-               edge_data: Optional[torch.Tensor] = None) -> torch.Tensor:
+               edge_data: Optional[torch.Tensor] = None,
+               reads_dst: bool = True) -> torch.Tensor:
     """One SAGA-NN step.
 
     scatter:      src features -> edges (system)
     apply_edge:   (src_feat_on_edge, dst_feat_on_edge, edge_data) -> msgs
     gather:       segment reduce msgs onto destinations (system)
     apply_vertex: (aggregated, x_dst) -> new dst features
+
+    With ``reads_dst=False`` the destination rows are not scattered onto
+    the edges and ``apply_edge`` gets None for them: eager PyTorch does
+    not drop an (E, F) gather that nothing reads, as XLA does.
     """
-    feat_e = x_src[g.edge_src.long()]                          # Scatter
-    dst_e = x_dst[g.edge_dst.long()]
+    # Scatter: rows onto the listed edges (K5); the transposes are K2
+    # over the layout grouped by the gathering index
+    feat_e = kops.GatherRows.apply(x_src.contiguous(), g.edge_src, g.order,
+                                   g.src_layout)
+    dst_e = (kops.GatherRows.apply(x_dst.contiguous(), g.edge_dst, g.order,
+                                   g.layout) if reads_dst else None)
     msgs = apply_edge(feat_e, dst_e, edge_data)                # ApplyEdge
     msgs = msgs * g.edge_mask[:, None].to(msgs.dtype)
     if gather == "sum":                                        # Gather
@@ -208,6 +247,9 @@ class MessagePassing(nn.Module):
     ``message``/``aggregate``/``update`` and hold their parameters."""
 
     aggregate = "sum"
+    #: whether ``message`` reads ``dst_feat``; a subclass whose message
+    #: does sets it, else the Scatter step passes None
+    message_reads_dst = False
 
     def message(self, src_feat, dst_feat, edge_data):
         return src_feat
@@ -222,4 +264,5 @@ class MessagePassing(nn.Module):
         if x_dst is None:
             x_dst = x_src[:g.num_dst]
         return saga_layer(g, x_src, x_dst, apply_edge=self.message,
-                          gather=self.aggregate, apply_vertex=self.update)
+                          gather=self.aggregate, apply_vertex=self.update,
+                          reads_dst=self.message_reads_dst)

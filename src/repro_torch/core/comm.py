@@ -51,10 +51,11 @@ class QuantizedRows(NamedTuple):
     codes with per-row affine metadata ``mn``/``scale`` (n, 1) float32;
     row i dequantizes to ``mn[i] + q[i] * scale[i]``.
 
-    This is the type the int8-in/fp32-accumulate kernel path consumes
-    directly (the reference's ``gather_scale_segment_sum_q_pallas``; its Hopper
-    port is queued)
-    — :meth:`FeatureStore.fetch_masked_wire` hands fetched rows to the
+    This is the type the int8-in/fp32-accumulate kernel consumes
+    directly (K4, :func:`repro_torch.kernels.segment_sum.
+    gather_scale_segment_sum_q_cuda`, the Hopper counterpart of the
+    reference's ``gather_scale_segment_sum_q_pallas``) —
+    :meth:`FeatureStore.fetch_masked_wire` hands fetched rows to the
     aggregation without a decode round-trip.  Fields are numpy arrays.
     """
     q: "np.ndarray"

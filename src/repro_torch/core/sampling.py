@@ -12,7 +12,7 @@ block[i] maps features over layer i: dst nodes aggregate from src nodes.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 
@@ -135,3 +135,53 @@ def sample_block_padded(g: Graph, gr: Graph, dst: np.ndarray, fanout: int,
         g, dst, src_extra,
         np.asarray(edges, np.int64).reshape(-1, 2),
         dcap * (1 + fanout), dcap * fanout)
+
+
+# ===========================================================================
+# neighbor sampling (GraphSAGE)
+# ===========================================================================
+
+class NeighborSampler:
+    """Fixed-fanout neighbor sampling [GraphSAGE, Hamilton+ 2017].
+
+    For each layer (outermost last) sample ``fanout`` in-neighbors per dst
+    node (with replacement if deg < fanout; missing → dropped via mask).
+
+    One ``np.random.Generator`` serves every call: two loader threads
+    sampling at once interleave its draws, so a run is repeatable only
+    with one sampling thread."""
+
+    name = "neighbor"
+
+    def __init__(self, g: Graph, fanouts: Sequence[int], *, seed: int = 0):
+        self.g = g
+        self.gr = g.reverse()      # need in-neighbors
+        self.fanouts = list(fanouts)
+        self.rng = np.random.default_rng(seed)
+
+    def sample(self, seeds: np.ndarray) -> MiniBatch:
+        seeds = np.asarray(seeds, np.int64)
+        blocks: List[Block] = []
+        dst = seeds
+        for layer in reversed(range(len(self.fanouts))):
+            f = self.fanouts[layer]
+            srcs, edges = [], []
+            for d in dst:
+                nbr = self.gr.neighbors(d)   # in-neighbors of d
+                if len(nbr) == 0:
+                    continue
+                pick = nbr if len(nbr) <= f else self.rng.choice(
+                    nbr, f, replace=False)
+                for s in pick:
+                    edges.append((s, d))
+                srcs.append(pick)
+            src_extra = (np.unique(np.concatenate(srcs))
+                         if srcs else np.zeros(0, np.int64))
+            src_cap = len(dst) + len(dst) * f
+            blocks.append(_build_block(
+                self.g, dst, src_extra,
+                np.asarray(edges, np.int64).reshape(-1, 2),
+                src_cap, len(dst) * f))
+            dst = blocks[-1].src_nodes[blocks[-1].src_nodes >= 0]
+        blocks.reverse()
+        return MiniBatch(blocks, seeds, blocks[0].src_nodes)

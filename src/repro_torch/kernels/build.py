@@ -35,11 +35,15 @@ _I = ctypes.c_int
 # the return value is cudaGetLastError() after the launch
 SIGNATURES = {
     "segment_sum": {
-        "gss_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "gss_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "seg_forward": [_P, _P, _P, _P, _I, _I, _P],
+        "gssq_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "gather_rows": [_P, _P, _P, _P, _I, _I, _P],
+        "edge_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "gat_fused": {
-        "gat_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gat_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P],
     },
 }
 

@@ -1,9 +1,15 @@
-"""Device dispatch for the aggregation kernels.
+"""Device dispatch for the aggregation kernels, and the differentiable
+entry points built on them.
 
-Each entry point looks at the device of its first tensor: a CUDA tensor
-goes to the hand-written Hopper kernel, a CPU tensor to the kernel's
-plain PyTorch version, anything else raises.  Nothing falls back: a
-build or launch failure on the card is an error.
+Each kernel entry point looks at the device of its first tensor: a CUDA
+tensor goes to the hand-written Hopper kernel, a CPU tensor to the
+kernel's plain PyTorch version, anything else raises.  Nothing falls
+back: a build or launch failure on the card is an error.
+
+The autograd Functions (:class:`GatherScaleSegmentSum`,
+:class:`SegmentSum`, :class:`GatherRows`, :class:`GatAttention`) call
+these entry points in their forward and backward, so the same backward
+formulas run on both devices.
 
 The reference's TPU capacity dispatch (``fused_fits``, ``VMEM_BUDGET``
 and the unfused / multi-pass fallbacks) has no counterpart here: the
@@ -11,38 +17,61 @@ Hopper kernels' working set does not grow with ``num_src``.
 """
 from __future__ import annotations
 
-import torch
+import functools
 
 from repro_torch.kernels import gat_fused as _gat
 from repro_torch.kernels import segment_sum as _ss
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no aggregation kernel for device {t.device}")
+from repro_torch.kernels.gat_fused import GatAttention  # noqa: F401
+from repro_torch.kernels.segment_sum import (  # noqa: F401
+    GatherRows, GatherScaleSegmentSum, SegmentSum)
 
 
 def gather_scale_segment_sum(h, edge_src, coef, order, row_ptr,
-                             num_dst: int):
-    """K1: ``out[d] = sum_{e in d's range} coef[e] * h[edge_src[e]]``."""
-    fn = (_ss.gather_scale_segment_sum_cuda if _on_cuda(h)
-          else _ss.gather_scale_segment_sum_plain)
+                             num_dst: int, *, transpose: bool = False):
+    """K1: ``out[d] = sum_{e in d's range} coef[e] * h[edge_src[e]]``
+    (``coef`` (E,) or (E, heads)); ``transpose`` marks a launch over the
+    src-grouped layout from a backward, which the kernel wrapper counts
+    apart."""
+    fn = _ss.pick(functools.partial(_ss.gather_scale_segment_sum_cuda,
+                                    transpose=transpose),
+                  _ss.gather_scale_segment_sum_plain, h)
     return fn(h, edge_src, coef, order, row_ptr, num_dst)
 
 
 def segment_sum(msgs, order, row_ptr, num_dst: int):
     """K2: ``out[d] = sum_{e in d's range} msgs[e]``."""
-    fn = _ss.segment_sum_cuda if _on_cuda(msgs) else _ss.segment_sum_plain
+    fn = _ss.pick(_ss.segment_sum_cuda, _ss.segment_sum_plain, msgs)
     return fn(msgs, order, row_ptr, num_dst)
 
 
-def gat_attention(hs, es, ed, edge_src, order, row_ptr, num_dst: int):
-    """K3: one-pass per-destination attention softmax and weighted sum."""
-    fn = _gat.gat_attention_cuda if _on_cuda(hs) else _gat.gat_attention_plain
-    return fn(hs, es, ed, edge_src, order, row_ptr, num_dst)
+def gat_attention(hs, es, ed, edge_src, order, row_ptr, num_dst: int, *,
+                  stats: bool = False):
+    """K3: one-pass per-destination attention softmax and weighted sum;
+    with ``stats`` also the per-destination max and denominator."""
+    fn = _ss.pick(_gat.gat_attention_cuda, _gat.gat_attention_plain, hs)
+    return fn(hs, es, ed, edge_src, order, row_ptr, num_dst, stats=stats)
+
+
+def gather_scale_segment_sum_q(q, mn, scale, edge_src, coef, order,
+                               row_ptr, num_dst: int):
+    """K4: K1 on uint8 rows ``mn + q * scale``, dequantized in the
+    kernel; forward only (the wire rows carry no gradient)."""
+    fn = _ss.pick(_ss.gather_scale_segment_sum_q_cuda,
+                  _ss.gather_scale_segment_sum_q_plain, q)
+    return fn(q, mn, scale, edge_src, coef, order, row_ptr, num_dst)
+
+
+def gather_rows(g, seg, order, num_edges: int):
+    """K5: ``out[e] = g[seg[e]]`` on the listed edges, zero elsewhere."""
+    fn = _ss.pick(_ss.gather_rows_cuda, _ss.gather_rows_plain, g)
+    return fn(g, seg, order, num_edges)
+
+
+def edge_dot(a, b, edge_src, edge_dst, order, heads: int = 1):
+    """K6: ``out[e, h] = <a[src_e], b[dst_e]>`` over head ``h``'s columns,
+    on the listed edges, zero elsewhere; (E, heads)."""
+    fn = _ss.pick(_ss.edge_dot_cuda, _ss.edge_dot_plain, a)
+    return fn(a, b, edge_src, edge_dst, order, heads)
 
 
 def launch_counts() -> dict:

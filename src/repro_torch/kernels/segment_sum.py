@@ -1,30 +1,47 @@
-"""Destination-grouped segmented reductions: the GNN Gather step.
+"""Edge-list aggregations over grouped layouts: the GNN Gather step, its
+transposes, and the int8-in variant.
 
-Two kernels, each with its plain PyTorch version beside it:
+Five kernels, each with its plain PyTorch version beside it:
 
 * :func:`gather_scale_segment_sum_cuda` (K1) —
   ``out[d] = sum_{e: dst_e=d} coef_e * h[src_e]`` without the (E, F)
   message tensor; the Hopper counterpart of the reference's fused Pallas
-  kernel (``src/repro/kernels/segment_sum.py:320``).
+  kernel (``src/repro/kernels/segment_sum.py:320``).  Over the
+  src-grouped layout, gathering through ``edge_dst``, the same kernel is
+  its own transpose (``_fused_bwd`` ``:441``); a coefficient of shape
+  (E, heads) weights each head's columns separately (the GAT backward).
 * :func:`segment_sum_cuda` (K2) — ``out[d] = sum_{e: seg_e=d} msgs[e]``;
   the counterpart of the blocked scatter (``segment_sum.py:138``).
+* :func:`gather_rows_cuda` (K5) — ``out[e] = g[seg_e]``, the transpose of
+  K2 (``gather_rows_pallas`` ``:196``).
+* :func:`edge_dot_cuda` (K6) — ``out[e, h] = <a[src_e], b[dst_e]>`` per
+  head; the coefficient cotangent of K1 (``_edge_dot`` ``:390``).
+* :func:`gather_scale_segment_sum_q_cuda` (K4) — K1 on uint8 rows
+  dequantized in registers (``gather_scale_segment_sum_q_pallas``
+  ``:531``), forward only.
 
-The TPU kernels tile the reduction as one-hot matmuls because a TPU has
-no efficient scatter.  These walk a dst-grouped layout instead:
-``order`` lists the edges stably sorted by destination and
-``row_ptr[d]:row_ptr[d+1]`` is destination ``d``'s range
-(:func:`dst_layout`).  One CUDA block owns one destination row and writes
-it once, so there are no atomics and the sum is bitwise repeatable.  See
-``csrc/segment_sum.cu`` for the bound.
+The TPU kernels tile the reductions as one-hot matmuls because a TPU has
+no efficient scatter.  These walk a grouped layout instead: ``order``
+lists the edges stably sorted by the grouping index and
+``row_ptr[d]:row_ptr[d+1]`` is group ``d``'s range (:func:`dst_layout`).
+One CUDA block owns one output row and writes it once, so there are no
+atomics and every sum is bitwise repeatable.  See ``csrc/segment_sum.cu``
+for the bounds.
+
+An edge a layout does not list (a masked pad slot) is never read: the
+per-edge outputs of K5 and K6 are zero there.
 
 The plain versions take the same arguments, layout included, so the CPU
 tests exercise exactly what the kernels read; they stay differentiable
-through autograd.  :mod:`repro_torch.kernels.ops` picks one or the other
-by the tensor's device.
+through autograd.  :func:`pick` chooses one or the other by the tensor's
+device.  The ``torch.autograd.Function``\\ s at the end make K1, K2 and
+the row gather differentiable on both devices: their forward and
+backward call :mod:`repro_torch.kernels.ops`, so the CPU tests run the
+same backward formulas as the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +49,14 @@ import torch
 from repro_torch.kernels import build
 
 #: launches per kernel wrapper (plain integers; a run resets and reads
-#: them to show that a path went through the kernels)
-launches = {"gather_scale_segment_sum": 0, "segment_sum": 0}
+#: them to show that a path went through the kernels).  K1 counts its
+#: launches over a dst-grouped layout and over the src-grouped layout
+#: (the transpose, from a backward) apart.
+launches = {"gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
+            "segment_sum": 0, "gather_scale_segment_sum_q": 0,
+            "gather_rows": 0, "edge_dot": 0}
+
+Layout = Tuple[torch.Tensor, torch.Tensor]
 
 
 def dst_layout(edge_dst: np.ndarray, num_dst: int,
@@ -43,6 +66,8 @@ def dst_layout(edge_dst: np.ndarray, num_dst: int,
     as int32, ``order`` a stable argsort of ``edge_dst`` over the edges
     with ``mask`` set (all edges when ``mask`` is None) and ``row_ptr``
     the (num_dst + 1,) prefix sum of their per-destination counts.
+    Called with ``edge_src`` and ``num_src`` it gives the src-grouped
+    layout the transposes walk.
 
     Masked pad slots are left out: every caller folds the mask into the
     coefficient or the message, so they add exact zeros, and keeping
@@ -55,6 +80,16 @@ def dst_layout(edge_dst: np.ndarray, num_dst: int,
     row_ptr = np.zeros(num_dst + 1, np.int64)
     np.cumsum(counts, out=row_ptr[1:])
     return order.astype(np.int32), row_ptr.astype(np.int32)
+
+
+def pick(cuda_fn: Callable, plain_fn: Callable, t: torch.Tensor) -> Callable:
+    """The kernel wrapper for a CUDA tensor, the plain version for a CPU
+    tensor; any other device raises.  Nothing falls back."""
+    if t.device.type == "cuda":
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no aggregation kernel for device {t.device}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -78,53 +113,70 @@ def _check_layout(order: torch.Tensor, row_ptr: torch.Tensor, num_dst: int,
                          f"expected num_dst + 1 = {num_dst + 1}")
 
 
-def _no_grad(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the Hopper aggregation kernels are forward-only; their "
-            "backward kernels arrive with the training slice")
+def _require_cuda(t: torch.Tensor, what: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {t.device}")
+    return t.device
 
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _segments(row_ptr: torch.Tensor, n: int) -> torch.Tensor:
+    """Group id of each listed position (the plain versions' index)."""
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(n, device=row_ptr.device),
+                                   counts)
+
+
 # ---------------------------------------------------------------------------
-# K1: fused gather -> scale -> segment-sum
+# K1: fused gather -> scale -> segment-sum (and its transpose)
 # ---------------------------------------------------------------------------
 
 def gather_scale_segment_sum_plain(h: torch.Tensor, edge_src: torch.Tensor,
                                    coef: torch.Tensor, order: torch.Tensor,
                                    row_ptr: torch.Tensor,
                                    num_dst: int) -> torch.Tensor:
-    """Plain PyTorch K1 over the dst-grouped layout:
-    ``index_add_`` of the scaled source rows of the listed edges."""
+    """Plain PyTorch K1 over a grouped layout: ``index_add_`` of the
+    scaled rows ``h[edge_src[e]]`` of the listed edges.  ``coef`` is
+    (E,), or (E, heads) to scale each head's ``F / heads`` columns by its
+    own coefficient."""
     e = order.long()
-    counts = (row_ptr[1:] - row_ptr[:-1]).long()
-    seg = torch.repeat_interleave(
-        torch.arange(num_dst, device=h.device), counts)
-    msgs = h[edge_src.long()[e]] * coef[e][:, None]
+    seg = _segments(row_ptr, num_dst)
+    rows = h[edge_src.long()[e]]
+    c = coef[e]
+    if c.dim() == 1:
+        msgs = rows * c[:, None]
+    else:
+        heads = c.shape[1]
+        msgs = (rows.reshape(len(e), heads, h.shape[1] // heads)
+                * c[..., None]).reshape(len(e), h.shape[1])
     out = torch.zeros((num_dst, h.shape[1]), dtype=h.dtype, device=h.device)
     return out.index_add(0, seg, msgs)
 
 
 def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
                                   coef: torch.Tensor, order: torch.Tensor,
-                                  row_ptr: torch.Tensor,
-                                  num_dst: int) -> torch.Tensor:
-    """K1 on the card (``csrc/segment_sum.cu``, ``gss_forward``)."""
-    dev = h.device
-    if dev.type != "cuda":
-        raise ValueError(f"gather_scale_segment_sum_cuda needs CUDA "
-                         f"tensors, got {dev}")
+                                  row_ptr: torch.Tensor, num_dst: int, *,
+                                  transpose: bool = False) -> torch.Tensor:
+    """K1 on the card (``csrc/segment_sum.cu``, ``gss_forward``).
+    ``transpose=True`` marks a launch over the src-grouped layout from a
+    backward; it is counted under ``gather_scale_segment_sum_t``."""
+    dev = _require_cuda(h, "gather_scale_segment_sum_cuda")
     _check(h, "h", torch.float32, 2, dev)
     _check(edge_src, "edge_src", torch.int32, 1, dev)
-    _check(coef, "coef", torch.float32, 1, dev)
+    if coef.dim() not in (1, 2):
+        raise ValueError(f"coef must be (E,) or (E, heads), got "
+                         f"{tuple(coef.shape)}")
+    _check(coef, "coef", torch.float32, coef.dim(), dev)
     if coef.shape[0] != edge_src.shape[0]:
         raise ValueError("coef and edge_src differ in length")
-    _check_layout(order, row_ptr, num_dst, dev)
-    _no_grad(h, coef)
+    heads = 1 if coef.dim() == 1 else coef.shape[1]
     F = h.shape[1]
+    if heads < 1 or F % heads:
+        raise ValueError(f"{F} columns do not split into {heads} heads")
+    _check_layout(order, row_ptr, num_dst, dev)
     out = torch.empty((num_dst, F), dtype=torch.float32, device=dev)
     if num_dst == 0 or F == 0:
         return out
@@ -132,8 +184,9 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
     build.check(lib.gss_forward(
         h.data_ptr(), edge_src.data_ptr(), coef.data_ptr(),
         order.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-        num_dst, F, _stream()), "gss_forward")
-    launches["gather_scale_segment_sum"] += 1
+        num_dst, F, heads, _stream()), "gss_forward")
+    launches["gather_scale_segment_sum_t" if transpose
+             else "gather_scale_segment_sum"] += 1
     return out
 
 
@@ -143,11 +196,9 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
 
 def segment_sum_plain(msgs: torch.Tensor, order: torch.Tensor,
                       row_ptr: torch.Tensor, num_dst: int) -> torch.Tensor:
-    """Plain PyTorch K2 over the dst-grouped layout: ``index_add_`` of
-    the listed message rows."""
-    counts = (row_ptr[1:] - row_ptr[:-1]).long()
-    seg = torch.repeat_interleave(
-        torch.arange(num_dst, device=msgs.device), counts)
+    """Plain PyTorch K2 over a grouped layout: ``index_add_`` of the
+    listed message rows."""
+    seg = _segments(row_ptr, num_dst)
     out = torch.zeros((num_dst, msgs.shape[1]), dtype=msgs.dtype,
                       device=msgs.device)
     return out.index_add(0, seg, msgs[order.long()])
@@ -156,12 +207,9 @@ def segment_sum_plain(msgs: torch.Tensor, order: torch.Tensor,
 def segment_sum_cuda(msgs: torch.Tensor, order: torch.Tensor,
                      row_ptr: torch.Tensor, num_dst: int) -> torch.Tensor:
     """K2 on the card (``csrc/segment_sum.cu``, ``seg_forward``)."""
-    dev = msgs.device
-    if dev.type != "cuda":
-        raise ValueError(f"segment_sum_cuda needs CUDA tensors, got {dev}")
+    dev = _require_cuda(msgs, "segment_sum_cuda")
     _check(msgs, "msgs", torch.float32, 2, dev)
     _check_layout(order, row_ptr, num_dst, dev)
-    _no_grad(msgs)
     F = msgs.shape[1]
     out = torch.empty((num_dst, F), dtype=torch.float32, device=dev)
     if num_dst == 0 or F == 0:
@@ -172,3 +220,227 @@ def segment_sum_cuda(msgs: torch.Tensor, order: torch.Tensor,
         out.data_ptr(), num_dst, F, _stream()), "seg_forward")
     launches["segment_sum"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: row gather (the transpose of K2)
+# ---------------------------------------------------------------------------
+
+def _edge_output(nnz: int, shape, device) -> torch.Tensor:
+    """A per-edge output: zeros where edges go unlisted, else uninit."""
+    fill = torch.empty if nnz == shape[0] else torch.zeros
+    return fill(shape, dtype=torch.float32, device=device)
+
+
+def gather_rows_plain(g: torch.Tensor, seg: torch.Tensor,
+                      order: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """Plain PyTorch K5: ``out[e] = g[seg[e]]`` for the edges ``order``
+    lists, zero rows for the others."""
+    e = order.long()
+    out = torch.zeros((num_edges, g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    return out.index_copy(0, e, g[seg.long()[e]])
+
+
+def gather_rows_cuda(g: torch.Tensor, seg: torch.Tensor,
+                     order: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """K5 on the card (``csrc/segment_sum.cu``, ``gather_rows``)."""
+    dev = _require_cuda(g, "gather_rows_cuda")
+    _check(g, "g", torch.float32, 2, dev)
+    _check(seg, "seg", torch.int32, 1, dev)
+    _check(order, "order", torch.int32, 1, dev)
+    if seg.shape[0] != num_edges or order.shape[0] > num_edges:
+        raise ValueError(f"seg has {seg.shape[0]} and order "
+                         f"{order.shape[0]} entries for {num_edges} edges")
+    nnz, F = order.shape[0], g.shape[1]
+    out = _edge_output(nnz, (num_edges, F), dev)
+    if nnz == 0 or F == 0:
+        return out
+    lib = build.library("segment_sum")
+    build.check(lib.gather_rows(
+        g.data_ptr(), seg.data_ptr(), order.data_ptr(), out.data_ptr(),
+        nnz, F, _stream()), "gather_rows")
+    launches["gather_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: per-edge, per-head dot product (the coefficient cotangent of K1)
+# ---------------------------------------------------------------------------
+
+def edge_dot_plain(a: torch.Tensor, b: torch.Tensor, edge_src: torch.Tensor,
+                   edge_dst: torch.Tensor, order: torch.Tensor,
+                   heads: int = 1) -> torch.Tensor:
+    """Plain PyTorch K6: ``out[e, h] = <a[src_e, h-th slice],
+    b[dst_e, h-th slice]>`` (slices of ``F / heads`` columns) for the
+    listed edges, zero for the others.  Returns (E, heads)."""
+    e = order.long()
+    hd = a.shape[1] // heads
+    ra = a[edge_src.long()[e]].reshape(len(e), heads, hd)
+    rb = b[edge_dst.long()[e]].reshape(len(e), heads, hd)
+    out = torch.zeros((edge_src.shape[0], heads), dtype=a.dtype,
+                      device=a.device)
+    return out.index_copy(0, e, (ra * rb).sum(-1))
+
+
+def edge_dot_cuda(a: torch.Tensor, b: torch.Tensor, edge_src: torch.Tensor,
+                  edge_dst: torch.Tensor, order: torch.Tensor,
+                  heads: int = 1) -> torch.Tensor:
+    """K6 on the card (``csrc/segment_sum.cu``, ``edge_dot``)."""
+    dev = _require_cuda(a, "edge_dot_cuda")
+    _check(a, "a", torch.float32, 2, dev)
+    _check(b, "b", torch.float32, 2, dev)
+    _check(edge_src, "edge_src", torch.int32, 1, dev)
+    _check(edge_dst, "edge_dst", torch.int32, 1, dev)
+    _check(order, "order", torch.int32, 1, dev)
+    F, E = a.shape[1], edge_src.shape[0]
+    if b.shape[1] != F or heads < 1 or F % heads:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
+                         f"share a width that splits into {heads} heads")
+    if edge_dst.shape[0] != E or order.shape[0] > E:
+        raise ValueError("edge_src, edge_dst and order do not match")
+    nnz = order.shape[0]
+    out = _edge_output(nnz, (E, heads), dev)
+    if nnz == 0:
+        return out
+    if F == 0:
+        return out.zero_()
+    lib = build.library("segment_sum")
+    build.check(lib.edge_dot(
+        a.data_ptr(), b.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(),
+        order.data_ptr(), out.data_ptr(), nnz, F, heads, _stream()),
+        "edge_dot")
+    launches["edge_dot"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: K1 on int8 wire rows, dequantized in registers
+# ---------------------------------------------------------------------------
+
+def gather_scale_segment_sum_q_plain(q: torch.Tensor, mn: torch.Tensor,
+                                     scale: torch.Tensor,
+                                     edge_src: torch.Tensor,
+                                     coef: torch.Tensor, order: torch.Tensor,
+                                     row_ptr: torch.Tensor,
+                                     num_dst: int) -> torch.Tensor:
+    """Plain PyTorch K4: decode ``mn + q * scale`` (the codec's own
+    arithmetic), then plain K1."""
+    h = mn + q.to(torch.float32) * scale
+    return gather_scale_segment_sum_plain(h, edge_src, coef, order, row_ptr,
+                                          num_dst)
+
+
+def gather_scale_segment_sum_q_cuda(q: torch.Tensor, mn: torch.Tensor,
+                                    scale: torch.Tensor,
+                                    edge_src: torch.Tensor,
+                                    coef: torch.Tensor, order: torch.Tensor,
+                                    row_ptr: torch.Tensor,
+                                    num_dst: int) -> torch.Tensor:
+    """K4 on the card (``csrc/segment_sum.cu``, ``gssq_forward``)."""
+    dev = _require_cuda(q, "gather_scale_segment_sum_q_cuda")
+    _check(q, "q", torch.uint8, 2, dev)
+    S, F = q.shape
+    for t, name in ((mn, "mn"), (scale, "scale")):
+        _check(t, name, torch.float32, 2, dev)
+        if tuple(t.shape) != (S, 1):
+            raise ValueError(f"{name} must be ({S}, 1), got "
+                             f"{tuple(t.shape)}")
+    _check(edge_src, "edge_src", torch.int32, 1, dev)
+    _check(coef, "coef", torch.float32, 1, dev)
+    if coef.shape[0] != edge_src.shape[0]:
+        raise ValueError("coef and edge_src differ in length")
+    _check_layout(order, row_ptr, num_dst, dev)
+    out = torch.empty((num_dst, F), dtype=torch.float32, device=dev)
+    if num_dst == 0 or F == 0:
+        return out
+    lib = build.library("segment_sum")
+    build.check(lib.gssq_forward(
+        q.data_ptr(), mn.data_ptr(), scale.data_ptr(), edge_src.data_ptr(),
+        coef.data_ptr(), order.data_ptr(), row_ptr.data_ptr(),
+        out.data_ptr(), num_dst, F, _stream()), "gssq_forward")
+    launches["gather_scale_segment_sum_q"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions (both devices: forward and backward go through ops)
+# ---------------------------------------------------------------------------
+
+def _need_layout(layout: Optional[Layout], what: str) -> None:
+    if layout is None:
+        raise ValueError(
+            f"{what} needs the src-grouped layout to differentiate: build "
+            f"the DeviceGraph with src_layout=True")
+
+
+class GatherScaleSegmentSum(torch.autograd.Function):
+    """K1 with its VJP: ``dh`` is K1 over the src-grouped layout with
+    source and destination swapped (``dh[s] = sum_{e: src_e=s} coef_e *
+    g[dst_e]``), ``dcoef`` is K6.  Each is computed only when asked for."""
+
+    @staticmethod
+    def forward(ctx, h, edge_src, edge_dst, coef, order, row_ptr,
+                src_layout, num_dst):
+        from repro_torch.kernels import ops
+        if ctx.needs_input_grad[0]:
+            _need_layout(src_layout, "gather_scale_segment_sum")
+        ctx.src_layout = src_layout
+        ctx.save_for_backward(h, edge_src, edge_dst, coef, order)
+        return ops.gather_scale_segment_sum(h, edge_src, coef, order,
+                                            row_ptr, num_dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import ops
+        h, edge_src, edge_dst, coef, order = ctx.saved_tensors
+        g = g.contiguous()
+        dh = dcoef = None
+        if ctx.needs_input_grad[0]:
+            order_s, row_ptr_s = ctx.src_layout
+            dh = ops.gather_scale_segment_sum(g, edge_dst, coef, order_s,
+                                              row_ptr_s, h.shape[0],
+                                              transpose=True)
+        if ctx.needs_input_grad[3]:
+            dcoef = ops.edge_dot(h, g, edge_src, edge_dst, order)[:, 0]
+        return dh, None, None, dcoef, None, None, None, None
+
+
+class SegmentSum(torch.autograd.Function):
+    """K2 with its VJP, K5: ``dmsgs[e] = g[seg_e]`` on the listed edges
+    (zero on the others, which the forward never read)."""
+
+    @staticmethod
+    def forward(ctx, msgs, seg, order, row_ptr, num_dst):
+        from repro_torch.kernels import ops
+        ctx.save_for_backward(seg, order)
+        return ops.segment_sum(msgs, order, row_ptr, num_dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import ops
+        seg, order = ctx.saved_tensors
+        return (ops.gather_rows(g.contiguous(), seg, order, seg.shape[0]),
+                None, None, None, None)
+
+
+class GatherRows(torch.autograd.Function):
+    """The Scatter step as K5, ``out[e] = x[idx_e]`` on the listed edges,
+    with its VJP: K2 over the layout grouped by ``idx``.  Unlike
+    indexing's own backward, the sum has no float atomics."""
+
+    @staticmethod
+    def forward(ctx, x, idx, order, idx_layout):
+        from repro_torch.kernels import ops
+        if ctx.needs_input_grad[0]:
+            _need_layout(idx_layout, "the Scatter gather")
+        ctx.idx_layout = idx_layout
+        ctx.num_rows = x.shape[0]
+        return ops.gather_rows(x, idx, order, idx.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels import ops
+        order_i, row_ptr_i = ctx.idx_layout
+        return (ops.segment_sum(g.contiguous(), order_i, row_ptr_i,
+                                ctx.num_rows), None, None, None)

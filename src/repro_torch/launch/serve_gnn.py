@@ -35,8 +35,6 @@ _NOT_PORTED = {
     "--update-stream": (lambda a: bool(a.update_stream),
                         "updates (dynamic graphs)"),
     "--reorder": (lambda a: a.reorder != "none", "reordering"),
-    "--train-epochs": (lambda a: a.train_epochs > 0,
-                       "optim, train steps, launch/train_gnn.py"),
     "--dataset": (lambda a: bool(a.dataset), "datasets"),
 }
 
@@ -88,7 +86,8 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory (not ported yet: refused)")
     ap.add_argument("--train-epochs", type=int, default=0,
-                    help="pre-training epochs (not ported yet: refused)")
+                    help="full-graph AdamW pre-training epochs before "
+                         "serving (lr 1e-2, no weight decay)")
     ap.add_argument("--metrics-out", default="",
                     help="enable telemetry and write the Prometheus "
                          "text-format exposition here on exit "
@@ -152,6 +151,20 @@ def run(args):
                     wire_codec=args.wire_codec)
     params = GM.init_gnn(cfg, torch.Generator().manual_seed(args.seed),
                          device=device)
+
+    if args.train_epochs:
+        from repro_torch.core.abstraction import DeviceGraph
+        from repro_torch.optim import AdamW
+        opt = AdamW(params.parameters(), lr=1e-2, weight_decay=0.0)
+        dg = DeviceGraph.from_graph(g, device, src_layout=True)
+        x = torch.from_numpy(g.features).to(device)
+        y = torch.from_numpy(g.labels).to(device)
+        mask = torch.ones(y.shape, dtype=torch.float32, device=device)
+        step = GM.make_fullgraph_train_step(cfg, opt)
+        for _ in range(args.train_epochs):
+            loss = step(params, dg, x, y, mask)
+        print(f"pre-trained {args.train_epochs} epochs, "
+              f"loss {float(loss):.4f}")
     print(f"model: {cfg.arch} {cfg.feat_dim}->{cfg.hidden}->"
           f"{cfg.num_classes}, fanouts {args.fanouts}, on {device}")
 

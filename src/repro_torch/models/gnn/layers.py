@@ -53,7 +53,8 @@ class GCNLayer(MessagePassing):
         # exists on the kernel path
         agg = gather_scale_segment_sum(h, g.edge_src, g.edge_dst,
                                        coef * g.edge_mask, g.num_dst,
-                                       layout=g.layout)
+                                       layout=g.layout,
+                                       src_layout=g.src_layout)
         return agg + self.b
 
 
@@ -61,7 +62,11 @@ class SAGELayer(MessagePassing):
     """GraphSAGE-mean: h' = W_self h + W_nbr mean(neighbors).
 
     The neighbor mean routes through the fused gather→scale→segment-sum
-    (mask as the per-edge coefficient, degree normalization after)."""
+    (mask as the per-edge coefficient, degree normalization after).
+    Features aggregate before any projection, so layer 0 takes
+    ``QuantizedRows`` (int8 wire rows) as they are: the aggregation runs
+    the int8-in kernel on the uploaded codes, and the self path decodes
+    only the ``num_dst`` prefix, on the device."""
 
     aggregate = "mean"
 
@@ -78,14 +83,17 @@ class SAGELayer(MessagePassing):
     def forward(self, g: DeviceGraph, x_src, x_dst=None):
         if x_dst is None:
             # the self path needs fp32 rows: only the num_dst prefix of
-            # wire-format rows is decoded for it
-            x_dst = (dequantize_on(x_src.rows(slice(0, g.num_dst)),
-                                   g.edge_src.device)
-                     if isinstance(x_src, QuantizedRows)
-                     else x_src[:g.num_dst])
+            # wire-format rows is decoded for it (the codec's arithmetic)
+            if isinstance(x_src, QuantizedRows):
+                q, mn, scale = (torch.from_numpy(np.ascontiguousarray(
+                    a[:g.num_dst])).to(g.edge_src.device) for a in x_src)
+                x_dst = mn + q.to(torch.float32) * scale
+            else:
+                x_dst = x_src[:g.num_dst]
         coef = g.edge_mask.to(torch.float32)
         agg = gather_scale_segment_sum(x_src, g.edge_src, g.edge_dst, coef,
-                                       g.num_dst, layout=g.layout)
+                                       g.num_dst, layout=g.layout,
+                                       src_layout=g.src_layout)
         agg = agg / g.in_deg[:, None]
         return self.update(agg, x_dst)
 
@@ -114,9 +122,10 @@ class GATLayer(MessagePassing):
         hdst = (x_dst @ self.w).reshape(-1, heads, hd)
         es = torch.einsum("nhd,hd->nh", hs, self.a_src).contiguous()
         ed = torch.einsum("nhd,hd->nh", hdst, self.a_dst).contiguous()
-        return kops.gat_attention(hs.reshape(-1, heads * hd).contiguous(),
-                                  es, ed, g.edge_src, g.order, g.row_ptr,
-                                  g.num_dst)
+        return kops.GatAttention.apply(
+            hs.reshape(-1, heads * hd).contiguous(), es, ed, g.edge_src,
+            g.edge_dst, g.edge_mask, g.order, g.row_ptr, g.src_layout,
+            g.num_dst)
 
 
 class GINLayer(MessagePassing):
@@ -165,7 +174,8 @@ class GGNNLayer(MessagePassing):
         hm = x_src @ self.w_msg
         agg = gather_scale_segment_sum(hm, g.edge_src, g.edge_dst,
                                        g.edge_mask.to(hm.dtype), g.num_dst,
-                                       layout=g.layout)
+                                       layout=g.layout,
+                                       src_layout=g.src_layout)
         d = x_dst.shape[-1]
         gates = agg @ self.w_zrh + x_dst @ self.u_zrh + self.b
         z = torch.sigmoid(gates[:, :d])
@@ -193,7 +203,8 @@ class APPNPLayer(MessagePassing):
         coef = (torch.rsqrt(g.out_deg)[g.edge_src.long()]
                 * torch.rsqrt(g.in_deg)[g.edge_dst.long()] * g.edge_mask)
         agg = gather_scale_segment_sum(h, g.edge_src, g.edge_dst, coef,
-                                       g.num_dst, layout=g.layout)
+                                       g.num_dst, layout=g.layout,
+                                       src_layout=g.src_layout)
         return (1 - self.alpha) * agg + self.alpha * h0
 
 

@@ -1,5 +1,6 @@
 """GNN models: stacks of abstraction-layer GNN layers, usable in
-full-graph mode (one DeviceGraph) or mini-batch mode (list of blocks).
+full-graph mode (one DeviceGraph) or mini-batch mode (list of blocks),
+with the reference's loss and training steps.
 
 The model is an ``nn.ModuleList`` whose entry ``i`` is the layer module
 holding the reference's ``params[i]`` dict, so the functions keep the
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.abstraction import DeviceGraph
+from repro_torch.core.comm import QuantizedRows
 from repro_torch.models.gnn.layers import APPNPLayer, LAYER_TYPES
 
 
@@ -109,10 +111,21 @@ def forward_blocks(cfg: GNNConfig, params: nn.ModuleList,
     _check_sampled(cfg)
     h = x_input
     for i, (layer, g) in enumerate(zip(params, blocks)):
-        h = layer(g, h)
+        h = layer(g, _pad_rows(h, g.num_src))
         if i + 1 < len(params):
             h = F.relu(h)
     return h
+
+
+def _pad_rows(h, num_src: int):
+    """``h`` with zero rows appended up to ``num_src``.  The training
+    sampler makes a block's destinations only the previous block's valid
+    sources, so a layer's output can be shorter than the next block's
+    padded source list; the rows added are never read by a listed edge,
+    and the layouts (built over ``num_src``) then match the rows."""
+    if isinstance(h, QuantizedRows) or h.shape[0] >= num_src:
+        return h
+    return F.pad(h, (0, 0, 0, num_src - h.shape[0]))
 
 
 def forward_blocks_cached(cfg: GNNConfig, params: nn.ModuleList,
@@ -142,3 +155,62 @@ def _check_sampled(cfg: GNNConfig) -> None:
     # KeyError: its LAYER_TYPES has no "appnp")
     if cfg.arch == "appnp":
         raise ValueError("appnp runs full-graph; use forward_full")
+
+
+def nll_sum_count(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor):
+    """Masked NLL as an (unnormalized sum, count) pair — the combinable
+    form a distributed step all-reduces before dividing."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor = None) -> torch.Tensor:
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=logits.dtype,
+                          device=logits.device)
+    total, cnt = nll_sum_count(logits, labels, mask)
+    return total / torch.clamp(cnt, min=1.0)
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor = None) -> torch.Tensor:
+    correct = (torch.argmax(logits, -1) == labels).to(torch.float32)
+    if mask is not None:
+        return torch.sum(correct * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+    return torch.mean(correct)
+
+
+def make_fullgraph_train_step(cfg: GNNConfig, optimizer):
+    """``step(params, g, x, labels, mask) -> loss``: forward, NLL,
+    ``backward()`` and one ``optimizer`` step on ``params`` (the model the
+    optimizer was built on).  ``g`` needs its src-grouped layout
+    (``DeviceGraph.from_graph(..., src_layout=True)``).  The loss comes
+    back as a detached 0-d tensor on the device (reading it waits)."""
+    def step(params: nn.ModuleList, g: DeviceGraph, x, labels, mask):
+        optimizer.zero_grad(set_to_none=True)
+        loss = nll_loss(forward_full(cfg, params, g, x), labels, mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def make_minibatch_train_step(cfg: GNNConfig, optimizer):
+    """``step(params, blocks, x_input, labels, mask) -> loss`` over
+    sampled blocks built with their src-grouped layouts; ``x_input`` may
+    be ``QuantizedRows`` (SAGE's layer 0 aggregates them as they are)."""
+    def step(params: nn.ModuleList, blocks: Sequence[DeviceGraph], x_input,
+             labels, mask):
+        optimizer.zero_grad(set_to_none=True)
+        loss = nll_loss(forward_blocks(cfg, params, blocks, x_input),
+                        labels, mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

@@ -1,6 +1,9 @@
 """The port's plain aggregation kernels (K1 gather-scale-segment-sum, K2
-segment-sum, K3 one-pass GAT attention) against the reference's Pallas
-kernels in interpret mode and its XLA paths, on identical numpy inputs.
+segment-sum, K3 one-pass GAT attention, K4 int8-in K1, K5 row gather, K6
+edge dot) against the reference's Pallas kernels in interpret mode and
+its XLA paths, on identical numpy inputs; and the autograd Functions
+built on them (``gradcheck`` in float64, and against the reference's
+custom VJPs).
 
 The plain versions read the same dst-grouped layout the Hopper kernels
 read, so these tests pin the layout as well as the arithmetic.  The CUDA
@@ -249,5 +252,274 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
     with pytest.raises(ValueError):
         ops.segment_sum(torch.randn(len(src), 4, device="meta"), order,
                         row_ptr, 15)
-    assert ops.launch_counts() == {"gather_scale_segment_sum": 0,
-                                   "segment_sum": 0, "gat_attention": 0}
+    for fn, args in [
+            (segment_sum.gather_rows_cuda, (h, _t(dst), order, len(src))),
+            (segment_sum.edge_dot_cuda, (h, h, _t(src), _t(src), order)),
+            (segment_sum.gather_scale_segment_sum_q_cuda,
+             (torch.zeros(20, 4, dtype=torch.uint8), torch.zeros(20, 1),
+              torch.ones(20, 1), _t(src), coef, order, row_ptr, 15))]:
+        with pytest.raises(ValueError):
+            fn(*args)
+    with pytest.raises(ValueError):
+        ops.gather_rows(torch.randn(15, 4, device="meta"), _t(dst), order,
+                        len(src))
+    assert ops.launch_counts() == {
+        "gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
+        "segment_sum": 0, "gather_scale_segment_sum_q": 0,
+        "gather_rows": 0, "edge_dot": 0, "gat_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (K5, K6, K1 over the src layout) and K4
+# ---------------------------------------------------------------------------
+
+def test_device_graph_src_layout_groups_the_same_edges_by_source():
+    from repro.core.sampling import Block
+    src, dst, mask = _edges(6, 40, 30, 120, 16)
+    b = Block(np.arange(40), np.arange(30), src, dst, mask)
+    assert abs_t.DeviceGraph.from_block(b, "cpu").src_layout is None
+    dg = abs_t.DeviceGraph.from_block(b, "cpu", src_layout=True)
+    order_s, row_ptr_s = (t.numpy() for t in dg.src_layout)
+    want = dst_layout(src, 40, mask)
+    np.testing.assert_array_equal(order_s, want[0])
+    np.testing.assert_array_equal(row_ptr_s, want[1])
+    assert sorted(order_s) == sorted(dg.order.numpy())   # same edge set
+
+
+@pytest.mark.parametrize("S,D,E,n_pad,F", CASES)
+def test_k5_plain_matches_pallas_on_listed_edges(S, D, E, n_pad, F):
+    rng = np.random.default_rng(21 + S + E + F)
+    _, seg, mask = _edges(S + F + 2, S, D, E, n_pad)
+    g = rng.standard_normal((D, F)).astype(np.float32)
+    pallas = np.asarray(ref_ss.gather_rows_pallas(
+        jnp.asarray(g), jnp.asarray(seg), len(seg), interpret=True))
+    order, _ = _layout(seg, D, mask)
+    plain = segment_sum.gather_rows_plain(_t(g), _t(seg), order, len(seg))
+    via_ops = ops.gather_rows(_t(g), _t(seg), order, len(seg))
+    assert plain.shape == (len(seg), F)
+    # exact copies of rows; unlisted (masked) edges are zero in the port
+    np.testing.assert_array_equal(plain.numpy()[mask], pallas[mask])
+    assert (plain.numpy()[~mask] == 0).all()
+    np.testing.assert_array_equal(via_ops.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("S,D,E,n_pad,F", CASES)
+def test_k6_plain_matches_pallas_on_listed_edges(S, D, E, n_pad, F):
+    rng = np.random.default_rng(31 + S + E + F)
+    src, dst, mask = _edges(S + F + 3, S, D, E, n_pad)
+    h = rng.standard_normal((S, F)).astype(np.float32)
+    gout = rng.standard_normal((D, F)).astype(np.float32)
+    pallas = np.asarray(ref_ss._edge_dot(
+        jnp.asarray(h), jnp.asarray(gout), jnp.asarray(src), jnp.asarray(dst),
+        ref_ss.DEFAULT_BE, ref_ss._pick_bf(F), True))
+    order, _ = _layout(dst, D, mask)
+    plain = segment_sum.edge_dot_plain(_t(h), _t(gout), _t(src), _t(dst),
+                                       order)
+    via_ops = ops.edge_dot(_t(h), _t(gout), _t(src), _t(dst), order)
+    assert plain.shape == (len(src), 1)
+    np.testing.assert_allclose(plain.numpy()[mask, 0], pallas[mask], **TOL)
+    assert (plain.numpy()[~mask] == 0).all()
+    np.testing.assert_array_equal(via_ops.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("heads,hd", [(4, 1), (4, 8), (2, 5)])
+def test_multi_head_k1_and_k6_are_per_head_reference_calls(heads, hd):
+    """The GAT backward's one-launch forms: K1 with an (E, heads)
+    coefficient and K6 with ``heads``, against the reference's per-head
+    ``_fused_impl`` and ``_edge_dot`` (what ``_gat_bwd`` calls)."""
+    S, D, F = 40, 30, heads * hd
+    rng = np.random.default_rng(heads * 10 + hd)
+    src, dst, mask = _edges(heads + hd, S, D, 120, 16)
+    g = rng.standard_normal((D, F)).astype(np.float32)
+    hs = rng.standard_normal((S, F)).astype(np.float32)
+    alpha = (rng.random((len(src), heads)) * mask[:, None]).astype(np.float32)
+    order_s, row_ptr_s = _layout(src, S, mask)
+    order, _ = _layout(dst, D, mask)
+    dhs = segment_sum.gather_scale_segment_sum_plain(
+        _t(g), _t(dst), _t(alpha), order_s, row_ptr_s, S).numpy()
+    dal = segment_sum.edge_dot_plain(_t(hs), _t(g), _t(src), _t(dst), order,
+                                     heads).numpy()
+    bf = ref_ss._pick_bf(hd)
+    for k in range(heads):
+        cols = slice(k * hd, (k + 1) * hd)
+        want = ref_ss._fused_impl(jnp.asarray(g[:, cols]), jnp.asarray(dst),
+                                  jnp.asarray(src), jnp.asarray(alpha[:, k]),
+                                  S, ref_ss.DEFAULT_BE, ref_ss.DEFAULT_BN,
+                                  bf, True)
+        np.testing.assert_allclose(dhs[:, cols], np.asarray(want), **TOL)
+        want = ref_ss._edge_dot(jnp.asarray(hs[:, cols]),
+                                jnp.asarray(g[:, cols]), jnp.asarray(src),
+                                jnp.asarray(dst), ref_ss.DEFAULT_BE, bf, True)
+        np.testing.assert_allclose(dal[mask, k], np.asarray(want)[mask],
+                                   **TOL)
+
+
+def _quantize_rows(h):
+    """The reference tests' per-row affine uint8 codec (normal range)."""
+    mn = h.min(axis=1, keepdims=True)
+    scale = np.maximum((h.max(axis=1, keepdims=True) - mn) / 255.0, 1e-12)
+    q = np.rint((h - mn) / scale).astype(np.uint8)
+    return q, mn.astype(np.float32), scale.astype(np.float32)
+
+
+@pytest.mark.parametrize("S,D,E,n_pad,F", CASES[1:] + [(50, 40, 200, 4, 33)])
+def test_k4_plain_matches_pallas_and_decode_then_fp32(S, D, E, n_pad, F):
+    rng = np.random.default_rng(41 + S + E + F)
+    src, dst, mask = _edges(S + F + 4, S, D, E, n_pad)
+    h = rng.standard_normal((S, F)).astype(np.float32)
+    q, mn, scale = _quantize_rows(h)
+    coef = (rng.standard_normal(len(src)) * mask).astype(np.float32)
+    pallas = ref_ss.gather_scale_segment_sum_q_pallas(
+        jnp.asarray(q), jnp.asarray(mn), jnp.asarray(scale),
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(coef), D,
+        interpret=True)
+    decoded = mn + q.astype(np.float32) * scale
+    want = ref_ss.gather_scale_segment_sum_pallas(
+        jnp.asarray(decoded), jnp.asarray(src), jnp.asarray(dst),
+        jnp.asarray(coef), D, interpret=True)
+    order, row_ptr = _layout(dst, D, mask)
+    plain = segment_sum.gather_scale_segment_sum_q_plain(
+        _t(q), _t(mn), _t(scale), _t(src), _t(coef), order, row_ptr, D)
+    via_ops = ops.gather_scale_segment_sum_q(
+        _t(q), _t(mn), _t(scale), _t(src), _t(coef), order, row_ptr, D)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_array_equal(via_ops.numpy(), plain.numpy())
+    # within the codec's bound of the true fp32 aggregation (fp64 truth):
+    # |err| <= sum over the listed edges of |coef| * scale_src / 2
+    v = mask
+    truth = np.zeros((D, F))
+    np.add.at(truth, dst[v], h[src[v]].astype(np.float64) * coef[v, None])
+    bound = np.zeros(D)
+    np.add.at(bound, dst[v], np.abs(coef[v]) * (scale[src[v], 0] / 2 + 1e-7))
+    err = np.abs(plain.numpy() - truth).max(axis=1, initial=0.0)
+    assert (err <= bound + 1e-5).all(), (err - bound).max()
+
+
+# ---------------------------------------------------------------------------
+# the autograd Functions
+# ---------------------------------------------------------------------------
+
+def _f64(a, grad=True):
+    return torch.from_numpy(np.asarray(a, np.float64)).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("n_pad", [0, 6])
+def test_gradcheck_k1_function(n_pad):
+    src, dst, mask = _edges(50 + n_pad, 10, 8, 24, n_pad)
+    rng = np.random.default_rng(n_pad)
+    h = _f64(rng.standard_normal((10, 3)))
+    coef = _f64(rng.standard_normal(len(src)) * mask)
+    order, row_ptr = _layout(dst, 8, mask)
+    src_layout = _layout(src, 10, mask)
+    assert torch.autograd.gradcheck(
+        lambda h, c: ops.GatherScaleSegmentSum.apply(
+            h, _t(src), _t(dst), c, order, row_ptr, src_layout, 8),
+        (h, coef))
+    with pytest.raises(ValueError, match="src_layout=True"):
+        ops.GatherScaleSegmentSum.apply(h, _t(src), _t(dst), coef, order,
+                                        row_ptr, None, 8)
+
+
+def test_gradcheck_k2_and_scatter_gather_functions():
+    src, dst, mask = _edges(60, 10, 8, 24, 5)
+    rng = np.random.default_rng(1)
+    msgs = _f64(rng.standard_normal((len(src), 3)))
+    order, row_ptr = _layout(dst, 8, mask)
+    assert torch.autograd.gradcheck(
+        lambda m: ops.SegmentSum.apply(m, _t(dst), order, row_ptr, 8),
+        (msgs,))
+    x = _f64(rng.standard_normal((10, 3)))
+    src_layout = _layout(src, 10, mask)
+    assert torch.autograd.gradcheck(
+        lambda x: ops.GatherRows.apply(x, _t(src), order, src_layout), (x,))
+
+
+@pytest.mark.parametrize("reads_dst", [False, True])
+def test_saga_layer_matches_reference(reads_dst):
+    """The SAGA-NN step and its gradient against the reference's
+    ``saga_layer``; a message that does not read the destination rows
+    gets None for them (the port does not gather them)."""
+    from repro.core.sampling import Block
+    src, dst, mask = _edges(80, 40, 30, 120, 16)
+    b = Block(np.arange(40), np.arange(30), src, dst, mask)
+    rng = np.random.default_rng(80)
+    x = rng.standard_normal((40, 6)).astype(np.float32)
+    ct = rng.standard_normal((30, 6)).astype(np.float32)
+
+    def edge(s, d, _):
+        return s * d if reads_dst else s
+
+    def vertex(agg, xd):
+        return agg + 2.0 * xd
+
+    ref_g = ref_abs.DeviceGraph.from_block(b)
+    want, vjp = jax.vjp(lambda xj: ref_abs.saga_layer(
+        ref_g, xj, xj[:30], apply_edge=edge, apply_vertex=vertex),
+        jnp.asarray(x))
+    (dx_want,) = vjp(jnp.asarray(ct))
+    seen = []
+    dg = abs_t.DeviceGraph.from_block(b, "cpu", src_layout=True)
+    xt = _t(x).requires_grad_(True)
+    got = abs_t.saga_layer(
+        dg, xt, xt[:30], apply_vertex=vertex, reads_dst=reads_dst,
+        apply_edge=lambda s, d, e: seen.append(d) or edge(s, d, e))
+    got.backward(_t(ct))
+    assert (seen[0] is not None) == reads_dst
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_want), **TOL)
+
+
+@pytest.mark.parametrize("heads,hd", [(2, 3), (4, 1)])
+def test_gradcheck_k3_function(heads, hd):
+    src, dst, mask = _edges(70 + hd, 10, 8, 30, 5)
+    rng = np.random.default_rng(heads + hd)
+    hs = _f64(rng.standard_normal((10, heads * hd)))
+    es = _f64(rng.standard_normal((10, heads)))
+    ed = _f64(rng.standard_normal((8, heads)))
+    order, row_ptr = _layout(dst, 8, mask)
+    src_layout = _layout(src, 10, mask)
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: ops.GatAttention.apply(
+            a, b, c, _t(src), _t(dst), _t(mask), order, row_ptr, src_layout,
+            8), (hs, es, ed))
+
+
+def test_functions_match_the_reference_custom_vjps():
+    """Cotangents of the K1 and K3 Functions against ``jax.vjp`` through
+    the reference's Pallas custom VJPs (interpret mode), on the listed
+    edges; masked edges carry zero coefficient cotangent in the port."""
+    S, D, F, heads = 40, 30, 8, 4
+    rng = np.random.default_rng(9)
+    src, dst, mask = _edges(9, S, D, 120, 16)
+    h = rng.standard_normal((S, F)).astype(np.float32)
+    coef = (rng.standard_normal(len(src)) * mask).astype(np.float32)
+    es = rng.standard_normal((S, heads)).astype(np.float32)
+    ed = rng.standard_normal((D, heads)).astype(np.float32)
+    g = rng.standard_normal((D, F)).astype(np.float32)
+    order, row_ptr = _layout(dst, D, mask)
+    src_layout = _layout(src, S, mask)
+
+    _, vjp = jax.vjp(lambda h, c: ref_ss.gather_scale_segment_sum_pallas(
+        h, jnp.asarray(src), jnp.asarray(dst), c, D, interpret=True),
+        jnp.asarray(h), jnp.asarray(coef))
+    ref_dh, ref_dc = vjp(jnp.asarray(g))
+    ht, ct = _t(h).requires_grad_(), _t(coef).requires_grad_()
+    out = ops.GatherScaleSegmentSum.apply(ht, _t(src), _t(dst), ct, order,
+                                          row_ptr, src_layout, D)
+    dh, dc = torch.autograd.grad(out, (ht, ct), _t(g))
+    np.testing.assert_allclose(dh.numpy(), np.asarray(ref_dh), **TOL)
+    np.testing.assert_allclose(dc.numpy()[mask], np.asarray(ref_dc)[mask],
+                               **TOL)
+    assert (dc.numpy()[~mask] == 0).all()
+
+    _, vjp = jax.vjp(lambda a, b, c: ref_gat.gat_fused_attention_pallas(
+        a, b, c, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask), D,
+        heads=heads, interpret=True), jnp.asarray(h), jnp.asarray(es),
+        jnp.asarray(ed))
+    refs = vjp(jnp.asarray(g))
+    ins = [_t(a).requires_grad_() for a in (h, es, ed)]
+    out = ops.GatAttention.apply(*ins, _t(src), _t(dst), _t(mask), order,
+                                 row_ptr, src_layout, D)
+    for got, want in zip(torch.autograd.grad(out, ins, _t(g)), refs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -105,7 +105,6 @@ def test_serve_gnn_main_smoke_on_cpu():
                                   ["--ckpt-dir", "ck"],
                                   ["--update-stream", "u.jsonl"],
                                   ["--reorder", "bfs"],
-                                  ["--train-epochs", "1"],
                                   ["--dataset", "reddit-like"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
