@@ -31,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every pointer and the stream are void*, sizes are int,
-# the return value is cudaGetLastError() after the launch
+# a scale is float, the return value is cudaGetLastError() after the launch
 SIGNATURES = {
     "segment_sum": {
         "gss_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -44,6 +45,15 @@ SIGNATURES = {
     "gat_fused": {
         "gat_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P],
+    },
+    # the strides arrive as a pointer to a host array of int64
+    "flash_attention": {
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _I, _P],
+    },
+    "ssd_chunk": {
+        "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P],
     },
 }
 

@@ -1,5 +1,6 @@
-"""Device dispatch for the aggregation kernels, and the differentiable
-entry points built on them.
+"""Device dispatch for the hand-written kernels (the aggregations K1-K6,
+flash attention K7, the SSD chunk state K8), and the differentiable
+entry points built on the aggregations.
 
 Each kernel entry point looks at the device of its first tensor: a CUDA
 tensor goes to the hand-written Hopper kernel, a CPU tensor to the
@@ -19,8 +20,10 @@ from __future__ import annotations
 
 import functools
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gat_fused as _gat
 from repro_torch.kernels import segment_sum as _ss
+from repro_torch.kernels import ssd_chunk as _ssd
 from repro_torch.kernels.gat_fused import GatAttention  # noqa: F401
 from repro_torch.kernels.segment_sum import (  # noqa: F401
     GatherRows, GatherScaleSegmentSum, SegmentSum)
@@ -74,12 +77,29 @@ def edge_dot(a, b, edge_src, edge_dst, order, heads: int = 1):
     return fn(a, b, edge_src, edge_dst, order, heads)
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None):
+    """K7: causal / sliding-window GQA attention, queries aligned to the
+    end of the kv axis; q (B, H, Sq, hd), k, v (B, K, Skv, hd)."""
+    fn = _ss.pick(_fa.flash_attention_cuda, _fa.flash_attention_plain, q)
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def ssd_chunk_state(x, dt, A, Bm):
+    """K8: the Mamba2 SSD per-chunk state (C, H, P, N) in float32."""
+    fn = _ss.pick(_ssd.ssd_chunk_state_cuda, _ssd.ssd_chunk_state_plain, x)
+    return fn(x, dt, A, Bm)
+
+
+_COUNTS = (_ss.launches, _gat.launches, _fa.launches, _ssd.launches)
+
+
 def launch_counts() -> dict:
     """Launches of every kernel wrapper since the last reset."""
-    return {**_ss.launches, **_gat.launches}
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_ss.launches, _gat.launches):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

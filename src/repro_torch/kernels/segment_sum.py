@@ -89,7 +89,7 @@ def pick(cuda_fn: Callable, plain_fn: Callable, t: torch.Tensor) -> Callable:
         return cuda_fn
     if t.device.type == "cpu":
         return plain_fn
-    raise ValueError(f"no aggregation kernel for device {t.device}")
+    raise ValueError(f"no kernel for device {t.device}")
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -102,6 +102,21 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_view(t: torch.Tensor, name: str, dtype: torch.dtype,
+                device: torch.device, shape) -> None:
+    """Like :func:`_check` for a kernel that reads through strides: the
+    exact shape, and only the last dim contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.dim() and t.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dim must be contiguous")
 
 
 def _check_layout(order: torch.Tensor, row_ptr: torch.Tensor, num_dst: int,

@@ -1,0 +1,112 @@
+"""How far ``model.prefill``'s logits at a prompt's last position lie
+from those of the serving launcher's decode-only loop (``launch/serve.py``
+feeds the prompt through ``decode_step`` one position at a time).
+
+  PYTHONPATH=src python -m repro_torch.launch.prefill_gap \\
+      --arch mamba2-780m --dtype float32 --batch 2 --prompt-len 1024 \\
+      --device cpu
+
+The two paths compute one function by two algorithms (chunked SSD or
+flash attention over the whole prompt; the recurrent update or the
+softmax over the cache, one position at a time), so on the same prompt
+their gap is roundoff.  ``--flip POS`` is the control: the decode loop
+reads the prompt with the token at ``POS`` changed, which gives the gap
+that a one-token difference makes.  Weights and prompts come from torch
+generators seeded by ``--seed``; ``--device`` defaults to ``cuda``.
+Prints one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch import device as D
+from repro_torch.configs.base import get_config
+from repro_torch.models.transformer import model as M
+
+
+def decode_loop(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The serving launcher's decode-only loop over ``tokens`` (B, S): the
+    logits (B, padded_vocab) at the last position."""
+    cache = M.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                         device=tokens.device)
+    logits = None
+    for t in range(tokens.shape[1]):
+        logits, cache = M.decode_step(cfg, params, cache,
+                                      {"token": tokens[:, t:t + 1],
+                                       "pos": t})
+    return logits
+
+
+def gap(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """How far logits ``a`` are from ``b``: the largest absolute gap, the
+    largest |b|, their ratio, the RMS ratio |a - b| / |b| and the share
+    of rows whose argmax agrees."""
+    a, b = a.float(), b.float()
+    max_abs, ref = (a - b).abs().max().item(), b.abs().max().item()
+    return {"max_abs": max_abs, "max_abs_ref": ref,
+            "max_abs_rel": max_abs / ref if ref else float("inf"),
+            "rms_ratio": ((a - b).norm() / b.norm()).item(),
+            "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean()
+            .item()}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--dtype", default=None,
+                    help="param and compute dtype (default: the config's)")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--flip", type=int, default=None,
+                    help="control: change the decode loop's token at this "
+                         "prompt position")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises when CUDA is "
+                         "missing)")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> dict:
+    """The gap of prefill against the decode-only loop, with the run's
+    settings and its seconds."""
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.dtype:
+        cfg = cfg.replace(param_dtype=args.dtype, compute_dtype=args.dtype)
+    dev = D.resolve(args.device)
+    B, S, V = args.batch, args.prompt_len, cfg.vocab_size
+    if args.flip is not None and not 0 <= args.flip < S:
+        raise ValueError(f"--flip {args.flip} outside a prompt of {S}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = M.init_params(cfg, gen, device=dev)
+    prompts = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    read = prompts.clone()
+    if args.flip is not None:
+        read[:, args.flip] = (read[:, args.flip] + 1) % V
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lg, _ = M.prefill(cfg, params, {"tokens": prompts})
+        dl = decode_loop(cfg, params, read)
+    res = gap(lg[:, :V], dl[:, :V])
+    res.update(arch=cfg.name, dtype=cfg.compute_dtype, layers=cfg.num_layers,
+               d_model=cfg.d_model, batch=B, prompt_len=S, flip=args.flip,
+               device=str(dev), seconds=time.perf_counter() - t0)
+    return res
+
+
+def main(argv=None) -> dict:
+    res = run(argv)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

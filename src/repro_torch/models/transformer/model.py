@@ -1,0 +1,298 @@
+"""The transformer zoo's serving path, ``dense`` and ``ssm`` families
+(PyTorch port of the reference's ``models/transformer/model.py``):
+init, forward, prefill (forward + cache) and one-token decode.
+
+Params are nested dicts with the reference's keys; ``params["layers"]``
+is a list of per-layer dicts (the reference stacks a leading layer axis
+and scans it; the port loops).  Caches keep the reference's stacked
+layout, ``(num_layers, B, C, K, hd)`` for keys and values and
+``(num_layers, B, H, P, N)`` / ``(num_layers, B, kw-1, Cd)`` for the SSM,
+and :func:`decode_step` writes them in place (the reference donates
+them).
+
+Batch conventions:
+  forward / prefill:  {"tokens": (B, S) int}
+  decode:             {"token": (B, 1) int, "pos": int}
+
+The other families (``moe``, ``mla_moe``, ``hybrid``, ``encdec``,
+``vlm``) raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import PORTED_FAMILIES, not_ported
+from repro_torch.models.transformer import attention as A
+from repro_torch.models.transformer import layers as L
+from repro_torch.models.transformer import ssm as S
+
+
+def _require_family(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        if cfg.family in ("moe", "mla_moe", "hybrid", "encdec", "vlm"):
+            raise not_ported(f"the {cfg.family!r} family ({cfg.name})",
+                             cfg.family, NotImplementedError)
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# ===========================================================================
+# init
+# ===========================================================================
+
+def _init_dense_layer(cfg, gen, dtype, device):
+    return {"attn": A.init_gqa(cfg, gen, dtype, device),
+            "mlp": L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device)}
+
+
+def _init_ssm_layer(cfg, gen, dtype, device):
+    return {"ssm": S.init_ssm(cfg, gen, dtype, device),
+            "ln": L.init_norm(cfg, cfg.d_model, device)}
+
+
+def init_params(cfg, gen: torch.Generator, *,
+                device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
+    """Random params with the reference's distributions, drawn from
+    ``gen`` (a generator on ``device``)."""
+    _require_family(cfg)
+    device = torch.device(device)
+    dtype = L.dtype_of(cfg.param_dtype)
+    params: Dict[str, Any] = {"embed": L.init_embed(cfg, gen, dtype, device),
+                              "ln_f": L.init_norm(cfg, cfg.d_model, device)}
+    layer = _init_dense_layer if cfg.family == "dense" else _init_ssm_layer
+    params["layers"] = [layer(cfg, gen, dtype, device)
+                        for _ in range(cfg.num_layers)]
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        for v in tree:
+            yield from _leaves(v)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def _map(fn, want, given):
+    """``fn(want_leaf, given_leaf)`` over two param trees of one layout."""
+    if isinstance(want, torch.Tensor):
+        return fn(want, given)
+    if isinstance(want, Mapping):
+        return {k: _map(fn, want[k], given[k]) for k in want}
+    return [_map(fn, w, g) for w, g in zip(want, given)]
+
+
+def cast_params(cfg, params) -> Dict[str, Any]:
+    """``params`` (of another dtype config of the same architecture) with
+    each leaf in the dtype ``init_params(cfg)`` gives it: weights in
+    ``cfg.param_dtype``, norms and SSM scalars in float32."""
+    skeleton = init_params(cfg, torch.Generator(), device="meta")
+    return _map(lambda w, g: g.to(w.dtype), skeleton, params)
+
+
+def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
+                      = "cuda") -> Dict[str, Any]:
+    """The port's params holding the reference's: ``tree`` is the
+    reference's ``init_params`` pytree mapped to numpy, with stacked
+    ``(num_layers, ...)`` layer leaves.  Keys and shapes must match the
+    port's own; each leaf takes the port's dtype for it."""
+    skeleton = init_params(cfg, torch.Generator(), device="meta")
+    device = torch.device(device)
+
+    def convert(want, given, path):
+        if isinstance(want, torch.Tensor):
+            arr = np.asarray(given)
+            if tuple(arr.shape) != tuple(want.shape):
+                raise ValueError(f"{path}: shape {arr.shape} != "
+                                 f"{tuple(want.shape)}")
+            return torch.from_numpy(np.array(arr, np.float32)).to(
+                device=device, dtype=want.dtype)
+        if set(want) != set(given):
+            raise ValueError(f"{path}: keys {sorted(given)} != "
+                             f"{sorted(want)}")
+        return {k: convert(want[k], given[k], f"{path}/{k}") for k in want}
+
+    out = {k: convert(skeleton[k], tree[k], k) for k in ("embed", "ln_f")}
+    if set(tree) != {"embed", "ln_f", "layers"}:
+        raise ValueError(f"top-level keys {sorted(tree)} != "
+                         f"['embed', 'layers', 'ln_f']")
+    stacked = tree["layers"]
+    out["layers"] = [
+        convert(want, _index(stacked, i), f"layers[{i}]")
+        for i, want in enumerate(skeleton["layers"])]
+    return out
+
+
+def _index(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _index(v, i) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    return arr[i]
+
+
+# ===========================================================================
+# layer bodies
+# ===========================================================================
+
+def _dense_body(cfg, x, p, positions):
+    h = L.apply_norm(cfg, x, p["ln1"])
+    x = x + A.gqa_forward(cfg, p["attn"], h, positions)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, h, p["mlp"])
+
+
+def _ssm_body(cfg, x, p):
+    h = L.apply_norm(cfg, x, p["ln"])
+    return x + S.ssm_forward(cfg, p["ssm"], h)
+
+
+def _positions(tokens):
+    B, Ssz = tokens.shape
+    return torch.arange(Ssz, device=tokens.device)[None].expand(B, Ssz)
+
+
+# ===========================================================================
+# forward (scoring path; no cache)
+# ===========================================================================
+
+def forward(cfg, params, batch) -> torch.Tensor:
+    """Logits (B, S, padded_vocab) of ``batch["tokens"]``.  Attention is
+    causal over the whole sequence (as the reference's ``forward`` with
+    its default ``window=0``, sliding-window configs included)."""
+    _require_family(cfg)
+    x = L.embed(cfg, params["embed"], batch["tokens"])
+    if cfg.family == "dense":
+        positions = _positions(batch["tokens"])
+        for p in params["layers"]:
+            x = _dense_body(cfg, x, p, positions)
+    else:
+        for p in params["layers"]:
+            x = _ssm_body(cfg, x, p)
+    x = L.apply_norm(cfg, x, params["ln_f"])
+    return L.unembed(cfg, params["embed"], x)
+
+
+# ===========================================================================
+# caches
+# ===========================================================================
+
+def init_cache(cfg, batch_size: int, cache_len: int, *,
+               device: Union[str, torch.device] = "cuda"):
+    """Zero cache for decode: keys and values for ``cache_len`` positions
+    (a ring of ``sliding_window`` slots when that is smaller), or the SSM
+    state and conv window."""
+    _require_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_cache(cfg, cfg.num_layers, batch_size, device)
+    dt = L.cache_dtype_of(cfg)
+    C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+         else cache_len)
+    shape = (cfg.num_layers, batch_size, C, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _ssm_cache(cfg, n_layers, batch_size, device):
+    return {
+        "state": torch.zeros((n_layers, batch_size, cfg.ssm_nheads,
+                              cfg.ssm_head_dim, cfg.ssm_state),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros((n_layers, batch_size, cfg.ssm_conv - 1,
+                             S.conv_dim(cfg)),
+                            dtype=L.dtype_of(cfg.compute_dtype),
+                            device=device),
+    }
+
+
+# ===========================================================================
+# decode step (one token, KV / state cache)
+# ===========================================================================
+
+def decode_step(cfg, params, cache, batch):
+    """batch: {"token": (B, 1), "pos": int}.  Returns (logits (B,
+    padded_vocab), cache), the cache updated in place."""
+    _require_family(cfg)
+    pos = int(batch["pos"])
+    x = L.embed(cfg, params["embed"], batch["token"])
+    if cfg.family == "dense":
+        W = cfg.sliding_window
+        for i, p in enumerate(params["layers"]):
+            hh = L.apply_norm(cfg, x, p["ln1"])
+            o, _, _ = A.gqa_decode(cfg, p["attn"], hh, cache["k"][i],
+                                   cache["v"][i], pos, window=W)
+            x = x + o
+            hh = L.apply_norm(cfg, x, p["ln2"])
+            x = x + L.mlp(cfg, hh, p["mlp"])
+    else:
+        x = _ssm_decode_scan(cfg, params["layers"], cache, x)
+    x = L.apply_norm(cfg, x, params["ln_f"])
+    return L.unembed(cfg, params["embed"], x)[:, 0], cache
+
+
+def _ssm_decode_scan(cfg, layers, cache, x):
+    for i, p in enumerate(layers):
+        hh = L.apply_norm(cfg, x, p["ln"])
+        o, st, cv = S.ssm_decode(cfg, p["ssm"], hh, cache["state"][i],
+                                 cache["conv"][i])
+        cache["state"][i] = st
+        cache["conv"][i] = cv
+        x = x + o
+    return x
+
+
+# ===========================================================================
+# prefill (forward + cache construction)
+# ===========================================================================
+
+def prefill(cfg, params, batch):
+    """Processes a full prompt and returns (last-token logits (B,
+    padded_vocab), cache).  The cache holds the prompt's S positions, as
+    the reference's does; sliding-window configs keep a ring of the last
+    ``window`` positions, position p in slot p % C."""
+    _require_family(cfg)
+    tokens = batch["tokens"]
+    B, Ssz = tokens.shape
+    x = L.embed(cfg, params["embed"], tokens)
+
+    if cfg.family == "ssm":
+        states, convs = [], []
+        for p in params["layers"]:
+            hh = L.apply_norm(cfg, x, p["ln"])
+            o, (st, cv) = S.ssm_forward(cfg, p["ssm"], hh, return_cache=True)
+            x = x + o
+            states.append(st)
+            convs.append(cv)
+        cache = {"state": torch.stack(states), "conv": torch.stack(convs)}
+    else:
+        W = cfg.sliding_window
+        cache = init_cache(cfg, B, Ssz, device=tokens.device)
+        C = cache["k"].shape[2]
+        # ring slot of position p is p % C; without a window C == S
+        kept = torch.arange(max(0, Ssz - C), Ssz, device=tokens.device)
+        slots = kept % C
+        positions = _positions(tokens)
+        for i, p in enumerate(params["layers"]):
+            hh = L.apply_norm(cfg, x, p["ln1"])
+            o, (k, v) = A.gqa_forward(cfg, p["attn"], hh, positions,
+                                      window=W, return_kv=True)
+            x = x + o
+            hh = L.apply_norm(cfg, x, p["ln2"])
+            x = x + L.mlp(cfg, hh, p["mlp"])
+            cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
+            cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
+
+    x = L.apply_norm(cfg, x, params["ln_f"])
+    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    return logits, cache

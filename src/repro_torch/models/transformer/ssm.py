@@ -1,0 +1,201 @@
+"""Mamba2 (SSD, state-space duality) block [arXiv:2405.21060]; PyTorch
+port of the reference's ``models/transformer/ssm.py:22-205``.
+
+Prefill uses the chunked SSD algorithm: intra-chunk attention-like
+products, per-chunk states (K8, ``repro_torch.kernels.ssd_chunk``, on the
+card; its plain version on the CPU), and the recurrence across chunks (a
+Python loop over chunks).  Decode is the O(1) recurrent update.
+
+Layout follows the reference:
+  projections -> z (d_inner), xBC (d_inner + 2*G*N), dt (H)
+  causal depthwise conv over xBC, SiLU
+  SSD over x:(B,S,H,P) with B,C:(B,S,G,N), dt:(B,S,H), A:(H,)
+  gated RMSNorm (y * silu(z)), out_proj
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.transformer import layers as L
+
+
+def conv_dim(cfg) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+
+
+def init_ssm(cfg, gen, dtype, device):
+    """Three separate input projections ([z | xBC | dt]), as the
+    reference keeps them."""
+    D = cfg.d_model
+    H = cfg.ssm_nheads
+    din = cfg.d_inner
+    cdim = conv_dim(cfg)
+    return {
+        "w_z": L.dense_init(gen, D, din, dtype, device),
+        "w_xbc": L.dense_init(gen, D, cdim, dtype, device),
+        "w_dt": L.dense_init(gen, D, H, dtype, device),
+        "conv_w": L.normal(gen, (cfg.ssm_conv, cdim), device,
+                           1.0 / np.sqrt(cfg.ssm_conv), dtype),
+        "conv_b": torch.zeros(cdim, dtype=dtype, device=device),
+        "A_log": torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                        device=device)),
+        "D": torch.ones(H, device=device),
+        "dt_bias": torch.zeros(H, device=device),
+        "norm": torch.ones(din, device=device),
+        "out_proj": L.dense_init(gen, din, D, dtype, device),
+    }
+
+
+def _project(cfg, p, x):
+    return x @ p["w_z"], x @ p["w_xbc"], x @ p["w_dt"]
+
+
+def _causal_conv(cfg, xBC, conv_w, conv_b):
+    """Depthwise causal conv along S.  xBC: (B, S, Cd)."""
+    kw = cfg.ssm_conv
+    S = xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, kw - 1, 0))
+    # windows: out[:, s] = sum_i w[i] * pad[:, s + i]
+    out = pad[:, 0:S] * conv_w[0]
+    for i in range(1, kw):
+        out = out + pad[:, i:i + S] * conv_w[i]
+    return F.silu(out + conv_b)
+
+
+def _segsum_decay(dA_cum):
+    """exp(cum_i - cum_j) masked to i >= j.  dA_cum: (..., L, H) ->
+    (..., H, L, L).  The exponent is masked before the exp, as in the
+    reference (the i < j entries would be exp(+large) = inf)."""
+    Lc = dA_cum.shape[-2]
+    diff = dA_cum[..., :, None, :] - dA_cum[..., None, :, :]   # (..., i, j, H)
+    diff = torch.movedim(diff, -1, -3)                         # (..., H, i, j)
+    tril = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
+                                 device=dA_cum.device))
+    diff = diff.masked_fill(~tril, -torch.inf)
+    return torch.exp(diff)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final_state=False):
+    """SSD scan.  x: (B,S,H,P); dt: (B,S,H) float32; A: (H,) (negative);
+    Bm, Cm: (B,S,G,N).  Returns y: (B,S,H,P) [, final_state (B,H,P,N)].
+    Raises ``ValueError`` when S is longer than ``chunk`` and not a
+    multiple of it."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Lc = min(chunk, S)
+    nc = S // Lc if Lc else 0
+    if nc * Lc != S or S == 0:
+        raise ValueError(f"sequence length {S} must be a multiple of the "
+                         f"SSD chunk {chunk} (or at most one chunk long)")
+
+    xc = x.reshape(Bsz, nc, Lc, H, P)
+    dtc = dt.reshape(Bsz, nc, Lc, H)
+    Bc = Bm.reshape(Bsz, nc, Lc, G, N)
+    Cc = Cm.reshape(Bsz, nc, Lc, G, N)
+
+    xdt = xc * dtc[..., None]                              # dt folded into x
+    dA = dtc * A                                           # (B,nc,L,H)
+    dA_cum = torch.cumsum(dA, dim=2)
+
+    # --- intra-chunk (quadratic within chunk) ---
+    CB = torch.einsum("bmign,bmjgn->bmgij", Cc, Bc)        # (B,nc,G,L,L)
+    Mdecay = _segsum_decay(dA_cum)                         # (B,nc,H,L,L)
+    CB = CB.repeat_interleave(rep, dim=2)                  # G -> H
+    scores = CB * Mdecay
+    y_intra = torch.einsum("bmhij,bmjhp->bmihp", scores, xdt)
+
+    # --- per-chunk states: K8 on the (B*nc, L, H, P) view of the chunks ---
+    states = ops.ssd_chunk_state(
+        x.reshape(Bsz * nc, Lc, H, P), dt.reshape(Bsz * nc, Lc, H), A,
+        Bm.reshape(Bsz * nc, Lc, G, N)).reshape(Bsz, nc, H, P, N)
+
+    # --- inter-chunk recurrence ---
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])           # (B,nc,H)
+    s = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    prev = []
+    for m in range(nc):
+        prev.append(s)
+        s = chunk_decay[:, m, :, None, None] * s + states[:, m].float()
+    prev_states = torch.stack(prev, dim=1)                 # (B,nc,H,P,N)
+
+    Ch = Cc.repeat_interleave(rep, dim=3)                  # (B,nc,L,H,N)
+    y_inter = torch.einsum("bmlhn,bmhpn,bmlh->bmlhp", Ch,
+                           prev_states.to(x.dtype),
+                           torch.exp(dA_cum).to(x.dtype))
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    if return_final_state:
+        return y, s
+    return y
+
+
+def ssm_forward(cfg, p, x, *, return_cache=False):
+    """Full-sequence Mamba2 block.  x: (B, S, D)."""
+    B, S, D = x.shape
+    H, P = cfg.ssm_nheads, cfg.ssm_head_dim
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    din = cfg.d_inner
+
+    z, xBC_raw, dt = _project(cfg, p, x)
+    xBC = _causal_conv(cfg, xBC_raw, p["conv_w"], p["conv_b"])
+    xs = xBC[..., :din].reshape(B, S, H, P)
+    Bm = xBC[..., din:din + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., din + G * N:].reshape(B, S, G, N)
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    out = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk,
+                      return_final_state=return_cache)
+    if return_cache:
+        y, final_state = out
+    else:
+        y = out
+    y = y.to(x.dtype) + xs * p["D"][:, None].to(x.dtype)
+    y = y.reshape(B, S, din)
+    y = L.rmsnorm(y * F.silu(z), p["norm"])
+    y_out = (y @ p["out_proj"]).to(x.dtype)
+    if return_cache:
+        # the conv cache holds the pre-activation last kw-1 raw inputs
+        conv_state = xBC_raw[:, -(cfg.ssm_conv - 1):, :]
+        return y_out, (final_state, conv_state)
+    return y_out
+
+
+def ssm_decode(cfg, p, x, ssm_state, conv_state):
+    """One-token recurrent update.
+
+    x: (B, 1, D); ssm_state: (B, H, P, N) float32; conv_state: (B, kw-1,
+    Cd).  Returns (out, ssm_state, conv_state), the states new tensors."""
+    B = x.shape[0]
+    H, P = cfg.ssm_nheads, cfg.ssm_head_dim
+    G, N = cfg.ssm_ngroups, cfg.ssm_state
+    din = cfg.d_inner
+
+    z, xBC_new, dt = _project(cfg, p, x)
+    window = torch.cat([conv_state, xBC_new], dim=1)          # (B, kw, Cd)
+    conv_state = window[:, 1:, :]
+    xBC = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    xBC = F.silu(xBC)
+
+    xs = xBC[:, :din].reshape(B, H, P)
+    Bm = xBC[:, din:din + G * N].reshape(B, G, N)
+    Cm = xBC[:, din + G * N:].reshape(B, G, N)
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=1)                     # (B,H,N)
+    Ch = Cm.repeat_interleave(rep, dim=1)
+
+    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])          # (B,H)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)                                    # (B,H)
+
+    ssm_state = (dA[:, :, None, None] * ssm_state
+                 + torch.einsum("bh,bhp,bhn->bhpn", dt, xs.float(),
+                                Bh.float()))
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Ch.float())
+    y = y.to(x.dtype) + xs * p["D"][:, None].to(x.dtype)
+    y = y.reshape(B, 1, din)
+    y = L.rmsnorm(y * F.silu(z), p["norm"])
+    return (y @ p["out_proj"]).to(x.dtype), ssm_state, conv_state

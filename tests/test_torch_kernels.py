@@ -266,7 +266,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
     assert ops.launch_counts() == {
         "gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
         "segment_sum": 0, "gather_scale_segment_sum_q": 0,
-        "gather_rows": 0, "edge_dot": 0, "gat_attention": 0}
+        "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
+        "flash_attention": 0, "ssd_chunk_state": 0}
 
 
 # ---------------------------------------------------------------------------
