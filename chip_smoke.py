@@ -8,7 +8,9 @@ Phases, in order; any failure makes the exit code nonzero:
 
 1. the card (``nvidia-smi`` name and power limit); build the Hopper
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, all in parallel) and time the build;
+   source, all in parallel) and time the build; ptxas's registers and
+   spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
+   SASS (``cuobjdump -sass``: nonzero in every bf16 one);
 2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
    GAT attention) at the full-width shapes of the GraphSAGE-Reddit
    serving path plus edge cases: max abs error against its plain PyTorch
@@ -33,11 +35,12 @@ Phases, in order; any failure makes the exit code nonzero:
    them, checked and timed as in phase 2, over the whole graph: K1 (F
    602, 256, 41) and its transpose over the src-grouped layout (F 256,
    41, and 4 heads x 64 and x 10), K2 (602, 256, 4 wide; either layout),
-   K5 (602 and 256 wide), K3 and K6 (4 x 64, 4 x 10; K6 also 1 x 256) on
-   GAT's 40-class graph, K4 on the int8 rows of a batch-1024 block, the
-   GAT backward at both layers; and each autograd Function's gradients
-   (K1, K2, the Scatter gather, K3) against autograd through the plain
-   versions;
+   K5 (602 wide over the src layout, as GIN's Scatter walks it, and
+   over the dst layout; 256 wide), K3 and K6 (4 x 64, 4 x 10; K6 also
+   1 x 256) on GAT's 40-class graph, K4 on the int8 rows of a
+   batch-1024 block, the GAT backward at both layers; and each autograd
+   Function's gradients (K1, K2, the Scatter gather, K3) against
+   autograd through the plain versions;
 6. full-batch training at Reddit's widths through
    ``repro_torch.launch.train_gnn``: GCN, SAGE, GIN (602 → 256 → 41) and
    GAT (→ 40), 10 epochs each: the loss is finite and falls, every step
@@ -55,21 +58,26 @@ Phases, in order; any failure makes the exit code nonzero:
    and never under fp32; step time, cache
    hit ratio, fetched MiB and the loss trend;
 8. K7 (flash attention) and K8 (the Mamba2 SSD chunk state) against their
-   plain versions, checked and timed as in phase 2 (K7's bf16 outputs
-   element by element within one bf16 ulp of the plain value, 2**-7 of
-   it, plus 1e-5 of the largest; bound by bytes or by flops over the
-   bf16 tensor-core peak, 989 TFLOP/s; the library yardsticks are
-   ``scaled_dot_product_attention`` and the reference's einsum): K7 at
-   Phi-3-mini's prefill (8 x 1024, 32 x 96, causal) in bf16 and float32,
-   with G 5 at hd 128, a window of 256, Sq < Skv and Sq 1, plus hd 64 and
-   256 and a non-causal call, each also in float32 (1e-4 of the largest
-   value); K8 at Mamba2-780m's prefill (32 chunks of 256, 48 x 64, N 128)
-   with G 1 and 2; the calls K7 does not compute raise on the card;
+   plain versions, checked and timed as in phase 2 (K7's bf16 outputs,
+   from the tensor-core route, element by element within one bf16 ulp
+   of the plain value, 2**-7 of it, plus 2**-8 of the plain version on
+   |v| for P rounded to bf16, plus 1e-5 of the largest, with the worst
+   excess over the bound without the P term printed beside; bound by
+   bytes or by flops over the bf16 tensor-core peak, 989 TFLOP/s; the
+   library yardsticks are ``scaled_dot_product_attention`` and the
+   reference's einsum): first hd 64, 96, 128 and 256, a non-causal call
+   and a window of 40 (untimed), then K7 at Phi-3-mini's prefill (8 x
+   1024, 32 x 96, causal) in bf16 and float32 (the CUDA-core route),
+   with G 5 at hd 128, a window of 256, Sq < Skv and Sq 1, each also in
+   float32 (1e-4 of the largest value); K8 at Mamba2-780m's prefill (32
+   chunks of 256, 48 x 64, N 128) with G 1 and 2; the calls K7 does not
+   compute raise on the card;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
    K7 launch; (b) ``prefill`` of 8 x 1024 tokens and 32 decode steps in
-   its cache (grown by 32 slots), exactly 32 K7 launches, finite logits,
+   its cache (grown by 32 slots), exactly 32 K7 launches (bf16 route;
+   the float32 prefill below, 32 of the float32 route), finite logits,
    prefill against the decode-only loop over the same prompts at full
    depth in float32 (within 1e-3 of the largest logit; Mamba2 3e-3) and
    in bf16 (RMS ratio bound), prefill and decode tok/s, peak memory; (c)
@@ -91,6 +99,8 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -209,12 +219,13 @@ def bound(bytes_: float, flops: float, peak: float = FP32_FLOPS_PER_S
 
 def check_case(torch, label, kernel, plain, args, *, timed=False,
                library=None, bytes_=0.0, flops=0.0, flush=None, rel=1e-4,
-               elem_rel=None, peak=FP32_FLOPS_PER_S):
+               elem_rel=None, elem_abs=None, peak=FP32_FLOPS_PER_S):
     """Kernel vs plain on the same inputs: the max abs error within
     ``rel`` of the plain version's largest value, or, with ``elem_rel``,
-    each element within ``elem_rel`` of its plain value plus ``rel`` of
-    the largest; optionally timed.  Returns the measurement dict and
-    records a failure on disagreement."""
+    each element within ``elem_rel`` of its plain value plus its own
+    ``elem_abs`` (a tensor of the output's shape) plus ``rel`` of the
+    largest; optionally timed.  Returns the measurement dict and records
+    a failure on disagreement."""
     out1 = kernel(*args)
     out2 = kernel(*args)
     ref = plain(*args)
@@ -222,10 +233,14 @@ def check_case(torch, label, kernel, plain, args, *, timed=False,
     diff = (out1.float() - ref.float()).abs()
     err = diff.max().item() if ref.numel() else 0.0
     scale = ref.float().abs().max().item() if ref.numel() else 0.0
+    excess_without_abs = None
     if elem_rel is not None and ref.numel():
         # how far the worst element lies outside its own bound
-        err = (diff - elem_rel * ref.float().abs()).max().item()
-        err = max(err, 0.0)
+        over = diff - elem_rel * ref.float().abs()
+        if elem_abs is not None:
+            excess_without_abs = max(over.max().item(), 0.0)
+            over = over - elem_abs
+        err = max(over.max().item(), 0.0)
     bitwise = torch.equal(out1, out2)
     finite = bool(torch.isfinite(out1).all())
     ok = finite and bitwise and err <= rel * scale
@@ -236,6 +251,8 @@ def check_case(torch, label, kernel, plain, args, *, timed=False,
     if elem_rel is not None:
         res["bound_elem_rel"] = elem_rel
         res["max_excess"] = err
+    if excess_without_abs is not None:
+        res["max_excess_without_elem_abs"] = excess_without_abs
     if timed:
         res["ms"] = median_ms(torch, lambda: kernel(*args), flush)
         res["plain_ms"] = median_ms(torch, lambda: plain(*args), flush)
@@ -254,17 +271,59 @@ def check_case(torch, label, kernel, plain, args, *, timed=False,
 # phases
 # ---------------------------------------------------------------------------
 
+def kernel_name(mangled: str) -> str:
+    """``flash_fwd_wgmma_kernel[96]`` for a mangled kernel name: the
+    name and its integer template arguments."""
+    m = re.search(r"\d+([A-Za-z_]+?_kernel)(I.*)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"[{','.join(args)}]" if args else "")
+
+
+def sass_counts(path, opcode: str) -> dict:
+    """Instructions of SASS opcode ``opcode`` (any modifiers), per kernel
+    of a built library (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            counts[fn] = 0
+        elif fn and re.search(r"\b" + opcode + r"\b", line):
+            counts[fn] += 1
+    return counts
+
+
 @phase("1. card and kernel build")
-def phase_build(torch):
+def phase_build(torch, results):
     from repro_torch.kernels import build
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
     out_dir, seconds, logs = build.build()
     print(f"   kernels built in {seconds:.1f} s -> {out_dir}")
+    ptxas: dict = {}
     for name, log in logs.items():
+        fn = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"   ptxas {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = kernel_name(m.group(1))
+            elif ("registers" in line or "spill" in line
+                  or "wgmma" in line.lower()):
+                print(f"   ptxas {name} {fn}: {line.strip()}")
+                ptxas.setdefault(fn, []).append(line.strip())
+    # K7's bf16 kernel runs on the tensor cores: its SASS holds HGMMA
+    hgmma = sass_counts(out_dir / "libflash_attention.so", "HGMMA")
+    print("   HGMMA instructions per K7 kernel (cuobjdump -sass): "
+          + json.dumps(hgmma), flush=True)
+    results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
+    wg = {k: n for k, n in hgmma.items() if "wgmma" in k}
+    require(len(wg) == 4 and all(wg.values()),
+            f"HGMMA in each of the four bf16 K7 kernels: {wg}")
 
 
 def reddit_graph(classes=CLASSES):
@@ -848,10 +907,18 @@ def phase_train_kernels(torch, g, g_gat, results):
         c.k2(f"K2 over GAT's {what} layout ({Ea} x {GAT_HEADS} -> {N})",
              randn(Ea, GAT_HEADS) * dga.edge_mask[:, None].to(torch.float32),
              seg, o, rp, N)
-    # K5: GIN's layer-0 Scatter (602 wide: float2 loads), its layer-1
-    # Scatter and K2's backward (256 wide: float4 loads)
+    # K5: GIN's layer-0 Scatter (602 wide: float2 loads) through
+    # edge_src, walking the src layout as GatherRows does; its layer-1
+    # Scatter of the destinations and K2's backward (256 wide: float4
+    # loads) over the dst layout
     results["gather_rows.602"] = c.k5(
-        f"K5 gather ({E} x {FEAT})", randn(N, FEAT), src, order, E)
+        f"K5 gather ({E} x {FEAT}, src layout)", randn(N, FEAT), src,
+        order_s, E)
+    # the same gather walking the dst layout, as GatherRows did before it
+    # took the layout grouped by its index: rows read out of turn
+    results["gather_rows.602.dst"] = c.k5(
+        f"K5 gather ({E} x {FEAT}, dst layout)", randn(N, FEAT), src,
+        order, E)
     results["gather_rows"] = c.k5(
         f"K5 gather ({E} x {HIDDEN})", randn(N, HIDDEN), dst, order, E)
     # K3 over the whole graph at GAT's two layers
@@ -1193,12 +1260,20 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 # launcher in (a) then serves its --reduced config.
 LM_CONFIGS: dict = {}
 LM_KERNEL = {PHI3: "flash_attention", MAMBA2: "ssd_chunk_state"}
+# the counter of the same kernel's float32 launches (K7's CUDA-core route)
+LM_KERNEL_FP32 = {PHI3: "flash_attention_fp32", MAMBA2: "ssd_chunk_state"}
+# prefill tok/s recorded in PERF.md section 5 while K7's bf16 route still
+# ran on the CUDA cores, printed beside this run's for comparison
+EARLIER_PREFILL_TOK_S = {PHI3: 30659.0, MAMBA2: 26324.0}
 # K7's bf16 outputs: both sides round one float32 result to bf16, so an
 # element may differ by one bf16 ulp, at most 2**-7 of its plain value,
 # plus the float32 sums' own difference (far below 1e-5 of the largest
-# value); a dropped key tile moves a late row by several percent of its
-# value, many ulps
-BF16_ULP_REL, BF16_ATOL_REL = 2.0 ** -7, 1e-5
+# value); the kernel also rounds P to bf16 (unit roundoff 2**-8) for the
+# PV product, as the TPU kernel's default-precision dot and FlashAttention
+# do, which moves an output by at most 2**-8 * sum_j p_j |v_j| / l, that
+# is 2**-8 times the plain version on |v|.  A dropped key tile moves a
+# late row by several percent of its value, many ulps
+BF16_ULP_REL, BF16_ATOL_REL, BF16_P_REL = 2.0 ** -7, 1e-5, 2.0 ** -8
 # prefill against the decode-only loop at the last prompt position, full
 # depth.  float32: max abs gap within LM_FP32_REL of the largest logit.
 # Phi-3's paths differ by 3.0e-6 of it on the card; Mamba2's by 2.8e-4 to
@@ -1246,6 +1321,9 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
     sdpa_kw = ({"is_causal": True} if causal and not window and Sq == Skv
                else {"attn_mask": mask})
     bf16 = dtype == torch.bfloat16
+    p_term = (BF16_P_REL * fa.flash_attention_plain(
+        q.float(), k.float(), v.float().abs(), causal=causal, window=window)
+        if bf16 else None)
     return check_case(
         torch, label, functools.partial(fa.flash_attention_cuda,
                                         causal=causal, window=window),
@@ -1256,7 +1334,7 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
         bytes_=q.element_size() * (2 * B * H * Sq * hd + 2 * B * K * Skv * hd),
         flops=4.0 * B * H * pairs * hd, flush=c.flush,
         rel=BF16_ATOL_REL if bf16 else 1e-4,
-        elem_rel=BF16_ULP_REL if bf16 else None,
+        elem_rel=BF16_ULP_REL if bf16 else None, elem_abs=p_term,
         peak=BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
 
 
@@ -1301,31 +1379,35 @@ def phase_lm_kernels(torch, results):
         (".sq_lt_skv", (f"K7 Sq 64 < Skv {Sd}, queries at the end", Bsz, 32,
                         32, 64, Sd, 96), {}),
         (".sq1", (f"K7 Sq 1, Skv {Sd}", Bsz, 32, 32, 1, Sd, 96), {}))
-    # the other head widths the kernel takes, a non-causal call, ragged
-    # query and key tiles
+    # every head width the kernel takes, a non-causal call, ragged query
+    # and key tiles
     untimed = (
         (("K7 hd 64, G 4, S 200", 2, 8, 2, 200, 200, 64), {}),
+        (("K7 hd 96, S 200", 2, 4, 4, 200, 200, 96), {}),
+        (("K7 hd 128, G 2, S 200", 2, 4, 2, 200, 200, 128), {}),
         (("K7 hd 256 (Gemma-7B's heads), S 300", 1, 16, 16, 300, 300, 256),
          {}),
         (("K7 non-causal, Sq 48 < Skv 96, hd 64", 2, 4, 4, 48, 96, 64),
          {"causal": False}),
         (("K7 window 40, S 130", 1, 4, 2, 130, 130, 96), {"window": 40}))
-    for key, args, kw in cases:
-        results["flash_attention" + key] = k7_case(
-            torch, c, args[0] + ", bf16", *args[1:], **kw)
-    results["flash_attention.fp32"] = k7_case(
-        torch, c, cases[0][1][0] + ", float32", *cases[0][1][1:],
-        dtype=torch.float32)
-    # every case in both dtypes: float32 holds the shared template to
-    # 1e-4 of the largest value at each head width and mask
-    for _, args, kw in cases[1:]:
-        k7_case(torch, c, args[0] + ", float32", *args[1:], **kw,
-                dtype=torch.float32, timed=False)
+    # the head widths first: a wgmma descriptor or swizzle that does not
+    # match its TMA map shows as wrong values at one width
     for args, kw in untimed:
         for name, dtype in (("bf16", torch.bfloat16),
                             ("float32", torch.float32)):
             k7_case(torch, c, f"{args[0]}, {name}", *args[1:], **kw,
                     dtype=dtype, timed=False)
+    for key, args, kw in cases:
+        results["flash_attention" + key] = k7_case(
+            torch, c, args[0] + ", bf16", *args[1:], **kw)
+    results["flash_attention_fp32"] = k7_case(
+        torch, c, cases[0][1][0] + ", float32", *cases[0][1][1:],
+        dtype=torch.float32)
+    # every case in both dtypes: float32 holds the CUDA-core kernel to
+    # 1e-4 of the largest value at each head width and mask
+    for _, args, kw in cases[1:]:
+        k7_case(torch, c, args[0] + ", float32", *args[1:], **kw,
+                dtype=torch.float32, timed=False)
     C = Bsz * S // 256
     results["ssd_chunk_state"] = k8_case(
         torch, c, f"K8 Mamba2-780m prefill ({C} chunks x 256, 48 x 64, N "
@@ -1364,7 +1446,8 @@ def lm_profile(torch, label, step, wall_s) -> dict:
     warm-up step, beside the step's wall time ``wall_s``."""
     def kind(key):
         k = key.lower()
-        if "flash_fwd_kernel" in k or "ssd_state_kernel" in k:
+        if any(n in k for n in ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
+                                "ssd_state_kernel")):
             return "port kernel"
         if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                 "sm80_", "ampere_", "matmul", "nvjet",
@@ -1487,13 +1570,17 @@ def lm_phase(torch, arch, results):
                             device=dev)
         ops.reset_launch_counts()
         lg32, _ = M.prefill(cfg32, p32, {"tokens": prompts[:2]})
-        n32 = ops.launch_counts()[key]
+        counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+        results[f"launches.lm_fp32.{arch}"] = counts32
+        n32 = counts32.get(LM_KERNEL_FP32[arch], 0)
         g = gap(lg32[:, :V], decode_loop(cfg32, p32, prompts[:2])[:, :V])
         out["fp32_prefill_vs_decode"] = g
         print(f"   float32, 2 x {LM_PROMPT}: prefill vs the decode-only loop "
               + json.dumps(g), flush=True)
-        require(n32 == nl, f"{key} launched {n32} times in a float32 "
-                f"prefill of {nl} layers")
+        require(counts32 == {LM_KERNEL_FP32[arch]: nl},
+                f"{LM_KERNEL_FP32[arch]} launched {n32} times (all "
+                f"launches: {counts32}) in a float32 prefill of {nl} "
+                f"layers")
         require(g["max_abs"] <= LM_FP32_REL[arch] * g["max_abs_ref"],
                 f"float32 prefill agrees with the decode-only loop: {g}")
 
@@ -1540,6 +1627,9 @@ def lm_phase(torch, arch, results):
             "launches": counts}
         print(f"   (b) prefill {LM_BATCH} x {LM_PROMPT}, then {LM_GEN} "
               f"decode steps: " + json.dumps(out["prefill"]), flush=True)
+        print(f"   prefill {out['prefill']['prefill_tok_s']:.0f} tok/s; with "
+              f"K7 on the CUDA cores (PERF.md): "
+              f"{EARLIER_PREFILL_TOK_S[arch]:.0f} tok/s", flush=True)
         require(finite, "finite prefill and decode logits")
         require(counts == {key: nl}, f"one prefill and {LM_GEN} decode "
                 f"steps launch {key} exactly {nl} times: {counts}")
@@ -1580,7 +1670,8 @@ def phase_mamba2(torch, results):
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
-    through K1-K6, phases 9 and 10 serve through K7 and K8)."""
+    through K1-K6, phases 9 and 10 serve through K7 and K8; K7's float32
+    route runs in phase 9's float32 prefill)."""
     rows = []
     meta = [("gather_scale_segment_sum", "gather_scale_segment_sum",
              "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
@@ -1602,6 +1693,9 @@ def kernels_line(results) -> dict:
             ("flash_attention", "flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:90",
              f"launches.lm.{PHI3}"),
+            ("flash_attention_fp32", "flash_attention_fp32",
+             "flash_attention.cu", "src/repro/kernels/flash_attention.py:90",
+             f"launches.lm_fp32.{PHI3}"),
             ("ssd_chunk_state", "ssd_chunk_state", "ssd_chunk.cu",
              "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}")]
     for name, key, src, replaces, path in meta:
@@ -1629,7 +1723,7 @@ def main() -> int:
     print(f"card: {smi} | torch.cuda.get_device_name: "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     results: dict = {}
-    phase_build(torch)
+    phase_build(torch, results)
     t0 = time.perf_counter()
     g = reddit_graph()
     blocks, x_np = sampled_blocks(g, FANOUTS)

@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), and loaded with :mod:`ctypes`.  All sources compile in
 parallel, one ``nvcc`` each, at the first call of :func:`library`; the
 libraries land in ``build/repro_torch_kernels/<hash>/`` at the root of
-the checkout, keyed by a hash of the sources and flags, so a second
+the checkout, keyed by a hash of every file under ``csrc/`` (the
+shared ``hopper.cuh`` too) and the flags, so a second
 process with the same sources loads them without compiling.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -69,9 +70,13 @@ def _nvcc() -> str:
 
 
 def _build_dir() -> pathlib.Path:
+    """``BUILD_ROOT/<hash>``: the hash covers the flags and every file
+    under ``csrc/`` by name and content, shared headers included, so a
+    change to any of them builds anew."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(SIGNATURES):
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(b"\0" + path.relative_to(CSRC).as_posix().encode() + b"\0")
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

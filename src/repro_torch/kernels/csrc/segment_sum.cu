@@ -45,10 +45,12 @@
 // output row one block that walks its edge range, so the (E, F) message
 // tensor never exists, every output row is written once with no atomics
 // (sums run in edge order: bitwise repeatable), and the working set is a
-// few registers per thread whatever num_src is.  K5 gives every (edge,
-// vector column) pair one thread, so neighbouring threads copy
-// neighbouring addresses of one row; K6 gives every (edge, head) one
-// warp, lanes across the head's columns, summed by a fixed shuffle tree
+// few registers per thread whatever num_src is.  K5 gives each warp 2
+// listed edges and strides its lanes over their rows, 4 loads a lane in
+// flight before the streaming stores; it reads each row once, in turn,
+// when the caller passes the listed edges grouped by seg (GatherRows
+// does when it has that layout).  K6 gives every (edge, head) one warp,
+// lanes across the head's columns, summed by a fixed shuffle tree
 // (no atomics: bitwise repeatable).  Loads are the widest vector (float4
 // / float2 / float; uchar4 / uchar2 / uchar for K4) that divides the row
 // width, the head width and the pointers' alignment, checked at launch:
@@ -176,21 +178,50 @@ __global__ void segmented_rows_q_kernel(const unsigned char* __restrict__ q,
   }
 }
 
-// K5: thread t copies vector column t % nvec of listed edge t / nvec
-template <int VEC>
+// K5: one warp per EPW listed edges (32-bit index math).  Lanes 0..EPW-1
+// read the edges' order and seg entries, the warp shares them by
+// shuffles; then each lane takes U vectors 32 apart of every edge's row
+// per step, issuing all EPW * U loads before the EPW * U streaming stores
+// (the (E, F) output is not read again here).  A copy: bitwise equal to
+// the plain gather.
+template <int VEC, int EPW, int U>
 __global__ void gather_rows_kernel(const float* __restrict__ g, const int* __restrict__ seg,
                                    const int* __restrict__ order, float* __restrict__ out,
-                                   long long total, int nvec) {
+                                   int nnz, int nvec) {
   using T = typename VecT<VEC>::T;
+  const int lane = threadIdx.x & 31;
   const int F = nvec * VEC;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const long long k = t / nvec;
-    const int v = (int)(t - k * nvec);
-    const int e = __ldg(order + k);
-    const int s = __ldg(seg + e);
-    reinterpret_cast<T*>(out + (size_t)e * F)[v] =
-        __ldg(reinterpret_cast<const T*>(g + (size_t)s * F) + v);
+  const int nwarps = (gridDim.x * blockDim.x) >> 5;
+  for (int k0 = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * EPW; k0 < nnz;
+       k0 += nwarps * EPW) {
+    int my_e = 0, my_s = 0;
+    if (lane < EPW && k0 + lane < nnz) {
+      my_e = __ldg(order + k0 + lane);
+      my_s = __ldg(seg + my_e);
+    }
+    const int n = min(EPW, nnz - k0);
+    const T* src[EPW];
+    T* dst[EPW];
+#pragma unroll
+    for (int i = 0; i < EPW; ++i) {
+      const int e = __shfl_sync(0xffffffffu, my_e, i);
+      const int s = __shfl_sync(0xffffffffu, my_s, i);
+      src[i] = reinterpret_cast<const T*>(g + (size_t)s * F);
+      dst[i] = reinterpret_cast<T*>(out + (size_t)e * F);
+    }
+    for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+      T x[EPW][U];
+#pragma unroll
+      for (int i = 0; i < EPW; ++i)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i < n && v0 + 32 * u < nvec) x[i][u] = __ldg(src[i] + v0 + 32 * u);
+#pragma unroll
+      for (int i = 0; i < EPW; ++i)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i < n && v0 + 32 * u < nvec) __stcs(dst[i] + v0 + 32 * u, x[i][u]);
+    }
   }
 }
 
@@ -298,19 +329,22 @@ extern "C" int gssq_forward(const unsigned char* q, const float* mn, const float
 
 extern "C" int gather_rows(const float* g, const int* seg, const int* order, float* out,
                            int nnz, int F, void* stream) {
+  constexpr int EPW = 2, U = 2;   // edges per warp, vectors per lane and step
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t a = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(out) |
                       (uintptr_t)(4 * F);
   const int vec = vec_width(a, 4, F);
   const int nvec = F / vec;
-  const long long total = (long long)nnz * nvec;
-  const int blocks = grid_stride_blocks(total);
+  const long long warps = ((long long)nnz + EPW - 1) / EPW;
+  long long blocks = (warps + 7) / 8;   // 8 warps a block
+  if (blocks > 132LL * 256) blocks = 132LL * 256;   // the rest by the grid-stride loop
+  if (blocks < 1) blocks = 1;
   if (vec == 4)
-    gather_rows_kernel<4><<<blocks, 256, 0, st>>>(g, seg, order, out, total, nvec);
+    gather_rows_kernel<4, EPW, U><<<(int)blocks, 256, 0, st>>>(g, seg, order, out, nnz, nvec);
   else if (vec == 2)
-    gather_rows_kernel<2><<<blocks, 256, 0, st>>>(g, seg, order, out, total, nvec);
+    gather_rows_kernel<2, EPW, U><<<(int)blocks, 256, 0, st>>>(g, seg, order, out, nnz, nvec);
   else
-    gather_rows_kernel<1><<<blocks, 256, 0, st>>>(g, seg, order, out, total, nvec);
+    gather_rows_kernel<1, EPW, U><<<(int)blocks, 256, 0, st>>>(g, seg, order, out, nnz, nvec);
   return (int)cudaGetLastError();
 }
 

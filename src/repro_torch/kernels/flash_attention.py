@@ -1,9 +1,13 @@
 """K7: flash attention (causal / sliding-window, GQA), forward only.
 
-:func:`flash_attention_cuda` launches the hand-written Hopper kernel
+:func:`flash_attention_cuda` launches a hand-written Hopper kernel
 (``csrc/flash_attention.cu``), the counterpart of the reference's Pallas
 kernel ``src/repro/kernels/flash_attention.py:71``
-(``flash_attention_pallas``; ``pallas_call`` at ``:90``).
+(``flash_attention_pallas``; ``pallas_call`` at ``:90``).  Two routes,
+by dtype (:func:`launch_plan`): bf16 goes to ``flash_fwd_wgmma_kernel``
+on the tensor cores (wgmma, TMA; P rounded to bf16 for the PV product,
+as the TPU kernel's ``jnp.dot(p, v)`` does), float32 to
+``flash_fwd_kernel`` on the CUDA cores.
 :func:`flash_attention_plain` is the reference's oracle
 (``src/repro/kernels/ref.py:15``) in PyTorch: dense masked softmax in
 float32.  Both take q (B, H, Sq, hd) and k, v (B, K, Skv, hd) with
@@ -24,11 +28,46 @@ from repro_torch.kernels import build
 from repro_torch.kernels.segment_sum import (_check_view, _require_cuda,
                                              _stream)
 
-#: launches of the kernel wrapper (a run resets and reads it)
-launches = {"flash_attention": 0}
+#: launches of the kernel wrapper (a run resets and reads it), by route:
+#: bf16 (the served path) and float32
+launches = {"flash_attention": 0, "flash_attention_fp32": 0}
 
 HEAD_DIMS = (64, 96, 128, 256)
 NEG_INF = -1e30
+#: TMA's alignment: the base address and every stride it steps, in bytes
+TMA_ALIGN = 16
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor) -> dict:
+    """How :func:`flash_attention_cuda` launches K7 on these tensors, on
+    any device (pure Python: the CPU tests rehearse it).  bf16 takes the
+    tensor-core route: blocks of 128 query rows, kv tiles of 128 keys (64
+    at hd 256), 128-byte swizzle (64-byte at hd 96, whose 192-byte rows
+    split into three 64-byte chunks), and TMA maps over each tensor,
+    which need a 16-byte-aligned base and byte strides that are multiples
+    of 16 along every dim longer than 1: a view that breaks this raises
+    ``ValueError`` naming it.  float32 takes the CUDA-core route: blocks
+    of 64 query rows, kv tiles of 64."""
+    hd = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return {"route": "cuda_core", "kernel": "flash_fwd_kernel",
+                "counter": "flash_attention_fp32", "block_q": 64,
+                "block_k": 64}
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}'s base address is not {TMA_ALIGN}-byte "
+                             f"aligned, as TMA needs")
+        for dim, what in enumerate(("batch", "head", "position")):
+            nbytes = t.stride(dim) * t.element_size()
+            if t.shape[dim] > 1 and nbytes % TMA_ALIGN:
+                raise ValueError(
+                    f"{name}'s {what} stride of {nbytes} bytes is not a "
+                    f"multiple of {TMA_ALIGN}, as TMA needs")
+    return {"route": "wgmma", "kernel": "flash_fwd_wgmma_kernel",
+            "counter": "flash_attention", "block_q": 128,
+            "block_k": 128 if hd <= 128 else 64,
+            "swizzle": 128 if hd % 64 == 0 else 64}
 
 
 def _scale(hd: int, scale: Optional[float]) -> float:
@@ -62,10 +101,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """K7 on the card (``csrc/flash_attention.cu``, ``flash_attention_fwd``).
-    q, k, v may be strided views (the last dim contiguous); bf16 or
-    float32, all one dtype; hd in :data:`HEAD_DIMS`.  The output is a
-    (B, H, Sq, hd) view of a (B, Sq, H, hd) tensor, the layout the model
-    reshapes without a copy."""
+    q, k, v may be strided views (the last dim contiguous; in bf16 also
+    TMA's alignment, :func:`launch_plan`); bf16 or float32, all one dtype;
+    hd in :data:`HEAD_DIMS`.  The output is a (B, H, Sq, hd) view of a
+    (B, Sq, H, hd) tensor, the layout the model reshapes without a
+    copy."""
     dev = _require_cuda(q, "flash_attention_cuda")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Sq, hd), got {tuple(q.shape)}")
@@ -92,6 +132,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ).transpose(1, 2)
     if out.numel() == 0:
         return out
+    if Skv == 0:
+        raise ValueError("Skv 0: no key to attend to")
+    plan = launch_plan(q, k, v, out)
     strides = (ctypes.c_longlong * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = build.library("flash_attention")
@@ -100,5 +143,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, H, K, Sq, Skv, hd, int(bool(causal)), int(window),
         _scale(hd, scale), int(q.dtype == torch.bfloat16), _stream()),
         "flash_attention_fwd")
-    launches["flash_attention"] += 1
+    launches[plan["counter"]] += 1
     return out

@@ -442,7 +442,10 @@ class SegmentSum(torch.autograd.Function):
 class GatherRows(torch.autograd.Function):
     """The Scatter step as K5, ``out[e] = x[idx_e]`` on the listed edges,
     with its VJP: K2 over the layout grouped by ``idx``.  Unlike
-    indexing's own backward, the sum has no float atomics."""
+    indexing's own backward, the sum has no float atomics.  Given that
+    layout, K5 walks the listed edges in its order (the same edges as
+    ``order``, grouped by ``idx``), so each row of ``x`` is read once, in
+    turn."""
 
     @staticmethod
     def forward(ctx, x, idx, order, idx_layout):
@@ -451,7 +454,8 @@ class GatherRows(torch.autograd.Function):
             _need_layout(idx_layout, "the Scatter gather")
         ctx.idx_layout = idx_layout
         ctx.num_rows = x.shape[0]
-        return ops.gather_rows(x, idx, order, idx.shape[0])
+        walk = order if idx_layout is None else idx_layout[0]
+        return ops.gather_rows(x, idx, walk, idx.shape[0])
 
     @staticmethod
     def backward(ctx, g):

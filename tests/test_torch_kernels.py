@@ -267,7 +267,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
         "segment_sum": 0, "gather_scale_segment_sum_q": 0,
         "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
-        "flash_attention": 0, "ssd_chunk_state": 0}
+        "flash_attention": 0, "flash_attention_fp32": 0,
+        "ssd_chunk_state": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +435,32 @@ def test_gradcheck_k2_and_scatter_gather_functions():
     src_layout = _layout(src, 10, mask)
     assert torch.autograd.gradcheck(
         lambda x: ops.GatherRows.apply(x, _t(src), order, src_layout), (x,))
+
+
+def test_scatter_gather_walks_the_idx_layout_with_the_same_rows(
+        monkeypatch):
+    """Given the layout grouped by idx, GatherRows hands K5 that layout's
+    order (the same listed edges, so each row of x is read once, in
+    turn); the rows it writes are the plain gather's, bit for bit."""
+    src, dst, mask = _edges(61, 40, 30, 120, 16)
+    x = _t(np.random.default_rng(2).standard_normal((40, 7)
+                                                    ).astype(np.float32))
+    order, _ = _layout(dst, 30, mask)
+    src_layout = _layout(src, 40, mask)
+    walked = []
+    gather = ops.gather_rows
+
+    def spy(g, seg, walk, num_edges):
+        walked.append(walk)
+        return gather(g, seg, walk, num_edges)
+
+    monkeypatch.setattr(ops, "gather_rows", spy)
+    with_layout = ops.GatherRows.apply(x, _t(src), order, src_layout)
+    without = ops.GatherRows.apply(x, _t(src), order, None)
+    assert walked[0] is src_layout[0] and walked[1] is order
+    want = segment_sum.gather_rows_plain(x, _t(src), order, len(src))
+    np.testing.assert_array_equal(with_layout.numpy(), want.numpy())
+    np.testing.assert_array_equal(without.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("reads_dst", [False, True])
