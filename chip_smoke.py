@@ -10,7 +10,10 @@ Phases, in order; any failure makes the exit code nonzero:
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all in parallel) and time the build; ptxas's registers and
    spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
-   SASS (``cuobjdump -sass``: nonzero in every bf16 one);
+   SASS and in K8's (``cuobjdump -sass``: nonzero in each of the eight K7
+   kernels, bf16 and float32 at every head width, and in K8's two bf16
+   kernels, N 64 and 128, with no spills in any of them); each
+   ``launch_plan``'s shared memory equals what its kernel asks for;
 2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
    GAT attention) at the full-width shapes of the GraphSAGE-Reddit
    serving path plus edge cases: max abs error against its plain PyTorch
@@ -36,9 +39,10 @@ Phases, in order; any failure makes the exit code nonzero:
    602, 256, 41) and its transpose over the src-grouped layout (F 256,
    41, and 4 heads x 64 and x 10), K2 (602, 256, 4 wide; either layout),
    K5 (602 wide over the src layout, as GIN's Scatter walks it, and
-   over the dst layout; 256 wide), K3 and K6 (4 x 64, 4 x 10; K6 also
-   1 x 256) on GAT's 40-class graph, K4 on the int8 rows of a
-   batch-1024 block, the GAT backward at both layers; and each autograd
+   over the dst layout; 256 wide), K3 and K6 (4 x 64, 4 x 10, the shapes
+   GAT's backward launches K6 at; K6 also 1 x 256) on GAT's 40-class
+   graph, K4 on the int8 rows of a batch-1024 block, the GAT backward at
+   both layers; and each autograd
    Function's gradients (K1, K2, the Scatter gather, K3) against
    autograd through the plain versions;
 6. full-batch training at Reddit's widths through
@@ -63,15 +67,21 @@ Phases, in order; any failure makes the exit code nonzero:
    of the plain value, 2**-7 of it, plus 2**-8 of the plain version on
    |v| for P rounded to bf16, plus 1e-5 of the largest, with the worst
    excess over the bound without the P term printed beside; bound by
-   bytes or by flops over the bf16 tensor-core peak, 989 TFLOP/s; the
+   bytes or by flops over the tensor-core peak of the inputs' type, 989
+   TFLOP/s in bf16, 495 TFLOP/s in TF32 for float32; the
    library yardsticks are ``scaled_dot_product_attention`` and the
    reference's einsum): first hd 64, 96, 128 and 256, a non-causal call
    and a window of 40 (untimed), then K7 at Phi-3-mini's prefill (8 x
-   1024, 32 x 96, causal) in bf16 and float32 (the CUDA-core route),
+   1024, 32 x 96, causal) in bf16 and float32 (the TF32 split route),
    with G 5 at hd 128, a window of 256, Sq < Skv and Sq 1, each also in
    float32 (1e-4 of the largest value); K8 at Mamba2-780m's prefill (32
-   chunks of 256, 48 x 64, N 128) with G 1 and 2; the calls K7 does not
-   compute raise on the card;
+   chunks of 256, 48 x 64, N 128) in bf16 (the tensor-core route, 1e-4
+   of the largest value) with G 1 and 2 and in float32 (the CUDA-core
+   route), and in bf16 at ragged chunks of 100 and 7 positions and over
+   160 chunks; K8 at Zamba2-2.7B's widths (80 x 64, N 64: the
+   tensor-core route's N 64 kernel), and bf16 off the tensor-core tile
+   (the reduced configs' 8 x 32, N 16, chunk 16; a chunk of 300) on the
+   CUDA-core route; the calls K7 does not compute raise on the card;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
@@ -87,7 +97,7 @@ Phases, in order; any failure makes the exit code nonzero:
    card and on the CPU: forward, prefill and decode logits within 1e-4
    of the largest;
 10. serve Mamba2-780m the same way, with exactly 48 K8 launches per
-   prefill.
+   prefill (bf16 route; its float32 prefill, 48 of the float32 route).
 
 The last lines are the card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line, and
@@ -114,6 +124,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12           # float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # bf16 tensor cores, dense
+TF32_FLOPS_PER_S = 495e12          # TF32 tensor cores, dense
 REPS = 25
 # GraphSAGE at Reddit's published widths (Hamilton et al. 2017 regime,
 # hidden 256 as in PyG's examples/reddit.py); fanouts innermost first
@@ -273,12 +284,23 @@ def check_case(torch, label, kernel, plain, args, *, timed=False,
 
 def kernel_name(mangled: str) -> str:
     """``flash_fwd_wgmma_kernel[96]`` for a mangled kernel name: the
-    name and its integer template arguments."""
-    m = re.search(r"\d+([A-Za-z_]+?_kernel)(I.*)?", mangled)
-    if not m:
+    last of its nested names (read length by length, so a name may hold
+    digits, as ``flash_fwd_tf32_kernel`` does) and its integer template
+    arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") \
+        else 0
+    name = None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if not name or not name.endswith("_kernel"):
         return mangled
-    args = re.findall(r"Li(\d+)E", m.group(2) or "")
-    return m.group(1) + (f"[{','.join(args)}]" if args else "")
+    args = re.findall(r"Li(\d+)E", mangled[i:]) if mangled[i:i + 1] == "I" \
+        else []
+    return name + (f"[{','.join(args)}]" if args else "")
 
 
 def sass_counts(path, opcode: str) -> dict:
@@ -316,14 +338,43 @@ def phase_build(torch, results):
                   or "wgmma" in line.lower()):
                 print(f"   ptxas {name} {fn}: {line.strip()}")
                 ptxas.setdefault(fn, []).append(line.strip())
-    # K7's bf16 kernel runs on the tensor cores: its SASS holds HGMMA
+    # every K7 kernel (bf16 and float32, four head widths each) and K8's
+    # bf16 kernels (N 64 and 128) run on the tensor cores: their SASS
+    # holds HGMMA, and ptxas spills nothing in them
     hgmma = sass_counts(out_dir / "libflash_attention.so", "HGMMA")
-    print("   HGMMA instructions per K7 kernel (cuobjdump -sass): "
+    hgmma.update(sass_counts(out_dir / "libssd_chunk.so", "HGMMA"))
+    print("   HGMMA instructions per K7 and K8 kernel (cuobjdump -sass): "
           + json.dumps(hgmma), flush=True)
     results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
-    wg = {k: n for k, n in hgmma.items() if "wgmma" in k}
-    require(len(wg) == 4 and all(wg.values()),
-            f"HGMMA in each of the four bf16 K7 kernels: {wg}")
+    tc = {k: n for k, n in hgmma.items()
+          if k.startswith(("flash_fwd", "ssd_state_wgmma"))}
+    require(len(tc) == 10 and all(tc.values()),
+            f"HGMMA in each of the eight K7 kernels and K8's two bf16 "
+            f"kernels: {tc}")
+    spills = {k: v for k, v in ptxas.items() if k in tc and any(
+        re.search(r"[1-9]\d* bytes spill", line) for line in v)}
+    require(not spills, f"no ptxas spills in the tensor-core kernels: "
+            f"{spills}")
+    # each launch_plan states the shared memory its kernel asks for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    smem = {}
+    for hd in fa.HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 1, 64, hd, dtype=dtype)
+            smem[f"flash_attention[{hd}, {dtype}]"] = (
+                fa.launch_plan(q, q, q, q)["smem_bytes"],
+                build.library("flash_attention").flash_attention_smem(
+                    hd, int(dtype == torch.bfloat16)))
+    for N in sc.TC_NS:
+        x = torch.zeros(1, 256, 1, sc.TC_P, dtype=torch.bfloat16)
+        Bm = torch.zeros(1, 256, 1, N, dtype=torch.bfloat16)
+        smem[f"ssd_chunk_state[{N}]"] = (
+            sc.launch_plan(x, Bm)["smem_bytes"],
+            build.library("ssd_chunk").ssd_chunk_state_smem(N))
+    results["build"]["smem_plan_vs_library"] = smem
+    require(all(a == b for a, b in smem.values()),
+            f"launch_plan's shared memory is the kernel's: {smem}")
 
 
 def reddit_graph(classes=CLASSES):
@@ -950,7 +1001,10 @@ def phase_train_kernels(torch, g, g_gat, results):
             (a, b, gs, gd, o, heads), timed=True, library=lib,
             bytes_=4 * (us * F + ud * F + n_l * heads) + 12 * n_l,
             flops=2 * n_l * F, flush=flush)
-    results["edge_dot"] = results[f"edge_dot.1x{HIDDEN}"]
+    # the row of the kernels line: GAT's backward launches K6 at 4 x 64
+    # (layer 1's input) and 4 x 10 (its output layer), never at 1 x 256
+    results["edge_dot"] = results[
+        f"edge_dot.{GAT_HEADS}x{HIDDEN // GAT_HEADS}"]
 
     blk, q, mn, scale = minibatch_block(torch, g, dev)
     bnnz = int(blk.order.numel())
@@ -1260,11 +1314,13 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 # launcher in (a) then serves its --reduced config.
 LM_CONFIGS: dict = {}
 LM_KERNEL = {PHI3: "flash_attention", MAMBA2: "ssd_chunk_state"}
-# the counter of the same kernel's float32 launches (K7's CUDA-core route)
-LM_KERNEL_FP32 = {PHI3: "flash_attention_fp32", MAMBA2: "ssd_chunk_state"}
-# prefill tok/s recorded in PERF.md section 5 while K7's bf16 route still
-# ran on the CUDA cores, printed beside this run's for comparison
-EARLIER_PREFILL_TOK_S = {PHI3: 30659.0, MAMBA2: 26324.0}
+# the counter of the same kernel's float32 launches (K7's TF32 split route,
+# K8's CUDA-core route)
+LM_KERNEL_FP32 = {PHI3: "flash_attention_fp32",
+                  MAMBA2: "ssd_chunk_state_fp32"}
+# prefill tok/s of PR 14's first full run (PERF.md section 5: K8 still on
+# the CUDA cores), printed beside this run's for comparison
+EARLIER_PREFILL_TOK_S = {PHI3: 42294.0, MAMBA2: 26610.0}
 # K7's bf16 outputs: both sides round one float32 result to bf16, so an
 # element may differ by one bf16 ulp, at most 2**-7 of its plain value,
 # plus the float32 sums' own difference (far below 1e-5 of the largest
@@ -1335,13 +1391,15 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
         flops=4.0 * B * H * pairs * hd, flush=c.flush,
         rel=BF16_ATOL_REL if bf16 else 1e-4,
         elem_rel=BF16_ULP_REL if bf16 else None, elem_abs=p_term,
-        peak=BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S)
+        peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
 
 
 def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
     """K8 on the views the model passes (x and Bm slices of one (C, L,
-    conv_dim) tensor; dt and A in float32); the library call is the
-    reference's einsum on its precomputed operands."""
+    conv_dim) tensor; dt and A in float32) against its plain version
+    (1e-4 of the largest value in every route); the library call is the
+    reference's einsum on its precomputed operands.  float32's bound
+    takes its flops at the TF32 tensor-core rate, as K7's does."""
     from repro_torch.kernels import ssd_chunk as sc
     dtype = dtype or torch.bfloat16
     xBC = c.randn(C, L, H * P + 2 * G * N).to(dtype)
@@ -1353,6 +1411,7 @@ def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
     cum = torch.cumsum(dt * A, dim=1)
     decay = torch.exp(cum[:, -1:, :] - cum)
     xdt = x.float() * dt[..., None]
+    print(f"   {label}: route {sc.launch_plan(x, Bm)['counter']}")
     return check_case(
         torch, label, sc.ssd_chunk_state_cuda, sc.ssd_chunk_state_plain,
         (x, dt, A, Bm), timed=timed,
@@ -1361,7 +1420,7 @@ def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
                 + 4 * (C * L * H + H + C * H * P * N)),
         flops=2.0 * C * H * L * P * N + 4.0 * C * L * H, flush=c.flush,
         peak=BF16_FLOPS_PER_S if dtype == torch.bfloat16
-        else FP32_FLOPS_PER_S)
+        else TF32_FLOPS_PER_S)
 
 
 @phase("8. K7 flash attention and K8 SSD chunk state vs plain versions")
@@ -1414,8 +1473,35 @@ def phase_lm_kernels(torch, results):
         f"128, G 1, bf16)", C, 256, 48, 64, 1, 128)
     results["ssd_chunk_state.g2"] = k8_case(
         torch, c, "K8 Mamba2 prefill shape, G 2", C, 256, 48, 64, 2, 128)
+    results["ssd_chunk_state_fp32"] = k8_case(
+        torch, c, "K8 Mamba2 prefill shape, G 1, float32", C, 256, 48, 64, 1,
+        128, dtype=torch.float32)
     k8_case(torch, c, "K8 float32, L 100, 8 x 32, N 24, G 2", 6, 100, 8, 32,
             2, 24, dtype=torch.float32, timed=False)
+    # ragged chunks in bf16 (positions past L arrive as zeros), and more
+    # chunks than SMs (a block then walks 16 heads, the most it takes)
+    for G in (1, 2):
+        k8_case(torch, c, f"K8 bf16, L 100, 48 x 64, N 128, G {G}", 6, 100,
+                48, 64, G, 128, timed=False)
+    k8_case(torch, c, "K8 bf16, L 7", 3, 7, 48, 64, 1, 128, timed=False)
+    k8_case(torch, c, "K8 bf16, 160 chunks x 256", 160, 256, 48, 64, 1,
+            128, timed=False)
+    # N 64 on the tensor cores: Zamba2-2.7B's SSM widths (80 heads x 64,
+    # state 64, chunk 256) at the same prefill, then ragged
+    results["ssd_chunk_state.n64"] = k8_case(
+        torch, c, f"K8 Zamba2-2.7B widths ({C} chunks x 256, 80 x 64, N 64, "
+        f"G 1, bf16)", C, 256, 80, 64, 1, 64)
+    k8_case(torch, c, "K8 bf16, L 100, 8 x 64, N 64, G 2", 6, 100, 8, 64, 2,
+            64, timed=False)
+    k8_case(torch, c, "K8 bf16, N 64, 160 chunks x 256, 64 x 64 (a block "
+            "walks 32 heads, the most it takes at N 64)", 160, 256, 64, 64,
+            1, 64, timed=False)
+    # bf16 off the tensor-core tile goes to the CUDA-core kernel: the
+    # reduced configs' widths (8 x 32, N 16, chunk 16) and a chunk of 300
+    k8_case(torch, c, "K8 bf16, L 16, 8 x 32, N 16, G 2", 6, 16, 8, 32, 2,
+            16, timed=False)
+    k8_case(torch, c, "K8 bf16, L 300, 8 x 64, N 128, G 1", 3, 300, 8, 64,
+            1, 128, timed=False)
     # the calls K7 does not compute raise on the card, naming the ROADMAP
     # item, and never run the plain version
     q, kv = c.randn(1, 4, 2, 64), c.randn(1, 8, 2, 64)
@@ -1446,8 +1532,9 @@ def lm_profile(torch, label, step, wall_s) -> dict:
     warm-up step, beside the step's wall time ``wall_s``."""
     def kind(key):
         k = key.lower()
-        if any(n in k for n in ("flash_fwd_kernel", "flash_fwd_wgmma_kernel",
-                                "ssd_state_kernel")):
+        if any(n in k for n in ("flash_fwd_wgmma_kernel",
+                                "flash_fwd_tf32_kernel", "ssd_state_kernel",
+                                "ssd_state_wgmma_kernel")):
             return "port kernel"
         if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                 "sm80_", "ampere_", "matmul", "nvjet",
@@ -1627,9 +1714,9 @@ def lm_phase(torch, arch, results):
             "launches": counts}
         print(f"   (b) prefill {LM_BATCH} x {LM_PROMPT}, then {LM_GEN} "
               f"decode steps: " + json.dumps(out["prefill"]), flush=True)
-        print(f"   prefill {out['prefill']['prefill_tok_s']:.0f} tok/s; with "
-              f"K7 on the CUDA cores (PERF.md): "
-              f"{EARLIER_PREFILL_TOK_S[arch]:.0f} tok/s", flush=True)
+        print(f"   prefill {out['prefill']['prefill_tok_s']:.0f} tok/s; PR "
+              f"14's run (PERF.md): {EARLIER_PREFILL_TOK_S[arch]:.0f} tok/s",
+              flush=True)
         require(finite, "finite prefill and decode logits")
         require(counts == {key: nl}, f"one prefill and {LM_GEN} decode "
                 f"steps launch {key} exactly {nl} times: {counts}")
@@ -1670,8 +1757,10 @@ def phase_mamba2(torch, results):
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
-    through K1-K6, phases 9 and 10 serve through K7 and K8; K7's float32
-    route runs in phase 9's float32 prefill)."""
+    through K1-K6, phases 9 and 10 serve through K7 and K8; the float32
+    routes of K7 and K8 run in the float32 prefills of phases 9 and 10).
+    K6's row is its 4 x 64 case, with the 4 x 10 case beside it: the
+    shapes GAT's backward launches it at."""
     rows = []
     meta = [("gather_scale_segment_sum", "gather_scale_segment_sum",
              "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
@@ -1697,7 +1786,10 @@ def kernels_line(results) -> dict:
              "flash_attention.cu", "src/repro/kernels/flash_attention.py:90",
              f"launches.lm_fp32.{PHI3}"),
             ("ssd_chunk_state", "ssd_chunk_state", "ssd_chunk.cu",
-             "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}")]
+             "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}"),
+            ("ssd_chunk_state_fp32", "ssd_chunk_state_fp32", "ssd_chunk.cu",
+             "src/repro/kernels/ssd_chunk.py:55",
+             f"launches.lm_fp32.{MAMBA2}")]
     for name, key, src, replaces, path in meta:
         r = results[key]
         rows.append({
@@ -1708,6 +1800,17 @@ def kernels_line(results) -> dict:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "ssd_chunk_state":
+            rn = results["ssd_chunk_state.n64"]
+            rows[-1]["at_zamba2_n64"] = {
+                k: rn[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+        if name == "edge_dot":
+            r10 = results[f"edge_dot.{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"]
+            rows[-1]["shape"] = f"{GAT_HEADS} x {HIDDEN // GAT_HEADS}"
+            rows[-1][f"at_{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"] = {
+                k: r10[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
     return {"kernels": rows}
 
 

@@ -51,10 +51,12 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _I, _P],
+        "flash_attention_smem": [_I, _I],
     },
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _P],
+                                _I, _I, _I, _P],
+        "ssd_chunk_state_smem": [_I],
     },
 }
 

@@ -12,55 +12,96 @@
 //     only shapes that have one: causal with Sq > Skv, and Skv 0).
 //
 // Every tensor is read through its strides (batch, head, position; the
-// last dim contiguous), so the model passes its (B, S, H, hd) tensors as
-// (B, H, S, hd) views without a transpose copy, and the output is
-// written the same way.
+// last dim contiguous) by 4-d TMA maps over (hd, position, head, batch),
+// so the model passes its (B, S, H, hd) tensors as (B, H, S, hd) views
+// without a transpose copy, and the output is written the same way.
+// TMA needs a 16-byte-aligned base and byte strides in multiples of 16
+// (the wrapper's launch_plan checks both and names the tensor).  Ragged
+// Q and K tiles arrive as zeros and are masked; the store clips rows
+// past Sq.
 //
 // Bound.  2*Sq*Skv*hd*2 flops per (b, h) (QK^T and PV), fewer under the
 // causal or window mask; q, k, v read and o written once.  At
-// Phi-3-mini's prefill (B 8, 32 x 96, S 1024, causal, bf16) that is
-// about 51 GFLOP against 201 MB: the bf16 tensor-core peak (989 TFLOP/s,
-// 0.05 ms) and the memory rate (3.35 TB/s, 0.06 ms) are close.
+// Phi-3-mini's prefill (B 8, 32 x 96, S 1024, causal) that is about 51.5
+// GFLOP against 201 MB in bf16 (the bf16 tensor-core peak, 989 TFLOP/s,
+// 0.05 ms, and the memory rate, 3.35 TB/s, 0.06 ms, are close) and 403 MB
+// in float32 (0.12 ms of memory time against 0.10 ms of TF32 tensor-core
+// time at 495 TFLOP/s: bound by bytes).
 //
-// Two routes, chosen by dtype (the wrapper says which it takes):
+// Two routes, chosen by dtype (the wrapper says which it takes); both
+// run the online softmax in registers in float32 (scores in log2 units,
+// exp2; a row's max and sum reduced over the 4 threads of its quad in a
+// fixed order), mask only the tiles that cross the diagonal, the window
+// edge or Skv, skip the tiles no row sees, and run the query tiles last
+// first (the longest causal rows lead).  The bf16 grid is (H, B, query
+// tiles), the G query heads of one kv head side by side sharing its tiles
+// in L2; the float32 grid is (query tiles, H, B), so that the blocks in
+// flight are the query tiles of a few heads and read the same K and V
+// tiles.
 //
-// bf16: flash_fwd_wgmma_kernel, on the tensor cores.  One block of 384
-// threads per (head, batch, 128 query rows): a producer warpgroup whose
-// one thread only issues TMA (Q once; K and V tiles of BK keys into a
-// ring of STAGES stages, full/empty mbarriers per stage, K and V on
-// separate full barriers), and two consumer warpgroups of 64 query rows
-// each; setmaxnreg moves registers from the producer (24) to the
-// consumers (240).  A consumer issues S = Q K^T as wgmma m64nBKk16 (both
-// operands from swizzled shared memory), masks only the tiles that cross
-// the diagonal, the window edge or Skv, runs the online softmax in
-// registers (scores in log2 units, exp2; a row's max and sum reduced over
-// the 4 threads of its quad in a fixed order), turns P into bf16 A
-// fragments in registers (the accumulator layout is the A layout) and
-// issues O += P V as wgmma m64n{hd}k16 with V as a transposed (MN-major)
-// B operand.  The epilogue divides by max(l, 1e-30) in float32, writes
-// bf16 O into the warpgroup's Q rows in shared memory (Q is dead) and
-// TMA-stores it to the strided output; rows past Sq are clipped by TMA,
-// as ragged Q and K tiles arrive as zeros and are masked.  BK is 128
-// keys for hd <= 128 and 64 at hd 256 (the O accumulator alone is 128
-// registers a thread); swizzle 128 B for hd 64, 128, 256 and 64 B for hd
-// 96 (192-byte rows: three 32-column chunks).  Grid (H, B, query tiles):
-// the G query heads of one kv head run side by side and share its tiles
-// in L2, and the query tiles run last first, the longest causal rows
-// leading.  P is rounded to bf16 for the PV product, as the TPU kernel's
-// default-precision jnp.dot(p, v) and FlashAttention do: it adds at most
-// 2^-8 * (sum_j p_j |v_j|) / l to an output.
+// bf16: flash_fwd_wgmma_kernel.  One block of 384 threads per 128 query
+// rows: a producer warpgroup whose one thread only issues TMA (Q once; K
+// and V tiles of BK keys into a ring of STAGES stages, full/empty
+// mbarriers per stage, K and V on separate full barriers), and two
+// consumer warpgroups of 64 query rows each; setmaxnreg moves registers
+// from the producer (24) to the consumers (240).  A consumer issues S =
+// Q K^T as wgmma m64nBKk16 (both operands from swizzled shared memory),
+// turns P into bf16 A fragments in registers (the accumulator layout is
+// the bf16 A layout) and issues O += P V as wgmma m64n{hd}k16 with V as a
+// transposed (MN-major) B operand.  The epilogue divides by max(l,
+// 1e-30), writes bf16 O into the warpgroup's dead Q rows and TMA-stores
+// it.  BK is 128 keys for hd <= 128 and 64 at hd 256 (the O accumulator
+// alone is 128 registers a thread); swizzle 128 B, 64 B at hd 96
+// (192-byte rows: three 32-column chunks).  P is rounded to bf16 for the
+// PV product, as the TPU kernel's default-precision jnp.dot(p, v) and
+// FlashAttention do: it adds at most 2^-8 * (sum_j p_j |v_j|) / l to an
+// output.
 //
-// float32: flash_fwd_kernel, the first kernel, on the CUDA cores.  One
-// block per (query tile of 64, head, batch), 8 warps, 8 query rows per
-// warp; a loop over key/value tiles of 64 staged in shared memory as
-// float32; the online softmax (running max m, denominator l, accumulator
-// of 8 rows x hd/32 columns per lane) stays in registers, so the (Sq,
-// Skv) matrix never reaches device memory, which is what the TPU kernel
-// exists for.  Score tiles are 8 rows x 2 keys per lane from float4
-// shared-memory reads (K rows padded by 4 floats: conflict-free); the
-// probabilities of a tile pass through a per-warp shared buffer into the
-// PV product.  Tiles wholly above the diagonal or outside the window are
-// skipped.  Bound by operations on the CUDA cores, far from either bound.
+// float32: flash_fwd_tf32_kernel, also on the tensor cores.  TF32 keeps
+// 10 of float32's 23 mantissa bits, so one TF32 product per operand
+// pair misses phase 8's float32 bound (1e-4 of the largest output): in a
+// CPU emulation at hd 96, S 1024, 8 heads, causal, random normal inputs,
+// a single pass errs by 5.0e-4 of it.  Each operand x is split into hi =
+// cvt.rna.tf32(x), stored explicitly, and lo = cvt.rna.tf32(x - hi), the
+// remainder of that very hi, and each product takes three TF32 passes:
+//       S  = Qh Kh^T + Qh Kl^T + Ql Kh^T,   O += Ph Vh + Ph Vl + Pl Vh
+// (the dropped lo*lo term is 2^-22 relative; 3.6e-7 in the emulation).
+// One block of 160 threads per 64 query rows: a consumer warpgroup and a
+// producer warp whose one thread issues TMA (Q once; raw float32 K and V
+// tiles of BK keys into one stage with full/empty mbarriers).  The
+// consumers split Q once (hi over the raw tile, lo beside) and each
+// landed tile: K hi over raw K and K lo beside, V into V^T hi and lo.
+// Bound: 51.5 GFLOP at Phi-3's prefill is 0.10 ms at the TF32 peak and
+// its 403 MB 0.12 ms of memory time, so bytes bound the function; the
+// three passes of each product make 0.31 ms of TF32 tensor time.  What
+// holds a single warpgroup back is latency (the splits, the softmax and
+// the waits on its own wgmmas, with no other warps to hide them): 32-key
+// tiles, and K hi in place, keep a block at 109 KB at hd 96, so two
+// blocks share an SM and each hides the other's latency (faster than one
+// block on 64-key tiles, on an H100).  The stage is freed
+// once every warp's Q K^T has read K hi, and the next tile loads during
+// the softmax and P V.
+// What the design does about the three constraints of TF32 wgmma:
+//   - shared-memory operands are K-major only: Q and K arrive K-major
+//     (hd contiguous) and their hi/lo parts keep TMA's swizzled layout
+//     byte for byte; V does not, so the split pass writes V^T (keys
+//     contiguous, the canonical K-major layout) -- the transpose costs no
+//     extra pass;
+//   - the tf32 A fragment of k8 is not the float32 accumulator's layout
+//     (a thread holds key columns {t, t+4} of a k-step in the fragment
+//     and {2t, 2t+1} in the accumulator): instead of shuffling P within
+//     the quad, the split pass writes V^T's keys in the matching order
+//     (k-slot c of each 8 holds key 2c for c < 4 and 2(c-4)+1 after),
+//     so P's accumulator registers are the fragment as they stand; the
+//     sum over keys runs in one fixed order, bitwise repeatable;
+//   - shared memory: a float32 tile is twice a bf16 one and the split
+//     doubles it again: Q hi/lo + K (then K hi) + K lo + raw V + V^T
+//     hi/lo take 73, 109, 145 and 209 KB of the 227 KB at hd 64, 96, 128
+//     and 256 (tiles of 32 keys, 16 at hd 256, whose V^T rows of 64 B
+//     take a 64-byte swizzle): two blocks an SM at hd 64 and 96, one at
+//     128 and 256.
+// The epilogue writes float32 O / max(l, 1e-30) over Q hi and TMA-stores
+// it.  No float atomics, and the passes accumulate in a fixed order.
 //
 // Sums run in a fixed order in both: bitwise repeatable.
 #include <cuda.h>
@@ -72,190 +113,17 @@
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // keys per kv tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS = BQ / WARPS;     // query rows per warp
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-struct Strides {
-  long long b, h, s;   // elements, for batch, head and position
-};
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * HD + BK * (HD + 4) + BK * HD + BQ * BK);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so, int G,
-                 int Sq, int Skv, int causal, int window, float scale) {
-  constexpr int KS = HD + 4;         // padded K row: column reads hit distinct banks
-  constexpr int DPL = HD / 32;       // output columns per lane
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // BQ x HD, scaled
-  float* Ks = Qs + BQ * HD;                      // BK x KS
-  float* Vs = Ks + BK * KS;                      // BK x HD
-  float* Ps = Vs + BK * HD;                      // BQ x BK, each warp its ROWS rows
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / G;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int off = Skv - Sq;
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + kh * sk.h;
-  const T* vb = v + b * sv.b + kh * sv.h;
-
-  for (int i = tid; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, d = i - r * HD;
-    const int qi = q0 + r;
-    Qs[i] = qi < Sq ? to_f(qb[qi * sq.s + d]) * scale : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][DPL];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  }
-
-  // the key range any row of this tile can see
-  const int qfirst = q0 + off;
-  const int qlast = min(q0 + BQ, Sq) - 1 + off;
-  const int kv_end = causal ? min(Skv, qlast + 1) : Skv;
-  const int kv_begin = window ? max(0, qfirst - window + 1) : 0;
-  const int t_end = (kv_end + BK - 1) / BK;
-  float* Pw = Ps + warp * ROWS * BK;
-
-  for (int t = kv_begin / BK; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();   // the previous tile's K, V and P reads are done
-    for (int i = tid; i < BK * HD; i += THREADS) {
-      const int r = i / HD, d = i - r * HD;
-      const int kj = k0 + r;
-      const bool ok = kj < Skv;
-      Ks[r * KS + d] = ok ? to_f(kb[kj * sk.s + d]) : 0.f;
-      Vs[r * HD + d] = ok ? to_f(vb[kj * sv.s + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this warp's rows against keys lane and lane + 32
-    float s[ROWS][2];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(Ks + lane * KS + d);
-      const float4 kc = *reinterpret_cast<const float4*>(Ks + (lane + 32) * KS + d);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (warp * ROWS + r) * HD + d);
-        s[r][0] += qv.x * ka.x + qv.y * ka.y + qv.z * ka.z + qv.w * ka.w;
-        s[r][1] += qv.x * kc.x + qv.y * kc.y + qv.z * kc.z + qv.w * kc.w;
-      }
-    }
-
-    // mask, online softmax; the probabilities go to this warp's P rows
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qpos = q0 + warp * ROWS + r + off;
-      bool ok[2];
-      float mx = NEG;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kpos = k0 + lane + 32 * c;
-        ok[c] = kpos < Skv && (!causal || kpos <= qpos) && (!window || kpos > qpos - window);
-        if (ok[c]) mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[r], mx);
-      const float p0 = ok[0] ? expf(s[r][0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(s[r][1] - m_new) : 0.f;
-      float rs = p0 + p1;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + rs;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= alpha;
-      Pw[r * BK + lane] = p0;
-      Pw[r * BK + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    // acc[r][c] += sum_j P[r][j] * V[j][lane + 32 c]
-#pragma unroll 2
-    for (int j = 0; j < BK; j += 4) {
-      float vv[4][DPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) vv[jj][c] = Vs[(j + jj) * HD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(Pw + r * BK + j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c)
-          acc[r][c] += p.x * vv[0][c] + p.y * vv[1][c] + p.z * vv[2][c] + p.w * vv[3][c];
-      }
-    }
-  }
-
-  T* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qi = q0 + warp * ROWS + r;
-    if (qi >= Sq) continue;
-    const float den = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) store(ob + qi * so.s + lane + 32 * c, acc[r][c] / den);
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-           int H, int K, int Sq, int Skv, int causal, int window, float scale,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]}, sv{st[6], st[7], st[8]},
-      so{st[9], st[10], st[11]};
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, HD><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, H / K, Sq, Skv, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-             int H, int K, int Sq, int Skv, int hd, int causal, int window, float scale,
-             cudaStream_t stream) {
-  switch (hd) {
-    case 64: return launch<T, 64>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// a 4-d map over (hd, position, heads, batch) of a tensor with element
+// strides st = (batch, head, position); the wrapper has checked TMA's
+// alignment
+int make_map(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* ptr, int hd,
+             int S, int heads, int B, const long long* st, int box_cols, int box_rows, int sw) {
+  const long long dims[4] = {hd, S, heads, B};
+  const long long strides[3] = {st[2], st[1], st[0]};
+  const int box[4] = {box_cols, box_rows, 1, 1};
+  return hopper::make_map_4d(map, type, esize, ptr, dims, strides, box, sw);
 }
 
 // ---------------------------------------------------------------------------
@@ -515,51 +383,360 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// ---------------------------------------------------------------------------
+// the float32 route: wgmma on TF32 hi/lo splits, TMA
+// ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
+constexpr int F_BQ = 64;          // query rows per block: one consumer warpgroup
+constexpr int F_THREADS = 160;    // the consumer warpgroup and a producer warp
+
+template <int HD>
+struct TileF {
+  static constexpr int BK = HD <= 128 ? 32 : 16;   // keys per kv tile
+  static constexpr int NC = HD / 32;               // 128-byte chunks of a Q, K or V row
+  static constexpr int Q_CHUNK = F_BQ * 128;
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = NC * Q_CHUNK;     // 64 x HD float32
+  static constexpr int KV_BYTES = NC * KV_CHUNK;   // BK x HD float32
+  static constexpr int VT_SW = BK >= 32 ? 128 : 4 * BK;  // V^T rows: BK keys, swizzle
+  static constexpr int VT_CW = VT_SW / 4;          // keys per chunk of a V^T row
+  static constexpr int VT_CHUNK = HD * VT_SW;
+  // Q hi (over raw Q) and lo; K (raw, then hi), K lo; raw V; V^T hi, lo;
+  // 3 barriers
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 5 * KV_BYTES + 8 * 3;
+  // two blocks fit on an SM (228 KB, 1 KB of it reserved per block) at hd
+  // 64 and 96
+  static constexpr int BLOCKS = SMEM + 1024 <= 228 * 1024 / 2 ? 2 : 1;
+};
+
+// the hi and lo TF32 parts of a float4, elementwise
+__device__ __forceinline__ void split4(const float4 x, uint4& hi, uint4& lo) {
+  hopper::split_tf32(x.x, hi.x, lo.x);
+  hopper::split_tf32(x.y, hi.y, lo.y);
+  hopper::split_tf32(x.z, hi.z, lo.z);
+  hopper::split_tf32(x.w, hi.w, lo.w);
 }
 
-// a failed encode returns TENSOR_MAP_ERROR + its CUresult
-constexpr int TENSOR_MAP_ERROR = 10000;
+// a tile of 16-byte units, U for each of 128 threads: hi over the tile in
+// place, lo into `lo`, byte for byte (so in the tile's swizzled layout);
+// the loads of up to 8 units issue before their splits
+template <int U>
+__device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo, int tid) {
+  constexpr int BATCH = U <= 8 ? U : (U % 8 == 0 ? 8 : 6);   // U is 4, 6, 8, 12, 16 or 32
+  static_assert(U % BATCH == 0, "whole batches");
+#pragma unroll
+  for (int k0 = 0; k0 < U; k0 += BATCH) {
+    float4 x[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k)
+      x[k] = *reinterpret_cast<const float4*>(tile + 16 * (tid + 128 * (k0 + k)));
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      uint4 h, l;
+      split4(x[k], h, l);
+      *reinterpret_cast<uint4*>(tile + 16 * (tid + 128 * (k0 + k))) = h;
+      *reinterpret_cast<uint4*>(lo + 16 * (tid + 128 * (k0 + k))) = l;
+    }
+  }
+}
 
-// a 4-d map over (hd, S, heads, B) of a bf16 tensor with element strides
-// st = (batch, head, position); the wrapper has checked TMA's alignment
-int make_map(CUtensorMap* map, const void* ptr, int hd, int S, int heads, int B,
-             const long long* st, int box_cols, int box_rows, int sw) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  // a dim of size 1 is never stepped along: any multiple of 16 will do
-  const cuuint64_t strides[3] = {S > 1 ? 2 * (cuuint64_t)st[2] : 16,
-                                 heads > 1 ? 2 * (cuuint64_t)st[1] : 16,
-                                 B > 1 ? 2 * (cuuint64_t)st[0] : 16};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)res;
+// tensor maps over (hd, position, head, batch) in float32 with 128-byte
+// swizzle: Q and O in boxes of 32 x 64 rows, K and V in boxes of 32 x BK
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, TileF<HD>::BLOCKS)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to, int G, int Sq, int Skv, int causal,
+                      int window, float scale_log2) {
+  using T = TileF<HD>;
+  constexpr int BK = T::BK, NC = T::NC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);  // Q, Q hi, O
+  uint8_t* sQl = sQ + T::Q_BYTES;
+  uint8_t* sK = sQl + T::Q_BYTES;    // raw K and V as TMA writes them; K hi over K
+  uint8_t* sV = sK + T::KV_BYTES;
+  uint8_t* sKl = sV + T::KV_BYTES;
+  uint8_t* sVh = sKl + T::KV_BYTES;  // V^T hi and lo, keys in the A fragment's order
+  uint8_t* sVl = sVh + T::KV_BYTES;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sVl + T::KV_BYTES);
+  uint64_t* full_kv = full_q + 1;
+  uint64_t* empty = full_kv + 1;
+
+  // the query tiles of one head run side by side (last first), then the
+  // heads that share a kv head: the blocks in flight read the same K and V
+  // tiles, from L2
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / G;
+  const int off = Skv - Sq;
+  const int qlast = min(q0 + F_BQ, Sq) - 1 + off;
+  const int kv_end = causal ? min(Skv, qlast + 1) : Skv;
+  const int kv_begin = window ? max(0, q0 + off - window + 1) : 0;
+  const int t_begin = kv_begin / BK;
+  const int t_end = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(full_kv, 1);
+    hopper::mbar_init(empty, 4);   // one arrival per consumer warp
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      hopper::mbar_expect_tx(full_q, T::Q_BYTES);
+      for (int c = 0; c < NC; ++c)
+        hopper::tma_load_4d(sQ + c * T::Q_CHUNK, &tq, full_q, c * 32, q0, h, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        hopper::mbar_wait(empty, (i & 1) ^ 1);
+        hopper::mbar_expect_tx(full_kv, 2 * T::KV_BYTES);
+        for (int c = 0; c < NC; ++c) {
+          hopper::tma_load_4d(sK + c * T::KV_CHUNK, &tk, full_kv, c * 32, t * BK, kh, b);
+          hopper::tma_load_4d(sV + c * T::KV_CHUNK, &tv, full_kv, c * 32, t * BK, kh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup owns query rows q0 .. q0 + 63; a thread holds
+  // rows r and r + 8 of its warp's 16, columns 8 j + cq, + 1
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = (tid >> 5) * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int qpos = q0 + r + off;
+  const int wfirst = q0 + off;
+  const int wlast = qlast;
+  const uint32_t qh_addr = hopper::smem_u32(sQ), ql_addr = hopper::smem_u32(sQl);
+  const uint32_t kh_addr = hopper::smem_u32(sK), kl_addr = hopper::smem_u32(sKl);
+  const uint32_t vh_addr = hopper::smem_u32(sVh), vl_addr = hopper::smem_u32(sVl);
+
+  // Q: hi in place, lo beside, in TMA's swizzled layout
+  hopper::mbar_wait(full_q, 0);
+  split_tile<T::Q_BYTES / 16 / 128>(sQ, sQl, tid);
+
+  float o[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+
+  for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    const int k0 = t * BK;
+    hopper::mbar_wait(full_kv, i & 1);
+    // every warp's products on the previous tile are done with the splits
+    hopper::named_barrier(1, 128);
+    // K: hi in place and lo beside, in TMA's layout, byte for byte
+    split_tile<T::KV_BYTES / 16 / 128>(sK, sKl, tid);
+    // V^T: item (column n, quarter g of a k-step pair) takes keys key0 +
+    // {0, 2, 4, 6} of raw V to k-slots 4 g .. 4 g + 3 of V^T's row n
+#pragma unroll
+    for (int k = 0; k < HD * BK / 4 / 128; ++k) {
+      const int it = tid + 128 * k;
+      const int n = it % HD, g = it / HD;
+      const int key0 = 8 * (g >> 1) + (g & 1);
+      const uint32_t col = (n / 32) * T::KV_CHUNK + (n % 32) * 4;
+      float4 x;
+      x.x = *reinterpret_cast<const float*>(sV + hopper::swz<128>(col + (key0 + 0) * 128));
+      x.y = *reinterpret_cast<const float*>(sV + hopper::swz<128>(col + (key0 + 2) * 128));
+      x.z = *reinterpret_cast<const float*>(sV + hopper::swz<128>(col + (key0 + 4) * 128));
+      x.w = *reinterpret_cast<const float*>(sV + hopper::swz<128>(col + (key0 + 6) * 128));
+      uint4 hi, lo;
+      split4(x, hi, lo);
+      const uint32_t dst = hopper::swz<T::VT_SW>(((4 * g) / T::VT_CW) * T::VT_CHUNK +
+                                                 n * T::VT_SW + ((4 * g) % T::VT_CW) * 4);
+      *reinterpret_cast<uint4*>(sVh + dst) = hi;
+      *reinterpret_cast<uint4*>(sVl + dst) = lo;
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1, 128);
+
+    // S = Qh Kh^T + Qh Kl^T + Ql Kh^T over hd in k-steps of 8
+    float sc[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const int c = kk / 4, j = kk % 4;
+      const uint64_t qh = hopper::make_desc(qh_addr + c * T::Q_CHUNK + j * 32, 16, 1024, 128);
+      const uint64_t ql = hopper::make_desc(ql_addr + c * T::Q_CHUNK + j * 32, 16, 1024, 128);
+      const uint64_t khd = hopper::make_desc(kh_addr + c * T::KV_CHUNK + j * 32, 16, 1024, 128);
+      const uint64_t kld = hopper::make_desc(kl_addr + c * T::KV_CHUNK + j * 32, 16, 1024, 128);
+      if constexpr (BK == 32) {
+        hopper::wgmma_tf32_ss_n32(sc, qh, khd, kk > 0);
+        hopper::wgmma_tf32_ss_n32(sc, qh, kld, 1);
+        hopper::wgmma_tf32_ss_n32(sc, ql, khd, 1);
+      } else {
+        hopper::wgmma_tf32_ss_n16(sc, qh, khd, kk > 0);
+        hopper::wgmma_tf32_ss_n16(sc, qh, kld, 1);
+        hopper::wgmma_tf32_ss_n16(sc, ql, khd, 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(sc);
+    // this warp's products are done with K hi: once every warp says so,
+    // the stage loads the next tile during this one's softmax and P V
+    __syncwarp();
+    if ((tid & 31) == 0) hopper::mbar_arrive(empty);
+
+    // scores in log2 units; the mask only on tiles that cross the
+    // diagonal, the window edge or Skv for some row of this block
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) sc[x] *= scale_log2;
+    if (k0 + BK > Skv || (causal && k0 + BK - 1 > wfirst) || (window && k0 <= wlast - window)) {
+#pragma unroll
+      for (int jn = 0; jn < BK / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * jn + cq + (e & 1);
+          const int qp = qpos + 8 * (e >> 1);
+          const bool ok = kpos < Skv && (!causal || kpos <= qp) && (!window || kpos > qp - window);
+          if (!ok) sc[4 * jn + e] = -CUDART_INF_F;
+        }
+    }
+
+    // online softmax: the row max over the quad's 4 threads, fixed order
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int jn = 0; jn < BK / 8; ++jn) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int jn = 0; jn < BK / 8; ++jn) {
+      sc[4 * jn] = exp2f(sc[4 * jn] - m0);
+      sc[4 * jn + 1] = exp2f(sc[4 * jn + 1] - m0);
+      sc[4 * jn + 2] = exp2f(sc[4 * jn + 2] - m1);
+      sc[4 * jn + 3] = exp2f(sc[4 * jn + 3] - m1);
+      rs0 += sc[4 * jn] + sc[4 * jn + 1];
+      rs1 += sc[4 * jn + 2] + sc[4 * jn + 3];
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int jn = 0; jn < HD / 8; ++jn) {
+      o[4 * jn] *= a0;
+      o[4 * jn + 1] *= a0;
+      o[4 * jn + 2] *= a1;
+      o[4 * jn + 3] *= a1;
+    }
+    // P's hi and lo as the tf32 A fragments of the k-steps of 8 keys: the
+    // fragment's (row, k-slot) pairs (r, t), (r+8, t), (r, t+4), (r+8, t+4)
+    // hold keys 2t, 2t, 2t+1, 2t+1 (V^T's k-slots were written to match)
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      hopper::split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      hopper::split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      hopper::split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      hopper::split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+
+    // O += Ph Vh + Ph Vl + Pl Vh
+    hopper::fence_regs(ph);
+    hopper::fence_regs(pl);
+    hopper::fence_regs(o);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint32_t at = ((8 * kk) / T::VT_CW) * T::VT_CHUNK + ((8 * kk) % T::VT_CW) * 4;
+      const uint64_t vh = hopper::make_desc(vh_addr + at, 16, 8 * T::VT_SW, T::VT_SW);
+      const uint64_t vl = hopper::make_desc(vl_addr + at, 16, 8 * T::VT_SW, T::VT_SW);
+      if constexpr (HD == 64) {
+        hopper::wgmma_tf32_rs_n64(o, ph[kk], vh);
+        hopper::wgmma_tf32_rs_n64(o, ph[kk], vl);
+        hopper::wgmma_tf32_rs_n64(o, pl[kk], vh);
+      } else if constexpr (HD == 96) {
+        hopper::wgmma_tf32_rs_n96(o, ph[kk], vh);
+        hopper::wgmma_tf32_rs_n96(o, ph[kk], vl);
+        hopper::wgmma_tf32_rs_n96(o, pl[kk], vh);
+      } else if constexpr (HD == 128) {
+        hopper::wgmma_tf32_rs_n128(o, ph[kk], vh);
+        hopper::wgmma_tf32_rs_n128(o, ph[kk], vl);
+        hopper::wgmma_tf32_rs_n128(o, pl[kk], vh);
+      } else {
+        hopper::wgmma_tf32_rs_n256(o, ph[kk], vh);
+        hopper::wgmma_tf32_rs_n256(o, ph[kk], vl);
+        hopper::wgmma_tf32_rs_n256(o, pl[kk], vh);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(o);
+  }
+
+  // epilogue: O / max(l, 1e-30) in float32 over Q hi, swizzled as the map
+  // expects, then one TMA store per chunk
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  hopper::named_barrier(1, 128);   // every warp's products are done reading Q hi
+#pragma unroll
+  for (int jn = 0; jn < HD / 8; ++jn) {
+    const int col = 8 * jn + cq;
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      const int row = r + 8 * i2;
+      const float den = i2 ? d1 : d0;
+      *reinterpret_cast<float2*>(
+          sQ + hopper::swz<128>((col / 32) * T::Q_CHUNK + row * 128 + (col % 32) * 4)) =
+          make_float2(o[4 * jn + 2 * i2] / den, o[4 * jn + 2 * i2 + 1] / den);
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1, 128);
+  if (tid == 0) {
+    for (int c = 0; c < NC; ++c)
+      hopper::tma_store_4d(&to, sQ + c * T::Q_CHUNK, c * 32, q0, h, b);
+    hopper::tma_store_commit_and_wait_read();
+  }
+}
+
+template <int HD>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
+                int H, int K, int Sq, int Skv, int causal, int window, float scale,
+                cudaStream_t stream) {
+  using T = TileF<HD>;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap mq, mk, mv, mo;
+  int err = make_map(&mq, F32, 4, q, HD, Sq, H, B, st, 32, F_BQ, 128);
+  if (!err) err = make_map(&mk, F32, 4, k, HD, Skv, K, B, st + 3, 32, T::BK, 128);
+  if (!err) err = make_map(&mv, F32, 4, v, HD, Skv, K, B, st + 6, 32, T::BK, 128);
+  if (!err) err = make_map(&mo, F32, 4, o, HD, Sq, H, B, st + 9, 32, F_BQ, 128);
+  if (err) return err;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
+  flash_fwd_tf32_kernel<HD><<<grid, F_THREADS, T::SMEM, stream>>>(
+      mq, mk, mv, mo, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st,
+                  int B, int H, int K, int Sq, int Skv, int hd, int causal, int window,
+                  float scale, cudaStream_t s) {
+  switch (hd) {
+    case 64: return launch_tf32<64>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    case 96: return launch_tf32<96>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    case 128: return launch_tf32<128>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    case 256: return launch_tf32<256>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <int HD>
@@ -567,11 +744,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
                  int B, int H, int K, int Sq, int Skv, int causal, int window, float scale,
                  cudaStream_t stream) {
   using T = Tile<HD>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
-  int err = make_map(&mq, q, HD, Sq, H, B, st, T::CW, TC_ROWS, T::SW);
-  if (!err) err = make_map(&mk, k, HD, Skv, K, B, st + 3, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mv, v, HD, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mo, o, HD, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
+  int err = make_map(&mq, BF16, 2, q, HD, Sq, H, B, st, T::CW, TC_ROWS, T::SW);
+  if (!err) err = make_map(&mk, BF16, 2, k, HD, Skv, K, B, st + 3, T::CW, T::BK, T::SW);
+  if (!err) err = make_map(&mv, BF16, 2, v, HD, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
+  if (!err) err = make_map(&mo, BF16, 2, o, HD, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -597,9 +775,10 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, const l
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) of q, k, v, o in
-// turn; is_bf16 selects bf16 tensors and the wgmma kernel (else float32
-// and the CUDA-core kernel).  Returns cudaGetLastError() after the
-// launch, or TENSOR_MAP_ERROR + a CUresult if a TMA map was refused.
+// turn; is_bf16 selects bf16 tensors and the bf16 kernel (else float32
+// and the TF32 split kernel).  Returns cudaGetLastError() after the
+// launch, or hopper::TENSOR_MAP_ERROR + a CUresult if a TMA map was
+// refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const long long* strides, int B, int H, int K, int Sq,
                                    int Skv, int hd, int causal, int window, float scale,
@@ -608,6 +787,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (Sq == 0 || B == 0 || H == 0) return 0;
   return is_bf16 ? dispatch_wgmma(q, k, v, o, strides, B, H, K, Sq, Skv, hd, causal, window,
                                   scale, s)
-                 : dispatch<float>(q, k, v, o, strides, B, H, K, Sq, Skv, hd, causal, window,
-                                   scale, s);
+                 : dispatch_tf32(q, k, v, o, strides, B, H, K, Sq, Skv, hd, causal, window,
+                                 scale, s);
+}
+
+// the dynamic shared memory a block of the hd-wide kernel asks for (0 for
+// a width it does not take): launch_plan states the same number, and
+// chip_smoke.py holds the two together
+extern "C" int flash_attention_smem(int hd, int is_bf16) {
+  switch (hd) {
+    case 64: return is_bf16 ? Tile<64>::SMEM : TileF<64>::SMEM;
+    case 96: return is_bf16 ? Tile<96>::SMEM : TileF<96>::SMEM;
+    case 128: return is_bf16 ? Tile<128>::SMEM : TileF<128>::SMEM;
+    case 256: return is_bf16 ? Tile<256>::SMEM : TileF<256>::SMEM;
+    default: return 0;
+  }
 }

@@ -4,10 +4,13 @@
 (``csrc/flash_attention.cu``), the counterpart of the reference's Pallas
 kernel ``src/repro/kernels/flash_attention.py:71``
 (``flash_attention_pallas``; ``pallas_call`` at ``:90``).  Two routes,
-by dtype (:func:`launch_plan`): bf16 goes to ``flash_fwd_wgmma_kernel``
-on the tensor cores (wgmma, TMA; P rounded to bf16 for the PV product,
-as the TPU kernel's ``jnp.dot(p, v)`` does), float32 to
-``flash_fwd_kernel`` on the CUDA cores.
+by dtype (:func:`launch_plan`), both on the tensor cores (wgmma, TMA):
+bf16 goes to ``flash_fwd_wgmma_kernel`` (P rounded to bf16 for the PV
+product, as the TPU kernel's ``jnp.dot(p, v)`` does), float32 to
+``flash_fwd_tf32_kernel``, which splits every operand into TF32 hi and
+lo parts and takes three TF32 products for each of Q·Kᵀ and P·V (hi·hi +
+hi·lo + lo·hi), keeping float32's accuracy: one TF32 pass misses the
+float32 bound of 1e-4 of the largest output.
 :func:`flash_attention_plain` is the reference's oracle
 (``src/repro/kernels/ref.py:15``) in PyTorch: dense masked softmax in
 float32.  Both take q (B, H, Sq, hd) and k, v (B, K, Skv, hd) with
@@ -25,49 +28,59 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.segment_sum import (_check_view, _require_cuda,
-                                             _stream)
+from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
+                                             _require_cuda, _stream)
 
 #: launches of the kernel wrapper (a run resets and reads it), by route:
-#: bf16 (the served path) and float32
+#: bf16 (the served path) and float32 (the TF32 split route)
 launches = {"flash_attention": 0, "flash_attention_fp32": 0}
 
 HEAD_DIMS = (64, 96, 128, 256)
 NEG_INF = -1e30
-#: TMA's alignment: the base address and every stride it steps, in bytes
-TMA_ALIGN = 16
+#: the shared memory a block may use on Hopper (227 KB), and an SM's (228
+#: KB, of which each resident block reserves 1 KB), in bytes
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
 
 
 def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> dict:
     """How :func:`flash_attention_cuda` launches K7 on these tensors, on
-    any device (pure Python: the CPU tests rehearse it).  bf16 takes the
-    tensor-core route: blocks of 128 query rows, kv tiles of 128 keys (64
-    at hd 256), 128-byte swizzle (64-byte at hd 96, whose 192-byte rows
-    split into three 64-byte chunks), and TMA maps over each tensor,
-    which need a 16-byte-aligned base and byte strides that are multiples
-    of 16 along every dim longer than 1: a view that breaks this raises
-    ``ValueError`` naming it.  float32 takes the CUDA-core route: blocks
-    of 64 query rows, kv tiles of 64."""
+    any device (pure Python: the CPU tests rehearse it).  Both routes
+    read and write through TMA maps over each tensor, which need a
+    16-byte-aligned base and byte strides that are multiples of 16 along
+    every dim longer than 1: a view that breaks this raises
+    ``ValueError`` naming it.  bf16: blocks of 128 query rows (two
+    consumer warpgroups), kv tiles of 128 keys (64 at hd 256) in a ring
+    of 2 stages, 128-byte swizzle (64-byte at hd 96, whose 192-byte rows
+    split into three 64-byte chunks).  float32: blocks of 64 query rows
+    (one consumer warpgroup), one stage of K and V beside their TF32
+    hi/lo splits (K hi over K, V transposed), in tiles of 32 keys (16 at
+    hd 256) so that two blocks share an SM at hd 64 and 96;
+    128-byte swizzle.  ``smem_bytes`` is the dynamic shared memory a
+    block asks for, within :data:`SMEM_PER_BLOCK` at every head width."""
     hd = q.shape[-1]
-    if q.dtype != torch.bfloat16:
-        return {"route": "cuda_core", "kernel": "flash_fwd_kernel",
-                "counter": "flash_attention_fp32", "block_q": 64,
-                "block_k": 64}
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.data_ptr() % TMA_ALIGN:
-            raise ValueError(f"{name}'s base address is not {TMA_ALIGN}-byte "
-                             f"aligned, as TMA needs")
-        for dim, what in enumerate(("batch", "head", "position")):
-            nbytes = t.stride(dim) * t.element_size()
-            if t.shape[dim] > 1 and nbytes % TMA_ALIGN:
-                raise ValueError(
-                    f"{name}'s {what} stride of {nbytes} bytes is not a "
-                    f"multiple of {TMA_ALIGN}, as TMA needs")
-    return {"route": "wgmma", "kernel": "flash_fwd_wgmma_kernel",
-            "counter": "flash_attention", "block_q": 128,
-            "block_k": 128 if hd <= 128 else 64,
-            "swizzle": 128 if hd % 64 == 0 else 64}
+        _check_tma(t, name, ("batch", "head", "position"))
+    if q.dtype == torch.bfloat16:
+        block_k = 128 if hd <= 128 else 64
+        stages = 2
+        # the 1024-byte alignment slack, Q, the K and V ring, barriers
+        smem = 1024 + 128 * hd * 2 + 2 * stages * block_k * hd * 2 + \
+            8 * (1 + 3 * stages)
+        return {"route": "wgmma", "kernel": "flash_fwd_wgmma_kernel",
+                "counter": "flash_attention", "block_q": 128,
+                "block_k": block_k, "stages": stages,
+                "swizzle": 128 if hd % 64 == 0 else 64, "smem_bytes": smem}
+    block_k = 32 if hd <= 128 else 16
+    # slack, Q hi and lo, K (raw, then hi) and K lo, raw V, V^T hi and lo,
+    # barriers
+    smem = 1024 + 2 * 64 * hd * 4 + 5 * block_k * hd * 4 + 8 * 3
+    return {"route": "wgmma_tf32", "kernel": "flash_fwd_tf32_kernel",
+            "counter": "flash_attention_fp32", "block_q": 64,
+            "block_k": block_k, "stages": 1, "swizzle": 128,
+            "smem_bytes": smem,
+            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1}
 
 
 def _scale(hd: int, scale: Optional[float]) -> float:
@@ -101,8 +114,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """K7 on the card (``csrc/flash_attention.cu``, ``flash_attention_fwd``).
-    q, k, v may be strided views (the last dim contiguous; in bf16 also
-    TMA's alignment, :func:`launch_plan`); bf16 or float32, all one dtype;
+    q, k, v may be strided views (the last dim contiguous, and TMA's
+    alignment, :func:`launch_plan`); bf16 or float32, all one dtype;
     hd in :data:`HEAD_DIMS`.  The output is a (B, H, Sq, hd) view of a
     (B, Sq, H, hd) tensor, the layout the model reshapes without a
     copy."""

@@ -119,6 +119,25 @@ def _check_view(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}'s last dim must be contiguous")
 
 
+#: TMA's alignment: the base address and every stride it steps, in bytes
+TMA_ALIGN = 16
+
+
+def _check_tma(t: torch.Tensor, name: str, dim_names) -> None:
+    """A view that a TMA map can read or write: a 16-byte-aligned base and
+    byte strides in multiples of 16 along the leading dims ``dim_names``
+    names, where they are longer than 1 (a dim of length 1 is never
+    stepped).  Raises ``ValueError`` naming the tensor."""
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"{name}'s base address is not {TMA_ALIGN}-byte "
+                         f"aligned, as TMA needs")
+    for dim, what in enumerate(dim_names):
+        nbytes = t.stride(dim) * t.element_size()
+        if t.shape[dim] > 1 and nbytes % TMA_ALIGN:
+            raise ValueError(f"{name}'s {what} stride of {nbytes} bytes is "
+                             f"not a multiple of {TMA_ALIGN}, as TMA needs")
+
+
 def _check_layout(order: torch.Tensor, row_ptr: torch.Tensor, num_dst: int,
                   device: torch.device) -> None:
     _check(order, "order", torch.int32, 1, device)

@@ -7,10 +7,19 @@ the chunk's positions.
 :func:`ssd_chunk_state_cuda` launches the hand-written Hopper kernel
 (``csrc/ssd_chunk.cu``), the counterpart of the reference's Pallas kernel
 ``src/repro/kernels/ssd_chunk.py:42`` (``ssd_chunk_state_pallas``;
-``pallas_call`` at ``:55``).  :func:`ssd_chunk_state_plain` is the
-reference's oracle (``src/repro/kernels/ref.py:40``) in PyTorch.  Both
-take x (C, L, H, P), dt (C, L, H), A (H,), Bm (C, L, G, N) and return
-(C, H, P, N) float32.
+``pallas_call`` at ``:55``).  Two routes, by dtype and shape
+(:func:`launch_plan`): bf16 x and Bm at P 64, N 64 or 128 and chunks of
+at most 256 positions (Mamba2-780m's widths, the served path, and
+Zamba2-2.7B's N 64) go to ``ssd_state_wgmma_kernel`` on the tensor
+cores, which folds the decay weight into x, splits w·x into bf16 hi and
+lo parts (rounding it once misses the float32 bound of 1e-4 of the
+largest output) and takes both products on the same Bm; float32, and
+bf16 at any other width (the reduced configs), go to ``ssd_state_kernel``
+on the CUDA cores.  The routes count apart (``ssd_chunk_state``,
+``ssd_chunk_state_fp32``, ``ssd_chunk_state_bf16_cuda_core``).
+:func:`ssd_chunk_state_plain` is the reference's oracle
+(``src/repro/kernels/ref.py:40``) in PyTorch.  Both take x (C, L, H, P),
+dt (C, L, H), A (H,), Bm (C, L, G, N) and return (C, H, P, N) float32.
 """
 from __future__ import annotations
 
@@ -19,11 +28,55 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.segment_sum import (_check_view, _require_cuda,
-                                             _stream)
+from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
+                                             _require_cuda, _stream)
 
-#: launches of the kernel wrapper (a run resets and reads it)
-launches = {"ssd_chunk_state": 0}
+#: launches of the kernel wrapper (a run resets and reads it), by route:
+#: the tensor cores (bf16 at the tile's widths, the served path), the CUDA
+#: cores in float32, the CUDA cores in bf16 (other widths)
+launches = {"ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
+            "ssd_chunk_state_bf16_cuda_core": 0}
+
+#: the tensor-core route's tile: one warpgroup's m64nN product, N one of
+#: TC_NS, over a chunk of at most TC_L positions
+TC_P, TC_L = 64, 256
+TC_NS = (64, 128)
+#: heads a tensor-core block walks, at most, by N (their decay weights
+#: fill the shared memory that N leaves)
+W_HEADS = {64: 32, 128: 16}
+
+
+def tc_smem(N: int) -> int:
+    """Dynamic shared memory of a tensor-core block at state width N: the
+    1024-byte alignment slack, the chunk's Bm tile, 2 x tiles in flight
+    and w*x lo, the output tile, the weights of its heads, 5 barriers
+    (``TC_SMEM<N>`` in ``csrc/ssd_chunk.cu``)."""
+    return (1024 + TC_L * N * 2 + 3 * TC_L * TC_P * 2 + TC_P * N * 4
+            + 4 * W_HEADS[N] * TC_L + 8 * 5)
+
+
+def launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
+    """How :func:`ssd_chunk_state_cuda` launches K8 on these tensors, on
+    any device (pure Python: the CPU tests rehearse it).  bf16 at P 64, N
+    64 or 128 and L <= 256 takes the tensor-core route, which reads x and
+    Bm through TMA maps: a 16-byte-aligned base and byte strides in
+    multiples of 16 along every dim longer than 1; a call that breaks
+    either raises ``ValueError`` naming the tensor.  Every other call
+    takes the CUDA-core route (P % 4 == 0, N % 8 == 0, any L)."""
+    C, L, H, P = x.shape
+    N = Bm.shape[3]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and P == TC_P and N in TC_NS and L <= TC_L:
+        _check_tma(x, "x", ("chunk", "position", "head"))
+        _check_tma(Bm, "Bm", ("chunk", "position", "group"))
+        return {"route": "wgmma", "kernel": "ssd_state_wgmma_kernel",
+                "counter": "ssd_chunk_state", "tile": (TC_P, N, TC_L),
+                "stages": 2, "smem_bytes": tc_smem(N)}
+    if P % 4 or N % 8:
+        raise ValueError(f"P {P} must be a multiple of 4 and N {N} of 8")
+    return {"route": "cuda_core", "kernel": "ssd_state_kernel",
+            "counter": ("ssd_chunk_state_bf16_cuda_core" if bf16
+                        else "ssd_chunk_state_fp32")}
 
 
 def ssd_chunk_state_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -43,8 +96,8 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          Bm: torch.Tensor) -> torch.Tensor:
     """K8 on the card (``csrc/ssd_chunk.cu``, ``ssd_chunk_state_fwd``).
     x and Bm: bf16 or float32 (one dtype), strided views allowed with the
-    last dim contiguous; dt contiguous float32; A float32; P % 4 == 0 and
-    N % 8 == 0."""
+    last dim contiguous; dt contiguous float32; A float32; the shapes and
+    alignment each route takes are :func:`launch_plan`'s."""
     dev = _require_cuda(x, "ssd_chunk_state_cuda")
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x (C, L, H, P) and Bm (C, L, G, N) must be 4-D, "
@@ -62,11 +115,10 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("dt and A must be contiguous")
     if G == 0 or H % G:
         raise ValueError(f"{H} heads do not split over {G} groups")
-    if P % 4 or N % 8:
-        raise ValueError(f"P {P} must be a multiple of 4 and N {N} of 8")
     out = torch.empty((C, H, P, N), dtype=torch.float32, device=dev)
     if out.numel() == 0 or L == 0:
         return out.zero_()
+    plan = launch_plan(x, Bm)
     strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), x.stride(2),
                                       Bm.stride(0), Bm.stride(1),
                                       Bm.stride(2))
@@ -74,6 +126,7 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     build.check(lib.ssd_chunk_state_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         out.data_ptr(), strides, C, L, H, P, G, N,
-        int(x.dtype == torch.bfloat16), _stream()), "ssd_chunk_state_fwd")
-    launches["ssd_chunk_state"] += 1
+        int(x.dtype == torch.bfloat16), int(plan["route"] == "wgmma"),
+        _stream()), "ssd_chunk_state_fwd")
+    launches[plan["counter"]] += 1
     return out

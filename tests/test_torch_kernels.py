@@ -268,7 +268,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "segment_sum": 0, "gather_scale_segment_sum_q": 0,
         "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
         "flash_attention": 0, "flash_attention_fp32": 0,
-        "ssd_chunk_state": 0}
+        "ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
+        "ssd_chunk_state_bf16_cuda_core": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,15 @@ bf16 (both sides compute in float32 from the same bf16 inputs and round
 once to bf16 at the end; one bf16 ulp is 2**-8 relative); 1e-4 for K8
 (float32 sums over L positions in another order).
 
-K7's bf16 route (the tensor-core kernel) cannot run here, so its
-arithmetic is emulated in numpy (:func:`_emulate_wgmma_route`) and held
-to the element bound phase 8 holds the kernel to on the card; its
-launch plan (:func:`flash_attention.launch_plan`) is pure Python and is
-tested as it is.
+The tensor-core routes cannot run here, so their arithmetic is
+emulated in numpy and held to the bounds phase 8 holds the kernels to on
+the card: K7's bf16 route (:func:`_emulate_wgmma_route`) to its element
+bound, K7's float32 route (:func:`_emulate_tf32_route`: TF32 hi/lo
+splits, three products each) and K8's bf16 route
+(:func:`_emulate_k8_route`: w·x split into bf16 hi and lo) to 1e-4 of the
+largest reference value, which one unsplit pass misses.  The launch plans
+(:func:`flash_attention.launch_plan`, :func:`ssd_chunk.launch_plan`) are
+pure Python and are tested as they are.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -184,15 +188,30 @@ def _bf16(x: np.ndarray) -> np.ndarray:
         torch.bfloat16).float().numpy()
 
 
-def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
-    """``flash_fwd_wgmma_kernel``'s arithmetic in numpy float32: blocks
-    of 128 query rows; the kv tiles of ``bk`` keys from the first any row
-    of the block sees to the last (the others skipped); scores scaled by
-    scale * log2(e) and masked to -inf; the online softmax with exp2 from
-    a running max of -1e30; P rounded to bf16 (``p_bf16``) for the PV
-    product while the row sums take the unrounded P; O / max(l, 1e-30).
-    Keys past Skv, which TMA fills with zeros and the kernel masks, are
-    left out."""
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """float32 rounded to the nearest TF32 (10-bit mantissa, ties away
+    from zero), as ``cvt.rna.tf32.f32`` does, as float32."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a @ b`` as the float32 route takes it: each operand split into
+    TF32 hi and lo (the lo the remainder of that hi), three products."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv):
+    """The tensor-core K7 routes' arithmetic in numpy float32: blocks of
+    ``bq`` query rows; the kv tiles of ``bk`` keys from the first any row
+    of the block sees to the last (the others skipped); scores ``qk(q,
+    k)`` scaled by scale * log2(e) and masked to -inf; the online softmax
+    with exp2 from a running max of -1e30; ``pv(p, v)`` for the PV
+    product while the row sums take P as it is; O / max(l, 1e-30).  Keys
+    past Skv, which TMA fills with zeros and the kernel masks, are left
+    out."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G, off = H // K, Skv - Sq
@@ -201,8 +220,8 @@ def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
     for b in range(B):
         for h in range(H):
             kb, vb = k[b, h // G], v[b, h // G]
-            for q0 in range(0, Sq, 128):
-                rows = np.arange(q0, min(q0 + 128, Sq))
+            for q0 in range(0, Sq, bq):
+                rows = np.arange(q0, min(q0 + bq, Sq))
                 qpos = rows[:, None] + off
                 kv_end = min(Skv, rows[-1] + off + 1) if causal else Skv
                 kv_begin = max(0, q0 + off - window + 1) if window else 0
@@ -211,7 +230,7 @@ def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
                 acc = np.zeros((len(rows), hd), np.float32)
                 for t in range(kv_begin // bk, -(-kv_end // bk)):
                     keys = np.arange(t * bk, min((t + 1) * bk, Skv))
-                    s = (q[b, h, rows] @ kb[keys].T) * scale_log2
+                    s = qk(q[b, h, rows], kb[keys]) * scale_log2
                     ok = np.ones(s.shape, bool)
                     if causal:
                         ok &= keys[None, :] <= qpos
@@ -223,10 +242,28 @@ def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
                     p = np.exp2(s - mx[:, None])
                     l = l * alpha + p.sum(axis=1)
                     m = mx
-                    acc = acc * alpha[:, None] + (
-                        _bf16(p) if p_bf16 else p) @ vb[keys]
+                    acc = acc * alpha[:, None] + pv(p, vb[keys])
                 out[b, h, rows] = acc / np.maximum(l, 1e-30)[:, None]
     return out
+
+
+def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
+    """``flash_fwd_wgmma_kernel``: blocks of 128 query rows, Q·Kᵀ of bf16
+    values exact in float32, P rounded to bf16 (``p_bf16``) for the PV
+    product."""
+    return _emulate_route(
+        q, k, v, causal=causal, window=window, bq=128, bk=bk,
+        qk=lambda a, b: a @ b.T,
+        pv=lambda p, vv: (_bf16(p) if p_bf16 else p) @ vv)
+
+
+def _emulate_tf32_route(q, k, v, *, causal, window, bk, split=True):
+    """``flash_fwd_tf32_kernel``: blocks of 64 query rows, both products
+    as three TF32 products of split operands, or (``split=False``) as one
+    product of the operands rounded to TF32."""
+    prod = _split3 if split else (lambda a, b: _tf32(a) @ _tf32(b))
+    return _emulate_route(q, k, v, causal=causal, window=window, bq=64,
+                          bk=bk, qk=lambda a, b: prod(a, b.T), pv=prod)
 
 
 def _excess(got, want, want_abs_v=None):
@@ -285,6 +322,119 @@ def test_wgmma_route_with_float32_p_meets_the_old_bound(hd):
     assert _excess(got, want) <= 0.0
 
 
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("B,H,K,Sq,Skv,window", EMULATED)
+def test_tf32_route_arithmetic_meets_the_float32_bound(B, H, K, Sq, Skv,
+                                                       window, hd):
+    """The float32 route's arithmetic (TF32 hi/lo splits, three products
+    each for Q·Kᵀ and P·V, 64-row blocks, its key tiles) against the
+    reference's Pallas kernel (interpret mode) and its oracle in float32,
+    within phase 8's bound of 1e-4 of the largest value."""
+    rng = np.random.default_rng(3 * hd + Sq + window)
+    qj, qt = _pair(rng.normal(size=(B, H, Sq, hd)), False)
+    kj, kt = _pair(rng.normal(size=(B, K, Skv, hd)), False)
+    vj, vt = _pair(rng.normal(size=(B, K, Skv, hd)), False)
+    bk = fa.launch_plan(qt, kt, vt, qt)["block_k"]
+    got = _emulate_tf32_route(_np(qt), _np(kt), _np(vt), causal=True,
+                              window=window, bk=bk)
+    for want in (ref.flash_attention(qj, kj, vj, window=window),
+                 flash_attention_pallas(qj, kj, vj, window=window)):
+        assert _rel_err(got, _np(want)) <= 1e-4
+
+
+def test_one_tf32_pass_misses_the_float32_bound():
+    """Why the float32 route splits: at hd 96, S 1024, 8 heads, causal,
+    one TF32 product per operand pair misses 1e-4 of the largest value
+    (5.0e-4 of it), and the three products of the splits keep to it by
+    orders of magnitude (3.6e-7)."""
+    rng = np.random.default_rng(96)
+    q, k, v = (rng.normal(size=(1, 8, 1024, 96)).astype(np.float32)
+               for _ in range(3))
+    want = _np(ref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v)))
+    one = _emulate_tf32_route(q, k, v, causal=True, window=0, bk=64,
+                              split=False)
+    split = _emulate_tf32_route(q, k, v, causal=True, window=0, bk=64)
+    assert _rel_err(one, want) > 1e-4
+    assert _rel_err(split, want) <= 1e-5
+
+
+def _emulate_k8_route(x, dt, A, Bm, *, split=True):
+    """``ssd_state_wgmma_kernel``'s arithmetic in numpy float32: the
+    prefix sum of dt·A in order, w = exp(cum_last - cum) · dt, w·x in
+    float32 split into bf16 hi and lo (or, ``split=False``, rounded once
+    to bf16), each part times the group's Bm (exact in bf16) summed over
+    the chunk's positions in float32."""
+    C, L, H, P = x.shape
+    rep = H // Bm.shape[2]
+    cum = np.cumsum(dt * A, axis=1, dtype=np.float32)
+    w = np.exp(cum[:, -1:, :] - cum) * dt
+    wx = w[..., None] * x
+    hi = _bf16(wx)
+    Bh = np.repeat(Bm, rep, axis=2)
+    out = np.einsum("clhp,clhn->chpn", hi, Bh)
+    if split:
+        out = out + np.einsum("clhp,clhn->chpn", _bf16(wx - hi), Bh)
+    return out
+
+
+def _k8_inputs(rng, C, L, H, P, G, N):
+    """bf16 x and Bm (as the served path passes them), float32 dt =
+    softplus(normal) and A = -(1 .. H), as phase 8 makes them."""
+    xj, xt = _pair(rng.normal(size=(C, L, H, P)), True)
+    bj, bt = _pair(rng.normal(size=(C, L, G, N)), True)
+    dt = np.log1p(np.exp(rng.normal(size=(C, L, H)))).astype(np.float32)
+    A = -np.arange(1, H + 1, dtype=np.float32)
+    return (xj, xt), (bj, bt), dt, A
+
+
+def _check_k8_route(G, L, N, seed):
+    rng = np.random.default_rng(seed)
+    (xj, xt), (bj, bt), dt, A = _k8_inputs(rng, 2, L, 4, 64, G, N)
+    got = _emulate_k8_route(_np(xt), dt, A, _np(bt))
+    args = (xj.astype(jnp.float32), jnp.asarray(dt), jnp.asarray(A),
+            bj.astype(jnp.float32))
+    for want in (ref.ssd_chunk_state(*args),
+                 ssd_chunk_state_pallas(*args, bh=4)):
+        assert _rel_err(got, _np(want)) <= 1e-4
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("L", [100, 256])
+def test_k8_bf16_route_arithmetic_meets_the_float32_bound(G, L):
+    """K8's bf16 route (w·x split into bf16 hi + lo, Mamba2's P 64 and N
+    128) against the reference's Pallas kernel (interpret mode) and its
+    oracle, within phase 8's bound of 1e-4 of the largest value, at G 1
+    and 2, a full chunk and a ragged one."""
+    _check_k8_route(G, L, 128, 10 * G + L)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_k8_bf16_route_at_n64_meets_the_float32_bound(G):
+    """The same at N 64, the route's other width (Zamba2-2.7B's state),
+    on a ragged chunk."""
+    _check_k8_route(G, 100, 64, 64 + G)
+
+
+def test_one_bf16_rounding_of_wx_misses_the_float32_bound():
+    """Why K8's bf16 route splits: at Mamba2's P 64 and N 128 (4 chunks
+    of 256, 8 heads, G 1), w·x rounded once to bf16 misses 1e-4 of the
+    largest value (2.2e-3 of it); its hi + lo split keeps to it (1.1e-5)."""
+    rng = np.random.default_rng(780)
+    (xj, xt), (bj, bt), dt, A = _k8_inputs(rng, 4, 256, 8, 64, 1, 128)
+    want = _np(ref.ssd_chunk_state(xj.astype(jnp.float32), jnp.asarray(dt),
+                                   jnp.asarray(A), bj.astype(jnp.float32)))
+    x, Bm = _np(xt), _np(bt)
+    assert _rel_err(_emulate_k8_route(x, dt, A, Bm, split=False), want) > \
+        1e-4
+    assert _rel_err(_emulate_k8_route(x, dt, A, Bm), want) <= 2e-5
+
+
 def _model_views(B, S, H, hd, dtype=torch.bfloat16):
     """A (B, S, H, hd) tensor as the (B, H, S, hd) view the model passes."""
     return torch.zeros((B, S, H, hd), dtype=dtype).transpose(1, 2)
@@ -304,11 +454,22 @@ def test_launch_plan_routes_by_dtype_and_tiles_by_head_width(hd, block_k,
     assert plan["counter"] == "flash_attention"
     assert (plan["block_q"], plan["block_k"], plan["swizzle"]) == (
         128, block_k, swizzle)
+    assert plan["smem_bytes"] <= fa.SMEM_PER_BLOCK
+    # float32: the TF32 split route, its key tile shrinking with hd so
+    # that the splits fit in a block's shared memory
     f32 = [t.float() for t in (q, kv, kv, out)]
     plan = fa.launch_plan(*f32)
-    assert plan["route"] == "cuda_core"
+    assert plan["route"] == "wgmma_tf32"
+    assert plan["kernel"] == "flash_fwd_tf32_kernel"
     assert plan["counter"] == "flash_attention_fp32"
-    assert (plan["block_q"], plan["block_k"]) == (64, 64)
+    assert (plan["block_q"], plan["block_k"], plan["stages"],
+            plan["swizzle"]) == (64, 16 if hd == 256 else 32, 1, 128)
+    # Q hi and lo, K (hi in place) and K lo, raw V, V^T hi and lo: two
+    # blocks share an SM at hd 64 and 96, the heads the served models use
+    assert plan["smem_bytes"] == (1024 + 2 * 64 * hd * 4
+                                  + 5 * plan["block_k"] * hd * 4 + 24)
+    assert plan["smem_bytes"] <= fa.SMEM_PER_BLOCK
+    assert plan["blocks_per_sm"] == (2 if hd <= 96 else 1)
     assert set(fa.launches) == {"flash_attention", "flash_attention_fp32"}
 
 
@@ -341,6 +502,76 @@ def test_launch_plan_checks_tma_alignment_and_names_the_tensor():
     one = torch.zeros((1, 16, 4, hd), dtype=torch.bfloat16)
     one = one.as_strided((1, 4, 16, hd), (3, hd, 4 * hd, 1))
     assert fa.launch_plan(one, kv[:1], kv[:1], out[:1])["route"] == "wgmma"
-    # float32 takes the CUDA-core route and needs no TMA alignment
-    assert fa.launch_plan(*(t.float() for t in (q, shifted, cut.transpose(
-        1, 2), bad)))["route"] == "cuda_core"
+    # float32 reads through TMA too: the same checks, in its byte strides
+    qf, kvf, outf = q.float(), kv.float(), out.float()
+    assert fa.launch_plan(qf, kvf, kvf, outf)["route"] == "wgmma_tf32"
+    flat32 = torch.zeros(2 * 16 * 4 * hd + 1)
+    with pytest.raises(ValueError, match="^k's base address"):
+        fa.launch_plan(qf, flat32[1:].view(2, 16, 4, hd).transpose(1, 2),
+                       kvf, outf)
+    # heads 98 wide cut to 96: a head stride of 392 bytes
+    cut32 = torch.zeros((2, 16, 4, 98))[..., :hd]
+    with pytest.raises(ValueError, match="^v's head stride of 392 bytes"):
+        fa.launch_plan(qf, kvf, cut32.transpose(1, 2), outf)
+    # heads 100 wide cut to 96: strides of 400 and 1600 bytes, accepted
+    wide32 = torch.zeros((2, 16, 4, 100))[..., :hd]
+    assert fa.launch_plan(qf, wide32.transpose(1, 2), kvf,
+                          outf)["route"] == "wgmma_tf32"
+
+
+def _conv_views(C, L, H, P, G, N, dtype=torch.bfloat16, pad=0):
+    """x and Bm as the model passes them: slices of one (C, L, conv_dim)
+    tensor, conv_dim = H P + 2 G N (+ ``pad`` elements)."""
+    xBC = torch.zeros((C, L, H * P + 2 * G * N + pad), dtype=dtype)
+    x = xBC[..., :H * P].reshape(C, L, H, P)
+    Bm = xBC[..., H * P:H * P + G * N].reshape(C, L, G, N)
+    return x, Bm
+
+
+@pytest.mark.parametrize("G", [1, 2])
+def test_k8_launch_plan_routes_by_dtype(G):
+    """bf16 takes the tensor-core route at Mamba2's views (a conv row of
+    3 328 or 3 584 bf16, a multiple of 16 bytes) and at Zamba2-2.7B's N
+    64, float32 the CUDA-core route; the routes count apart."""
+    x, Bm = _conv_views(32, 256, 48, 64, G, 128)
+    plan = ssd.launch_plan(x, Bm)
+    assert (plan["route"], plan["kernel"], plan["counter"]) == (
+        "wgmma", "ssd_state_wgmma_kernel", "ssd_chunk_state")
+    assert plan["tile"] == (64, 128, 256) and plan["stages"] == 2
+    assert plan["smem_bytes"] == ssd.tc_smem(128) <= fa.SMEM_PER_BLOCK
+    plan64 = ssd.launch_plan(*_conv_views(32, 256, 80, 64, G, 64))
+    assert (plan64["route"], plan64["tile"]) == ("wgmma", (64, 64, 256))
+    assert plan64["smem_bytes"] == ssd.tc_smem(64) < plan["smem_bytes"]
+    x32, B32 = _conv_views(6, 100, 8, 32, G, 24, torch.float32)
+    assert ssd.launch_plan(x32, B32) == {
+        "route": "cuda_core", "kernel": "ssd_state_kernel",
+        "counter": "ssd_chunk_state_fp32"}
+    assert set(ssd.launches) == {"ssd_chunk_state", "ssd_chunk_state_fp32",
+                                 "ssd_chunk_state_bf16_cuda_core"}
+
+
+def test_k8_launch_plan_checks_shapes_and_tma_alignment():
+    # bf16 off the tensor-core tile (P 64, N 64 or 128, at most 256
+    # positions) takes the CUDA-core route, counted apart: the reduced
+    # configs' widths, P 32, N 96, a chunk of 300
+    for shape in ((2, 16, 8, 32, 2, 16), (2, 64, 4, 32, 1, 128),
+                  (2, 64, 4, 64, 1, 96), (2, 300, 4, 64, 1, 128)):
+        assert ssd.launch_plan(*_conv_views(*shape)) == {
+            "route": "cuda_core", "kernel": "ssd_state_kernel",
+            "counter": "ssd_chunk_state_bf16_cuda_core"}
+    with pytest.raises(ValueError, match="N 20 of 8"):
+        ssd.launch_plan(*_conv_views(2, 16, 8, 32, 1, 20))
+    # a conv row of 4 * 64 + 2 * 128 + 3 elements: a position stride of
+    # 1 030 bytes
+    x, Bm = _conv_views(2, 64, 4, 64, 1, 128, pad=3)
+    with pytest.raises(ValueError, match="^x's position stride of 1030"):
+        ssd.launch_plan(x, Bm)
+    # Bm 2 bytes past an aligned base
+    x, _ = _conv_views(2, 64, 4, 64, 1, 128)
+    flat = torch.zeros(2 * 64 * 256 + 8, dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 64 * 128].view(2, 64, 1, 128)
+    with pytest.raises(ValueError, match="^Bm's base address"):
+        ssd.launch_plan(x, shifted)
+    # float32 off the bf16 tile goes to the CUDA-core route's own checks
+    with pytest.raises(ValueError, match="P 30 must be a multiple of 4"):
+        ssd.launch_plan(*_conv_views(2, 64, 4, 30, 1, 128, torch.float32))
