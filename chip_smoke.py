@@ -37,14 +37,14 @@ Phases, in order; any failure makes the exit code nonzero:
 5. the training kernels at every shape the full-batch trainers feed
    them, checked and timed as in phase 2, over the whole graph: K1 (F
    602, 256, 41) and its transpose over the src-grouped layout (F 256,
-   41, and 4 heads x 64 and x 10), K2 (602, 256, 4 wide; either layout),
-   K5 (602 wide over the src layout, as GIN's Scatter walks it, and
-   over the dst layout; 256 wide), K3 and K6 (4 x 64, 4 x 10, the shapes
-   GAT's backward launches K6 at; K6 also 1 x 256) on GAT's 40-class
-   graph, K4 on the int8 rows of a batch-1024 block, the GAT backward at
-   both layers; and each autograd
-   Function's gradients (K1, K2, the Scatter gather, K3) against
-   autograd through the plain versions;
+   41, and 4 heads x 64 and x 10 with the column it also sums in GAT's
+   VJP), K2 (602, 256; either layout), K5 (602 wide over the src layout,
+   as GIN's Scatter walks it, and over the dst layout; 256 wide), K3 (4 x
+   64, 4 x 10) and K6 (1 x 256, the single-head dcoef; 4 x 64 and 4 x
+   10) on GAT's 40-class graph, K4 on the int8 rows of a batch-1024
+   block, K3's VJP (its destination pass, then K1 over the src layout)
+   at both layers; and each autograd Function's gradients (K1, K2, the
+   Scatter gather, K3) against autograd through the plain versions;
 6. full-batch training at Reddit's widths through
    ``repro_torch.launch.train_gnn``: GCN, SAGE, GIN (602 → 256 → 41) and
    GAT (→ 40), 10 epochs each: the loss is finite and falls, every step
@@ -52,10 +52,10 @@ Phases, in order; any failure makes the exit code nonzero:
    run from the same init ends in bitwise-equal parameters, one step's
    gradients on the card agree with the same step on the CPU (in
    float64) to 1e-4 of the model's largest gradient; ms per epoch, peak
-   device memory, a
-   ``torch.profiler`` split of one GCN step by kernel, matrix product and
-   copy (alone in a profiling session, and after a profiled warm-up
-   step), and CUDA-event times of its two large products;
+   device memory, a ``torch.profiler`` split of one GCN step and of one
+   GAT step by kernel, matrix product and copy (alone in a profiling
+   session, and after a profiled warm-up step), and CUDA-event times of
+   GCN's two large products;
 7. mini-batch GraphSAGE at Reddit's widths: ``--batch 1024 --epochs 1
    --cache degree`` with ``--wire-codec fp32`` and then ``int8
    --use-kernel`` (wire rows into K4); K4 launches once per int8 step
@@ -80,8 +80,9 @@ Phases, in order; any failure makes the exit code nonzero:
    route), and in bf16 at ragged chunks of 100 and 7 positions and over
    160 chunks; K8 at Zamba2-2.7B's widths (80 x 64, N 64: the
    tensor-core route's N 64 kernel), and bf16 off the tensor-core tile
-   (the reduced configs' 8 x 32, N 16, chunk 16; a chunk of 300) on the
-   CUDA-core route; the calls K7 does not compute raise on the card;
+   (the reduced configs' 8 x 32, N 16, chunk 16, timed; a chunk of 300)
+   on the CUDA-core route; the calls K7 does not compute raise on the
+   card;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
@@ -145,9 +146,8 @@ STEP_LAUNCHES = {
     "gcn": {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 2},
     "sage": {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 1},
     "gin": {"gather_rows": 3, "segment_sum": 3},
-    "gat": {"gat_attention": 2, "gather_scale_segment_sum_t": 2,
-            "edge_dot": 2,
-            "segment_sum": 6},
+    "gat": {"gat_attention": 2, "gat_attention_backward": 2,
+            "gather_scale_segment_sum_t": 2},
 }
 # the launches of the forward that measures the final accuracy
 EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
@@ -441,10 +441,13 @@ class Checker:
         return self.torch.randn(shape, generator=self.gen).to(self.dev)
 
     def k1(self, label, h, idx, coef, order, row_ptr, num_out, *,
-           transpose=False, timed=True):
+           transpose=False, timed=True, col=None):
         """K1 ``out[d] = sum coef_e h[idx_e]`` over a grouped layout; over
         the src layout (gathering through ``edge_dst``) it is the
-        transpose.  ``coef`` (E,) or (E, heads)."""
+        transpose.  ``coef`` (E,) or (E, heads).  With a column ``col``
+        of ``coef``'s shape, the launch also sums it per head (the GAT
+        VJP's source pass): its sum is checked apart, and the timed launch
+        makes both."""
         torch = self.torch
         from repro_torch.kernels import segment_sum as ss
         nnz, F = int(order.numel()), h.shape[1]
@@ -459,12 +462,25 @@ class Checker:
             library = lambda: torch.sparse.mm(A, h)
         kernel = functools.partial(ss.gather_scale_segment_sum_cuda,
                                    transpose=transpose)
+        plain = ss.gather_scale_segment_sum_plain
+        args = (h, idx, coef, order, row_ptr, num_out)
+        col_bytes = 0
+        if col is not None:
+            col_bytes = 4 * heads * (nnz + num_out)
+            check_case(torch, label + ", its column sum",
+                       lambda *a: kernel(*a, col=col)[1],
+                       lambda *a: plain(*a, col=col)[1], args)
+            kernel = functools.partial(kernel, col=col)
+            plain = functools.partial(plain, col=col)
+            kernel_out = lambda *a: kernel(*a)[0]
+            plain_out = lambda *a: plain(*a)[0]
+        else:
+            kernel_out, plain_out = kernel, plain
         return check_case(
-            torch, label, kernel, ss.gather_scale_segment_sum_plain,
-            (h, idx, coef, order, row_ptr, num_out), timed=timed,
+            torch, label, kernel_out, plain_out, args, timed=timed,
             library=library,
-            bytes_=4 * (U * F + num_out * F) + (8 + 4 * heads) * nnz,
-            flops=2 * nnz * F, flush=self.flush)
+            bytes_=4 * (U * F + num_out * F) + (8 + 4 * heads) * nnz
+            + col_bytes, flops=2 * nnz * F, flush=self.flush)
 
     def k2(self, label, msgs, seg, order, row_ptr, num_out, *, timed=True):
         """K2 ``out[d] = sum msgs[e]`` over the layout grouped by ``seg``;
@@ -851,10 +867,10 @@ def minibatch_block(torch, g, dev):
 
 
 def gat_backward_case(torch, c, dg, heads, hd, *, timed):
-    """The GAT backward (K1 over the src layout with an (E, heads)
-    coefficient, K6 with ``heads``, three K2s) from the forward's saved
-    ``(m, l)``, against autograd through the plain forward; timed, its
-    plain version is that autograd backward."""
+    """The GAT backward (its destination pass, then K1 over the src
+    layout with an (E, heads) coefficient and column) from the forward's
+    saved ``(m, l)``, against autograd through the plain forward; timed,
+    its plain version is that autograd backward."""
     from repro_torch.kernels import gat_fused as gf
     N, E, nnz = dg.num_src, dg.edge_src.numel(), int(dg.order.numel())
     src, dst, order, row_ptr = dg.edge_src, dg.edge_dst, dg.order, dg.row_ptr
@@ -863,8 +879,8 @@ def gat_backward_case(torch, c, dg, heads, hd, *, timed):
                         c.randn(N, F))
     _, m, l = gf.gat_attention_cuda(hs, es, ed, src, order, row_ptr, N,
                                     stats=True)
-    bwd_args = (gout, hs, es, ed, m, l, src, dst, dg.edge_mask, order,
-                row_ptr, dg.src_layout)
+    bwd_args = (gout, hs, es, ed, m, l, src, dst, order, row_ptr,
+                dg.src_layout)
     b1 = gf.gat_attention_backward(*bwd_args)
     b2 = gf.gat_attention_backward(*bwd_args)
     ins = [t.detach().clone().requires_grad_(True) for t in (hs, es, ed)]
@@ -884,7 +900,7 @@ def gat_backward_case(torch, c, dg, heads, hd, *, timed):
         res["plain_ms"] = median_bwd_ms(torch, out_p, ins, gout, c.flush)
         res["library_ms"] = None
         res["bound_ms"], res["bound_by"] = bound(
-            4 * (3 * N * F + 6 * N * heads) + 9 * E + 8 * nnz + 8 * (N + 1),
+            4 * (3 * N * F + 6 * N * heads) + 8 * E + 8 * nnz + 8 * (N + 1),
             nnz * (4 * F + 20 * heads))
     res["ok"] = bitwise and all(e <= 1e-4 * s for e, s in zip(errs, scales))
     print("   " + json.dumps(res), flush=True)
@@ -937,15 +953,23 @@ def phase_train_kernels(torch, g, g_gat, results):
     Ea, nnz_a = dga.edge_src.numel(), int(dga.order.numel())
     print(f"   GAT's graph: {g_gat.num_nodes} nodes, {Ea} edges ({nnz_a} "
           f"listed)")
-    alpha = torch.rand((Ea, GAT_HEADS), generator=c.gen).to(dev) * \
-        dga.edge_mask[:, None].to(torch.float32)
+    # the GAT VJP's source pass: alpha as the coefficient, dpre as the
+    # column summed beside; and K1 alone at those shapes
+    emask = dga.edge_mask[:, None].to(torch.float32)
+    alpha = torch.rand((Ea, GAT_HEADS), generator=c.gen).to(dev) * emask
+    dpre = randn(Ea, GAT_HEADS) * emask
     for F in (HIDDEN, GAT_CLASSES):
-        results[f"k1_transpose.4x{F // GAT_HEADS}"] = c.k1(
-            f"K1 over the src layout, 4 heads x {F // GAT_HEADS}",
-            randn(N, F), dga.edge_dst, alpha, *dga.src_layout, N,
-            transpose=True)
+        w = f"4x{F // GAT_HEADS}"
+        g_rows = randn(N, F)
+        results[f"k1_transpose.{w}"] = c.k1(
+            f"K1 over the src layout, 4 heads x {F // GAT_HEADS}", g_rows,
+            dga.edge_dst, alpha, *dga.src_layout, N, transpose=True)
+        results[f"k1_transpose_col.{w}"] = c.k1(
+            f"K1 over the src layout, 4 heads x {F // GAT_HEADS}, with a "
+            f"column", g_rows, dga.edge_dst, alpha, *dga.src_layout, N,
+            transpose=True, col=dpre)
     # K2: GIN's layer-0 and layer-1 sums, the Scatter's transpose (src
-    # layout), the GAT backward's 4-wide sums over either layout
+    # layout)
     for F in (FEAT, HIDDEN):
         results[f"segment_sum.full.{F}"] = c.k2(
             f"K2 full graph, GIN ({E} x {F} -> {N})",
@@ -953,11 +977,6 @@ def phase_train_kernels(torch, g, g_gat, results):
     results["segment_sum.src.256"] = c.k2(
         f"K2 over the src layout ({E} x {HIDDEN} -> {N})",
         randn(E, HIDDEN) * mask[:, None], src, order_s, row_ptr_s, N)
-    for seg, (o, rp), what in ((dga.edge_dst, dga.layout, "dst"),
-                               (dga.edge_src, dga.src_layout, "src")):
-        c.k2(f"K2 over GAT's {what} layout ({Ea} x {GAT_HEADS} -> {N})",
-             randn(Ea, GAT_HEADS) * dga.edge_mask[:, None].to(torch.float32),
-             seg, o, rp, N)
     # K5: GIN's layer-0 Scatter (602 wide: float2 loads) through
     # edge_src, walking the src layout as GatherRows does; its layer-1
     # Scatter of the destinations and K2's backward (256 wide: float4
@@ -977,8 +996,8 @@ def phase_train_kernels(torch, g, g_gat, results):
                       (GAT_HEADS, GAT_CLASSES // GAT_HEADS)):
         results[f"gat_attention.full.{heads}x{hd}"] = c.k3(
             f"K3 GAT's full graph, {heads} x {hd}", dga, heads, hd)
-    # K6: the reference's single-head edge dot (K1's dcoef) and the GAT
-    # backward's dalpha at its two layers
+    # K6: the reference's single-head edge dot (K1's dcoef), and per head
+    # at GAT's two widths (its multi-head path, which no trainer launches)
     for heads, hd, gr in ((1, HIDDEN, dg), (GAT_HEADS, HIDDEN // GAT_HEADS,
                                             dga),
                           (GAT_HEADS, GAT_CLASSES // GAT_HEADS, dga)):
@@ -1001,10 +1020,9 @@ def phase_train_kernels(torch, g, g_gat, results):
             (a, b, gs, gd, o, heads), timed=True, library=lib,
             bytes_=4 * (us * F + ud * F + n_l * heads) + 12 * n_l,
             flops=2 * n_l * F, flush=flush)
-    # the row of the kernels line: GAT's backward launches K6 at 4 x 64
-    # (layer 1's input) and 4 x 10 (its output layer), never at 1 x 256
-    results["edge_dot"] = results[
-        f"edge_dot.{GAT_HEADS}x{HIDDEN // GAT_HEADS}"]
+    # the row of the kernels line: the single-head dcoef (no trainer
+    # launches K6; GAT's VJP takes its dalpha in its own pass)
+    results["edge_dot"] = results[f"edge_dot.1x{HIDDEN}"]
 
     blk, q, mn, scale = minibatch_block(torch, g, dev)
     bnnz = int(blk.order.numel())
@@ -1021,11 +1039,12 @@ def phase_train_kernels(torch, g, g_gat, results):
         bytes_=bU * FEAT + 8 * bU + 4 * blk.num_dst * FEAT + 12 * bnnz,
         flops=4 * bnnz * FEAT, flush=flush)
 
-    # the GAT backward at both layers' shapes; the 4 x 64 case is timed
+    # the GAT backward at both layers' shapes, each timed
     results["gat_backward"], (hs, es, ed, gout) = gat_backward_case(
         torch, c, dga, GAT_HEADS, HIDDEN // GAT_HEADS, timed=True)
-    gat_backward_case(torch, c, dga, GAT_HEADS, GAT_CLASSES // GAT_HEADS,
-                      timed=False)
+    results[f"gat_backward.{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"], _ = \
+        gat_backward_case(torch, c, dga, GAT_HEADS,
+                          GAT_CLASSES // GAT_HEADS, timed=True)
 
     # each autograd Function against autograd through its plain version
     h, cf = randn(N, HIDDEN), coef.clone()
@@ -1044,8 +1063,8 @@ def phase_train_kernels(torch, g, g_gat, results):
                 [randn(N, HIDDEN)], randn(E, HIDDEN))
     check_grads(torch, "K3 Function (the GAT VJP)",
                 lambda a, b, c: ops.GatAttention.apply(
-                    a, b, c, dga.edge_src, dga.edge_dst, dga.edge_mask,
-                    dga.order, dga.row_ptr, dga.src_layout, N),
+                    a, b, c, dga.edge_src, dga.edge_dst, dga.order,
+                    dga.row_ptr, dga.src_layout, N),
                 lambda a, b, c: gf.gat_attention_plain(
                     a, b, c, dga.edge_src, dga.order, dga.row_ptr, N),
                 [hs, es, ed], gout)
@@ -1101,8 +1120,8 @@ def phase_fullbatch(torch, results):
         require(counts == want, f"{arch}: launches {counts}, by design "
                 f"{want}")
         _repeat_and_cpu_step(torch, arch, classes, res, results)
-        if arch == "gcn":
-            _profile_gcn_step(torch, res["graph"], results)
+        if arch in ("gcn", "gat"):
+            _profile_step(torch, arch, classes, res["graph"], results)
 
 
 def _repeat_and_cpu_step(torch, arch, classes, res, results):
@@ -1162,15 +1181,22 @@ def _repeat_and_cpu_step(torch, arch, classes, res, results):
     results[f"train.{arch}"]["grad_cuda_vs_cpu"] = errs
 
 
-def _profile_gcn_step(torch, g, results):
-    """One full-batch GCN training step under ``torch.profiler``: device
-    time split into the port's kernels, matrix products, copies and the
-    rest (elementwise, the optimizer); beside it, CUDA-event times of the
-    step's two 602-wide products (the forward ``x @ w`` and the weight
-    gradient ``x^T @ dh``), each 72 GFLOP.  The step is profiled twice:
-    alone in a profiling session, and as the active step of a session
-    that first profiles one warm-up step (``torch.profiler.schedule``):
-    alone, the session misses the step's first device work."""
+# the port's kernels by name, as the profiler lists them
+PORT_KERNELS = ("segmented_rows", "gather_rows_kernel", "edge_dot_kernel",
+                "gat_forward_kernel", "gat_backward_dst_kernel")
+
+
+def _profile_step(torch, arch, classes, g, results):
+    """One full-batch training step of ``arch`` under ``torch.profiler``:
+    device time split into the port's kernels (each kernel by name: a
+    template's instances, such as one kernel at two widths, are listed
+    apart), matrix products, copies and the rest (elementwise, the
+    optimizer).  The step is profiled twice: alone in a profiling
+    session, and as the active step of a session that first profiles one
+    warm-up step (``torch.profiler.schedule``): alone, the session misses
+    the step's first device work.  For GCN, beside it, CUDA-event times of
+    the step's two 602-wide products (the forward ``x @ w`` and the
+    weight gradient ``x^T @ dh``), each 72 GFLOP."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1178,8 +1204,8 @@ def _profile_gcn_step(torch, g, results):
     from repro_torch.models.gnn import model as GM
     from repro_torch.optim import AdamW
     dev = torch.device("cuda")
-    cfg = GM.GNNConfig(arch="gcn", feat_dim=FEAT, hidden=HIDDEN,
-                       num_classes=CLASSES)
+    cfg = GM.GNNConfig(arch=arch, feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=classes)
     dg = DeviceGraph.from_graph(g, dev, src_layout=True)
     x = torch.from_numpy(g.features).to(dev)
     y = torch.from_numpy(g.labels).to(dev)
@@ -1196,8 +1222,7 @@ def _profile_gcn_step(torch, g, results):
 
     def kind(key):
         k = key.lower()
-        if any(n in k for n in ("segmented_rows", "gather_rows_kernel",
-                                "edge_dot_kernel", "gat_attention_kernel")):
+        if any(n in k for n in PORT_KERNELS):
             return "port kernels"
         if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                 "sm80_", "ampere_", "volta_", "matmul",
@@ -1232,15 +1257,21 @@ def _profile_gcn_step(torch, g, results):
         listing = [{"kernel": e.key, "kind": kind(e.key), "count": e.count,
                     "ms": dev_us(e) / 1e3}
                    for e in sorted(rows, key=dev_us, reverse=True)]
-        print(f"   GCN step profiled {label}: wall {wall_ms:.3f} ms, device "
-              f"{total:.3f} ms ({total / wall_ms:.2%} busy), "
+        print(f"   {arch} step profiled {label}: wall {wall_ms:.3f} ms, "
+              f"device {total:.3f} ms ({total / wall_ms:.2%} busy), "
               f"{sum(e.count for e in rows)} device events; split (ms): "
               + json.dumps(split), flush=True)
-        for r in listing[:12]:
+        # every port kernel, then the largest of the rest
+        shown = [r for r in listing if r["kind"] == "port kernels"]
+        shown += [r for r in listing if r["kind"] != "port kernels"][:10]
+        for r in shown:
             print(f"   {r['ms']:9.3f} ms  x{r['count']:<3d} {r['kind']:15s} "
                   f"{r['kernel'][:80]}")
         profiles[label] = {"device_ms": total, "split_ms": split,
                            "kernels": listing}
+    results[f"profile.{arch}"] = {"wall_ms": wall_ms, "profiles": profiles}
+    if arch != "gcn":
+        return
     flush = torch.empty(64 * 2**20 // 4, device=dev)
     w0 = model[0].w.detach()
     dh0 = torch.randn((g.num_nodes, HIDDEN),
@@ -1252,9 +1283,8 @@ def _profile_gcn_step(torch, g, results):
           f"x^T @ dh {wgrad_ms:.3f} ms ({gflop:.1f} GFLOP each: "
           f"{gflop / fwd_ms:.1f} and {gflop / wgrad_ms:.1f} TFLOP/s)",
           flush=True)
-    results["profile.gcn"] = {"wall_ms": wall_ms, "profiles": profiles,
-                              "x_w_ms": fwd_ms, "xT_dh_ms": wgrad_ms,
-                              "gflop_each": gflop}
+    results["profile.gcn"].update(x_w_ms=fwd_ms, xT_dh_ms=wgrad_ms,
+                                  gflop_each=gflop)
 
 
 @phase("7. mini-batch GraphSAGE at Reddit widths, fp32 and int8")
@@ -1497,9 +1527,10 @@ def phase_lm_kernels(torch, results):
             "walks 32 heads, the most it takes at N 64)", 160, 256, 64, 64,
             1, 64, timed=False)
     # bf16 off the tensor-core tile goes to the CUDA-core kernel: the
-    # reduced configs' widths (8 x 32, N 16, chunk 16) and a chunk of 300
-    k8_case(torch, c, "K8 bf16, L 16, 8 x 32, N 16, G 2", 6, 16, 8, 32, 2,
-            16, timed=False)
+    # reduced configs' widths (8 x 32, N 16, chunk 16; timed) and a chunk
+    # of 300
+    results["ssd_chunk_state_bf16_cuda_core"] = k8_case(
+        torch, c, "K8 bf16, L 16, 8 x 32, N 16, G 2", 6, 16, 8, 32, 2, 16)
     k8_case(torch, c, "K8 bf16, L 300, 8 x 64, N 128, G 1", 3, 300, 8, 64,
             1, 128, timed=False)
     # the calls K7 does not compute raise on the card, naming the ROADMAP
@@ -1757,10 +1788,11 @@ def phase_mamba2(torch, results):
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
-    through K1-K6, phases 9 and 10 serve through K7 and K8; the float32
-    routes of K7 and K8 run in the float32 prefills of phases 9 and 10).
-    K6's row is its 4 x 64 case, with the 4 x 10 case beside it: the
-    shapes GAT's backward launches it at."""
+    through K1-K6 and K3's VJP, phases 9 and 10 serve through K7 and K8;
+    the float32 routes of K7 and K8 run in the float32 prefills of phases
+    9 and 10).  K3's row is the served inner block, with GAT's whole graph
+    at 4 x 64 and 4 x 10 beside it; its VJP's row is 4 x 64, with 4 x 10
+    beside it."""
     rows = []
     meta = [("gather_scale_segment_sum", "gather_scale_segment_sum",
              "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
@@ -1772,6 +1804,8 @@ def kernels_line(results) -> dict:
              "src/repro/kernels/segment_sum.py:152", "launches.train.gin"),
             ("gat_attention", "gat_attention", "gat_fused.cu",
              "src/repro/kernels/gat_fused.py:163", "launches.train.gat"),
+            ("gat_attention_backward", "gat_backward", "gat_fused.cu",
+             "src/repro/kernels/gat_fused.py:217", "launches.train.gat"),
             ("gather_scale_segment_sum_q", "gather_scale_segment_sum_q",
              "segment_sum.cu", "src/repro/kernels/segment_sum.py:580",
              "launches.minibatch.int8"),
@@ -1789,7 +1823,10 @@ def kernels_line(results) -> dict:
              "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}"),
             ("ssd_chunk_state_fp32", "ssd_chunk_state_fp32", "ssd_chunk.cu",
              "src/repro/kernels/ssd_chunk.py:55",
-             f"launches.lm_fp32.{MAMBA2}")]
+             f"launches.lm_fp32.{MAMBA2}"),
+            ("ssd_chunk_state_bf16_cuda_core",
+             "ssd_chunk_state_bf16_cuda_core", "ssd_chunk.cu",
+             "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}")]
     for name, key, src, replaces, path in meta:
         r = results[key]
         rows.append({
@@ -1805,12 +1842,17 @@ def kernels_line(results) -> dict:
             rows[-1]["at_zamba2_n64"] = {
                 k: rn[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}
-        if name == "edge_dot":
-            r10 = results[f"edge_dot.{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"]
-            rows[-1]["shape"] = f"{GAT_HEADS} x {HIDDEN // GAT_HEADS}"
-            rows[-1][f"at_{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"] = {
-                k: r10[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}
+        # K3 and its VJP over GAT's whole graph at its two layers' shapes
+        wide = f"{GAT_HEADS}x{HIDDEN // GAT_HEADS}"
+        narrow = f"{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"
+        extra = {"gat_attention": {f"at_{w}": f"gat_attention.full.{w}"
+                                   for w in (wide, narrow)},
+                 "gat_attention_backward": {f"at_{narrow}":
+                                            f"gat_backward.{narrow}"}}
+        for label, key_ in extra.get(name, {}).items():
+            rows[-1][label] = {k: results[key_][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
     return {"kernels": rows}
 
 

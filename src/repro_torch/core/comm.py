@@ -208,10 +208,13 @@ class Int8Codec(WireCodec):
     """Per-row affine uint8 quantization with sender-side error feedback.
 
     Each row is encoded as ``q = round((x - min) / scale)`` with
-    ``scale = (max - min) / 255`` — 1 byte/element plus
+    ``scale = (max - min) / 255`` (raised to the smallest float32 step
+    with ``255 * scale >= max - min`` where that quotient underflows in
+    the subnormals, so ``q <= 255`` holds) — 1 byte/element plus
     :data:`INT8_ROW_META_BYTES` of float32 ``(min, scale)`` metadata.
     The per-element error is bounded by ``scale / 2`` (half a
-    quantization step, property-tested in ``tests/test_comm.py``).
+    quantization step; ``tests/test_torch_comm.py`` checks it on
+    subnormal-range rows).
 
     ``error_feedback = True``: a :class:`Transport` (or the in-step
     residual carried by ``forward_stale``) adds the previous send's
@@ -240,7 +243,16 @@ class Int8Codec(WireCodec):
         # values so the scale/2 error bound holds for what was sent
         mn = rows.min(axis=1, keepdims=True).astype(np.float32)
         mx = rows.max(axis=1, keepdims=True).astype(np.float32)
-        scale = ((mx.astype(np.float64) - mn) / 255.0).astype(np.float32)
+        rng = mx.astype(np.float64) - mn
+        scale = (rng / 255.0).astype(np.float32)
+        # a positive range whose range / 255 underflows to 0 or rounds down
+        # in the subnormals so far that the row's max would need q = 256
+        # takes the smallest float32 step with 255 * scale >= range; every
+        # other row keeps its scale bit for bit
+        fix = (rng > 0) & (rng >= 255.5 * scale.astype(np.float64))
+        while (short := fix & (rng > 255.0 * scale.astype(np.float64))).any():
+            scale = np.where(short, np.nextafter(scale, np.float32(np.inf)),
+                             scale)
         safe = np.where(scale > 0, scale, 1.0).astype(np.float64)
         q = np.rint((rows.astype(np.float64) - mn) / safe)
         q = np.clip(np.where(scale > 0, q, 0.0), 0, 255).astype(np.uint8)

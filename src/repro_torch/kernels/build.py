@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # a scale is float, the return value is cudaGetLastError() after the launch
 SIGNATURES = {
     "segment_sum": {
-        "gss_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "gss_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "seg_forward": [_P, _P, _P, _P, _I, _I, _P],
         "gssq_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
         "gather_rows": [_P, _P, _P, _P, _I, _I, _P],
@@ -45,7 +45,9 @@ SIGNATURES = {
     },
     "gat_fused": {
         "gat_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _P],
+                        _I, _I, _I, _I, _I, _P],
+        "gat_backward_dst": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     # the strides arrive as a pointer to a host array of int64
     "flash_attention": {

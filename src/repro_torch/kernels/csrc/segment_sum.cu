@@ -7,7 +7,8 @@
 //     through gather_scale_segment_sum_pallas :456.  Over the src-grouped
 //     layout with idx = edge_dst it is its own transpose, the dh of
 //     _fused_bwd :441; with heads > 1 it is the dhs of the GAT VJP
-//     (gat_fused.py:217), every head in one launch.
+//     (gat_fused.py:217), every head in one launch, and given a column
+//     (E, heads) it also sums that column per head (the VJP's des).
 // K2  seg_forward   out[d] = sum_{k in [row_ptr[d], row_ptr[d+1])}
 //                             msgs[order[k]]
 //     replaces src/repro/kernels/segment_sum.py:138 (_scatter_add, whose
@@ -20,7 +21,7 @@
 // K6  edge_dot      out[order[k], hh] = <a[src_e, hh-th slice], b[dst_e, hh-th slice]>
 //     replaces src/repro/kernels/segment_sum.py:390 (_edge_dot, whose
 //     pallas_call is at :411; kernel body _edge_dot_kernel :362), the dcoef
-//     of K1 and, with heads > 1, the dalpha of the GAT VJP.
+//     of K1 (the GAT VJP takes its per-head dalpha in gat_fused.cu).
 // K4  gssq_forward  K1 with h[s, j] = mn[s] + q[s, j] * scale[s], q uint8
 //     replaces src/repro/kernels/segment_sum.py:531
 //     (gather_scale_segment_sum_q_pallas, whose pallas_call is at :580;
@@ -35,7 +36,8 @@
 // Bounds.  Every kernel here does one or two operations per element it
 // moves, far below the card's float32 rate, so all are bound by bytes
 // over 3.35 TB/s (U distinct rows read, nnz listed edges):
-//   K1: 4*(U*F + D*F) + 12*nnz (+ 4*heads*nnz for the coefficient rows)
+//   K1: 4*(U*F + D*F) + 12*nnz (+ 4*heads*nnz for the coefficient rows,
+//       and 4*heads*(nnz + D) for a column)
 //   K2: 4*(nnz*F + D*F) + 8*nnz
 //   K5: 4*(U*F + nnz*F) + 8*nnz
 //   K6: 4*(Ua*F + Ub*F + nnz*heads) + 12*nnz
@@ -116,13 +118,18 @@ __device__ __forceinline__ float4 zero_vec<float4>() { return make_float4(0.f, 0
 // blockDim.x, ...  SCALED selects K1 (gather rows[idx[e]], scale by
 // coef[e, head]) or K2 (row e of msgs, coefficient 1).  A vector never
 // straddles two heads: the launch picks VEC dividing hd = F / heads.
-template <int VEC, bool SCALED>
+// COL (K1 only) also sums the (E, heads) column col into col_out[d, head],
+// in the same walk and edge order, by the thread that owns the head's
+// first vector: the GAT VJP's des beside its dhs.
+template <int VEC, bool SCALED, bool COL>
 __global__ void segmented_rows_kernel(const float* __restrict__ rows,
                                       const int* __restrict__ idx,
                                       const float* __restrict__ coef,
+                                      const float* __restrict__ col,
                                       const int* __restrict__ order,
                                       const int* __restrict__ row_ptr,
-                                      float* __restrict__ out, int F, int heads) {
+                                      float* __restrict__ out,
+                                      float* __restrict__ col_out, int F, int heads) {
   using T = typename VecT<VEC>::T;
   const int d = blockIdx.x;
   const int nvec = F / VEC;
@@ -132,7 +139,9 @@ __global__ void segmented_rows_kernel(const float* __restrict__ rows,
   T* out_row = reinterpret_cast<T*>(out + (size_t)d * F);
   for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
     const int head = (v * VEC) / hd;
+    const bool col_owner = COL && (v * VEC) % hd == 0;
     T acc = zero_vec<T>();
+    float csum = 0.f;
     for (int k = k0; k < k1; ++k) {
       const int e = __ldg(order + k);
       if constexpr (SCALED) {
@@ -140,12 +149,14 @@ __global__ void segmented_rows_kernel(const float* __restrict__ rows,
         const float c = __ldg(coef + (size_t)e * heads + head);
         const T x = __ldg(reinterpret_cast<const T*>(rows + (size_t)s * F) + v);
         fma_vec(acc, c, x);
+        if (col_owner) csum += __ldg(col + (size_t)e * heads + head);
       } else {
         const T x = __ldg(reinterpret_cast<const T*>(rows + (size_t)e * F) + v);
         add_vec(acc, x);
       }
     }
     out_row[v] = acc;
+    if (col_owner) col_out[(size_t)d * heads + head] = csum;
   }
 }
 
@@ -270,10 +281,10 @@ static int grid_stride_blocks(long long threads_needed) {
   return (int)(blocks < 1 ? 1 : blocks);
 }
 
-template <bool SCALED>
-static int launch(const float* rows, const int* idx, const float* coef, const int* order,
-                  const int* row_ptr, float* out, int num_dst, int F, int heads,
-                  cudaStream_t stream) {
+template <bool SCALED, bool COL>
+static int launch(const float* rows, const int* idx, const float* coef, const float* col,
+                  const int* order, const int* row_ptr, float* out, float* col_out,
+                  int num_dst, int F, int heads, cudaStream_t stream) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(out) |
                       (uintptr_t)(4 * F);
   // a vector stays inside one head: its width divides hd = F / heads
@@ -281,28 +292,34 @@ static int launch(const float* rows, const int* idx, const float* coef, const in
   const int threads = block_threads(F / vec);
   dim3 grid(num_dst);
   if (vec == 4)
-    segmented_rows_kernel<4, SCALED><<<grid, threads, 0, stream>>>(rows, idx, coef, order,
-                                                                  row_ptr, out, F, heads);
+    segmented_rows_kernel<4, SCALED, COL><<<grid, threads, 0, stream>>>(
+        rows, idx, coef, col, order, row_ptr, out, col_out, F, heads);
   else if (vec == 2)
-    segmented_rows_kernel<2, SCALED><<<grid, threads, 0, stream>>>(rows, idx, coef, order,
-                                                                  row_ptr, out, F, heads);
+    segmented_rows_kernel<2, SCALED, COL><<<grid, threads, 0, stream>>>(
+        rows, idx, coef, col, order, row_ptr, out, col_out, F, heads);
   else
-    segmented_rows_kernel<1, SCALED><<<grid, threads, 0, stream>>>(rows, idx, coef, order,
-                                                                  row_ptr, out, F, heads);
+    segmented_rows_kernel<1, SCALED, COL><<<grid, threads, 0, stream>>>(
+        rows, idx, coef, col, order, row_ptr, out, col_out, F, heads);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gss_forward(const float* h, const int* idx, const float* coef, const int* order,
-                           const int* row_ptr, float* out, int num_dst, int F, int heads,
-                           void* stream) {
-  return launch<true>(h, idx, coef, order, row_ptr, out, num_dst, F, heads,
-                      static_cast<cudaStream_t>(stream));
+// K1; with col (E, heads) and col_out (num_dst, heads) given, also the
+// column's segment sum
+extern "C" int gss_forward(const float* h, const int* idx, const float* coef, const float* col,
+                           const int* order, const int* row_ptr, float* out, float* col_out,
+                           int num_dst, int F, int heads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (col != nullptr)
+    return launch<true, true>(h, idx, coef, col, order, row_ptr, out, col_out, num_dst, F, heads,
+                              st);
+  return launch<true, false>(h, idx, coef, nullptr, order, row_ptr, out, nullptr, num_dst, F,
+                             heads, st);
 }
 
 extern "C" int seg_forward(const float* msgs, const int* order, const int* row_ptr, float* out,
                            int num_dst, int F, void* stream) {
-  return launch<false>(msgs, nullptr, nullptr, order, row_ptr, out, num_dst, F, 1,
-                       static_cast<cudaStream_t>(stream));
+  return launch<false, false>(msgs, nullptr, nullptr, nullptr, order, row_ptr, out, nullptr,
+                              num_dst, F, 1, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gssq_forward(const unsigned char* q, const float* mn, const float* scale,

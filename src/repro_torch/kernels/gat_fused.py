@@ -1,16 +1,16 @@
-"""One-pass fused GAT attention aggregation (K3), its plain version, and
-its VJP.
+"""One-pass fused GAT attention aggregation (K3), its VJP, and their plain
+versions.
 
 ``out[d, h] = sum_e softmax_d(leaky_relu(es[src_e, h] + ed[d, h], 0.2))_e
 · hs[src_e, h]`` over the valid edges into ``d``, divided as
 ``acc / (l + 1e-9)``; a destination with no valid edge emits zeros.  The
 Hopper counterpart of the reference's one-pass Pallas kernel
-(``src/repro/kernels/gat_fused.py:132``): one CUDA block per
-destination, one warp per head, lanes across the head width, so edge
-logits and alphas never reach device memory (``csrc/gat_fused.cu``).
-Asked for ``stats``, the kernel also stores each destination's final
-running max ``m`` and denominator ``l`` (num_dst, heads): one more store
-per warp, no second pass.
+(``src/repro/kernels/gat_fused.py:132``): a group of lanes per
+destination covers its whole row of heads, walks its edges once with an
+online softmax, and keeps edge logits and alphas out of device memory
+(``csrc/gat_fused.cu``).  Asked for ``stats``, the kernel also stores
+each destination's final running max ``m`` and denominator ``l``
+(num_dst, heads).
 
 Edge validity is carried by the dst-grouped layout
 (:func:`repro_torch.kernels.segment_sum.dst_layout` with the edge mask):
@@ -18,12 +18,14 @@ masked edges are not listed, so neither version reads them.
 
 :class:`GatAttention` is the differentiable op.  Its backward is the
 closed form of the reference's ``_gat_bwd`` (``gat_fused.py:217``) with
-the alphas recomputed elementwise from the saved ``(m, l)`` instead of by
-segment max and sum: ``dhs`` is K1 over the src-grouped layout with an
-(E, heads) coefficient (one launch for every head), ``dalpha`` is K6
-with ``heads``, and the three per-destination and per-source sums are K2
-launches.  No step uses a float atomic, so a training step is bitwise
-repeatable on the card.
+the alphas recomputed from the saved ``(m, l)``, in two passes: the
+destination pass (:func:`gat_backward_dst_cuda`, a kernel of its own)
+takes ``dalpha = <g[d], hs[src]>`` per head, the per-destination sum
+``s = sum alpha dalpha``, ``dpre`` and ``ded`` in one walk of each
+destination's edges, and writes ``alpha`` and ``dpre``; the source pass is
+K1 over the src-grouped layout, which sums ``alpha · g[dst]`` into
+``dhs`` and ``dpre`` into ``des`` in the same walk.  No step uses a float
+atomic, so a training step is bitwise repeatable on the card.
 """
 from __future__ import annotations
 
@@ -31,14 +33,98 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_sum import (_check, _check_layout,
-                                             _require_cuda, _segments,
-                                             _stream)
+                                             _edge_output, _require_cuda,
+                                             _segments, _stream)
 
 NEG_INF = -1e30
 LEAKY_SLOPE = 0.2
-MAX_HEADS = 32          # one warp per head in a block of at most 1024
+MAX_HEADS = 32          # each head takes at least one lane of a warp
+MAX_VPL = 8             # vectors a lane holds (the kernels' template range)
+WARP = 32
+# Over at least this many destinations (a whole graph, not a served
+# block) a lane takes 16 floats of a row instead of 8: two destinations a
+# warp at 4 x 64.  On GAT's graph (232 965 destinations) K3 took 0.415
+# against 0.452 ms and the VJP's destination pass 0.480 against 0.497; on
+# a served block (1 664 destinations, fanout 10) K3 took 0.0163 against
+# 0.0122 (scripts/gat_lane_plans.py on an NVIDIA H100 80GB HBM3, 700 W)
+WIDE_DST = 1 << 16
 
-launches = {"gat_attention": 0}
+launches = {"gat_attention": 0, "gat_attention_backward": 0}
+
+
+def lane_plan(heads: int, hd: int, align: int = 16,
+              floats_per_lane: int = 8) -> dict:
+    """How the kernels of ``csrc/gat_fused.cu`` lay a destination's row of
+    ``heads * hd`` columns over groups of lanes: ``vec`` floats a load
+    (the widest of 4, 2, 1 dividing ``hd`` and ``align``, the pointers'
+    common byte alignment), ``hpg`` heads a group (a destination takes
+    ``ceil(heads / hpg)`` groups), ``lph`` lanes a head and ``vpl`` vectors
+    a lane (``lph * vpl`` vectors cover the head), ``group`` lanes a group
+    (the power of two holding ``hpg * lph``).  Of the plans with at most
+    :data:`MAX_VPL` vectors a lane, the one with the fewest idle vector
+    slots, then the one nearest ``floats_per_lane`` floats a lane, then
+    the one with the most heads a group (fewer index loads).  Raises
+    ``ValueError`` when no plan fits a warp."""
+    if not 0 < heads <= MAX_HEADS or hd < 0:
+        raise ValueError(f"{heads} heads of width {hd}: the GAT kernels "
+                         f"take 1..{MAX_HEADS} heads")
+    vec = next(v for v in (4, 2, 1) if hd % v == 0 and align % (4 * v) == 0)
+    nvh = hd // vec
+    best = None
+    for hpg in range(1, heads + 1):
+        lph = 1
+        while hpg * lph <= WARP:
+            vpl = max(1, -(-nvh // lph))
+            if vpl <= MAX_VPL:
+                group = 1 << (hpg * lph - 1).bit_length()
+                slots = -(-heads // hpg) * group * vpl
+                key = ((slots - heads * nvh) / slots,
+                       abs(vpl * vec - floats_per_lane), -hpg)
+                if best is None or key < best[0]:
+                    best = (key, {"vec": vec, "hpg": hpg, "lph": lph,
+                                  "vpl": vpl, "group": group})
+            lph *= 2
+    if best is None:
+        raise ValueError(f"{heads} heads of width {hd} do not fit one warp "
+                         f"of at most {MAX_VPL} vectors of {vec} a lane")
+    return best[1]
+
+
+def _floats_per_lane(num_dst: int) -> int:
+    return 16 if num_dst >= WIDE_DST else 8
+
+
+def _align(*tensors) -> int:
+    """The common byte alignment (16, 8 or 4) of the tensors' bases."""
+    bits = 0
+    for t in tensors:
+        bits |= t.data_ptr()
+    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
+
+
+def _check_gat(hs, es, ed, edge_src, order, row_ptr, num_dst, dev) -> None:
+    _check(hs, "hs", torch.float32, 2, dev)
+    _check(es, "es", torch.float32, 2, dev)
+    _check(ed, "ed", torch.float32, 2, dev)
+    _check(edge_src, "edge_src", torch.int32, 1, dev)
+    _check_layout(order, row_ptr, num_dst, dev)
+    heads = es.shape[1]
+    if not 0 < heads <= MAX_HEADS or hs.shape[1] % heads:
+        raise ValueError(f"hs width {hs.shape[1]} must split into "
+                         f"1..{MAX_HEADS} heads, got {heads}")
+    if es.shape[0] != hs.shape[0] or tuple(ed.shape) != (num_dst, heads):
+        raise ValueError(f"es {tuple(es.shape)} / ed {tuple(ed.shape)} do "
+                         f"not match hs {tuple(hs.shape)} and num_dst "
+                         f"{num_dst}")
+
+
+def _logits(es, ed, edge_src, order, row_ptr, num_dst):
+    """The listed edges' sources, destinations and ``pre`` and ``z``."""
+    e = order.long()
+    seg = _segments(row_ptr, num_dst)
+    src = edge_src.long()[e]
+    pre = es[src] + ed[seg]                                   # (nnz, H)
+    return e, seg, src, pre, torch.where(pre >= 0, pre, LEAKY_SLOPE * pre)
 
 
 def gat_attention_plain(hs: torch.Tensor, es: torch.Tensor,
@@ -51,11 +137,7 @@ def gat_attention_plain(hs: torch.Tensor, es: torch.Tensor,
     arrives) and the denominator, each (num_dst, heads)."""
     heads = es.shape[1]
     hd = hs.shape[1] // heads
-    e = order.long()
-    seg = _segments(row_ptr, num_dst)
-    src = edge_src.long()[e]
-    pre = es[src] + ed[seg]                                   # (nnz, H)
-    z = torch.where(pre >= 0, pre, LEAKY_SLOPE * pre)
+    _, seg, src, _, z = _logits(es, ed, edge_src, order, row_ptr, num_dst)
     # the max only shifts the exponent (softmax is invariant to it), so
     # it is taken without a gradient
     m = torch.full((num_dst, heads), NEG_INF, dtype=z.dtype,
@@ -77,19 +159,8 @@ def gat_attention_cuda(hs: torch.Tensor, es: torch.Tensor, ed: torch.Tensor,
                        stats: bool = False):
     """K3 on the card (``csrc/gat_fused.cu``, ``gat_forward``)."""
     dev = _require_cuda(hs, "gat_attention_cuda")
-    _check(hs, "hs", torch.float32, 2, dev)
-    _check(es, "es", torch.float32, 2, dev)
-    _check(ed, "ed", torch.float32, 2, dev)
-    _check(edge_src, "edge_src", torch.int32, 1, dev)
-    _check_layout(order, row_ptr, num_dst, dev)
+    _check_gat(hs, es, ed, edge_src, order, row_ptr, num_dst, dev)
     heads = es.shape[1]
-    if not 0 < heads <= MAX_HEADS or hs.shape[1] % heads:
-        raise ValueError(f"hs width {hs.shape[1]} must split into "
-                         f"1..{MAX_HEADS} heads, got {heads}")
-    if es.shape[0] != hs.shape[0] or tuple(ed.shape) != (num_dst, heads):
-        raise ValueError(f"es {tuple(es.shape)} / ed {tuple(ed.shape)} do "
-                         f"not match hs {tuple(hs.shape)} and num_dst "
-                         f"{num_dst}")
     hd = hs.shape[1] // heads
     out = torch.empty((num_dst, heads * hd), dtype=torch.float32,
                       device=dev)
@@ -99,44 +170,94 @@ def gat_attention_cuda(hs: torch.Tensor, es: torch.Tensor, ed: torch.Tensor,
         l = torch.empty_like(m)
     if num_dst == 0:
         return (out, m, l) if stats else out
+    plan = lane_plan(heads, hd, _align(hs, out), _floats_per_lane(num_dst))
     lib = build.library("gat_fused")
     build.check(lib.gat_forward(
         hs.data_ptr(), es.data_ptr(), ed.data_ptr(), edge_src.data_ptr(),
         order.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
         m.data_ptr() if stats else None, l.data_ptr() if stats else None,
-        num_dst, heads, hd, _stream()), "gat_forward")
+        num_dst, heads, hd, plan["vec"], plan["hpg"], plan["lph"],
+        plan["vpl"], plan["group"], _stream()), "gat_forward")
     launches["gat_attention"] += 1
     return (out, m, l) if stats else out
 
 
-def gat_attention_backward(g, hs, es, ed, m, l, edge_src, edge_dst,
-                           edge_mask, order, row_ptr, src_layout):
+def gat_backward_dst_plain(g, hs, es, ed, m, l, edge_src, order, row_ptr,
+                           num_edges: int):
+    """Plain PyTorch destination pass of K3's VJP: ``(alpha, dpre, ded)``,
+    the first two (num_edges, heads) and zero on the edges the layout
+    does not list, ``ded`` (num_dst, heads)."""
+    heads, D = es.shape[1], ed.shape[0]
+    hd = hs.shape[1] // heads
+    e, seg, src, pre, z = _logits(es, ed, edge_src, order, row_ptr, D)
+    a = torch.exp(z - m[seg]) / (l[seg] + 1e-9)
+    dalpha = (hs.reshape(-1, heads, hd)[src]
+              * g.reshape(-1, heads, hd)[seg]).sum(-1)
+    zeros = torch.zeros((D, heads), dtype=hs.dtype, device=hs.device)
+    # closed-form softmax backward: dz = alpha * (dalpha - sum_dst)
+    s = zeros.index_add(0, seg, a * dalpha)
+    dp = a * (dalpha - s[seg]) * torch.where(pre >= 0, 1.0, LEAKY_SLOPE)
+    edge = torch.zeros((num_edges, heads), dtype=hs.dtype, device=hs.device)
+    return (edge.index_copy(0, e, a), edge.index_copy(0, e, dp),
+            zeros.index_add(0, seg, dp))
+
+
+def gat_backward_dst_cuda(g, hs, es, ed, m, l, edge_src, order, row_ptr,
+                          num_edges: int):
+    """The destination pass of K3's VJP on the card (``csrc/gat_fused.cu``,
+    ``gat_backward_dst``), counted under ``gat_attention_backward``."""
+    dev = _require_cuda(hs, "gat_backward_dst_cuda")
+    D = ed.shape[0]
+    _check_gat(hs, es, ed, edge_src, order, row_ptr, D, dev)
+    heads = es.shape[1]
+    hd = hs.shape[1] // heads
+    _check(g, "g", torch.float32, 2, dev)
+    for t, name in ((m, "m"), (l, "l")):
+        _check(t, name, torch.float32, 2, dev)
+    if (tuple(g.shape) != (D, heads * hd)
+            or tuple(m.shape) != (D, heads) or tuple(l.shape) != (D, heads)):
+        raise ValueError(f"g {tuple(g.shape)}, m {tuple(m.shape)} and l "
+                         f"{tuple(l.shape)} do not match {D} destinations "
+                         f"of {heads} x {hd}")
+    if edge_src.shape[0] != num_edges or order.shape[0] > num_edges:
+        raise ValueError("edge_src and order do not match num_edges")
+    nnz = order.shape[0]
+    alpha = _edge_output(nnz, (num_edges, heads), dev)
+    dpre = _edge_output(nnz, (num_edges, heads), dev)
+    ded = torch.empty((D, heads), dtype=torch.float32, device=dev)
+    if D == 0:
+        return alpha, dpre, ded
+    plan = lane_plan(heads, hd, _align(g, hs), _floats_per_lane(D))
+    lib = build.library("gat_fused")
+    build.check(lib.gat_backward_dst(
+        g.data_ptr(), hs.data_ptr(), es.data_ptr(), ed.data_ptr(),
+        m.data_ptr(), l.data_ptr(), edge_src.data_ptr(), order.data_ptr(),
+        row_ptr.data_ptr(), alpha.data_ptr(), dpre.data_ptr(),
+        ded.data_ptr(), D, heads, hd, plan["vec"], plan["hpg"], plan["lph"],
+        plan["vpl"], plan["group"], _stream()), "gat_backward_dst")
+    launches["gat_attention_backward"] += 1
+    return alpha, dpre, ded
+
+
+def gat_attention_backward(g, hs, es, ed, m, l, edge_src, edge_dst, order,
+                           row_ptr, src_layout):
     """Cotangents ``(dhs, des, ded)`` of K3 from the output cotangent
     ``g`` and the forward's ``(m, l)``, through :mod:`ops` (kernels on
-    the card, plain versions on the CPU).  Not a kernel of its own: on
-    the card it launches K1 over the src layout, K6 and K2 three times,
-    each counted by its own wrapper.  ``order``/``row_ptr`` and
-    ``src_layout`` must list exactly the edges ``edge_mask`` sets (as
-    :class:`~repro_torch.core.abstraction.DeviceGraph` builds them)."""
+    the card, plain versions on the CPU): the destination pass, then K1
+    over the src-grouped layout with ``alpha`` as coefficient and ``dpre``
+    as the column it also sums.  ``order``/``row_ptr`` and ``src_layout``
+    list the same (valid) edges, as
+    :class:`~repro_torch.core.abstraction.DeviceGraph` builds them."""
     from repro_torch.kernels import ops
-    S, D, heads = hs.shape[0], ed.shape[0], es.shape[1]
-    order_s, row_ptr_s = src_layout
-    src, dst = edge_src.long(), edge_dst.long()
-    pre = es[src] + ed[dst]                                   # (E, H)
-    z = torch.where(pre >= 0, pre, LEAKY_SLOPE * pre)
-    alpha = torch.exp(z - m[dst]) / (l[dst] + 1e-9)
-    alpha = torch.where(edge_mask[:, None], alpha, 0.0).contiguous()
+    alpha, dpre, ded = ops.gat_backward_dst(g, hs, es, ed, m, l, edge_src,
+                                            order, row_ptr,
+                                            edge_src.shape[0])
     # transpose of "gather src, weight by alpha, scatter to dst": K1 over
     # the src-grouped layout, gathering g through edge_dst, all heads
-    dhs = ops.gather_scale_segment_sum(g, edge_dst, alpha, order_s,
-                                       row_ptr_s, S, transpose=True)
-    dalpha = ops.edge_dot(hs, g, edge_src, edge_dst, order, heads)
-    # closed-form softmax backward: dz = alpha * (dalpha - sum_dst)
-    s = ops.segment_sum((alpha * dalpha).contiguous(), order, row_ptr, D)
-    dz = alpha * (dalpha - s[dst])
-    dpre = (dz * torch.where(pre >= 0, 1.0, LEAKY_SLOPE)).contiguous()
-    ded = ops.segment_sum(dpre, order, row_ptr, D)
-    des = ops.segment_sum(dpre, order_s, row_ptr_s, S)
+    order_s, row_ptr_s = src_layout
+    dhs, des = ops.gather_scale_segment_sum(g, edge_dst, alpha, order_s,
+                                            row_ptr_s, hs.shape[0],
+                                            transpose=True, col=dpre)
     return dhs, des, ded
 
 
@@ -145,8 +266,8 @@ class GatAttention(torch.autograd.Function):
     keeps ``(m, l)`` only when a gradient is asked for."""
 
     @staticmethod
-    def forward(ctx, hs, es, ed, edge_src, edge_dst, edge_mask, order,
-                row_ptr, src_layout, num_dst):
+    def forward(ctx, hs, es, ed, edge_src, edge_dst, order, row_ptr,
+                src_layout, num_dst):
         from repro_torch.kernels import ops
         if not any(ctx.needs_input_grad[:3]):
             return ops.gat_attention(hs, es, ed, edge_src, order, row_ptr,
@@ -158,12 +279,12 @@ class GatAttention(torch.autograd.Function):
         out, m, l = ops.gat_attention(hs, es, ed, edge_src, order, row_ptr,
                                       num_dst, stats=True)
         ctx.src_layout = src_layout
-        ctx.save_for_backward(hs, es, ed, m, l, edge_src, edge_dst,
-                              edge_mask, order, row_ptr)
+        ctx.save_for_backward(hs, es, ed, m, l, edge_src, edge_dst, order,
+                              row_ptr)
         return out
 
     @staticmethod
     def backward(ctx, g):
         dhs, des, ded = gat_attention_backward(
             g.contiguous(), *ctx.saved_tensors, ctx.src_layout)
-        return dhs, des, ded, None, None, None, None, None, None, None
+        return dhs, des, ded, None, None, None, None, None, None

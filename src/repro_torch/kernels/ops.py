@@ -1,6 +1,6 @@
 """Device dispatch for the hand-written kernels (the aggregations K1-K6,
-flash attention K7, the SSD chunk state K8), and the differentiable
-entry points built on the aggregations.
+K3's VJP, flash attention K7, the SSD chunk state K8), and the
+differentiable entry points built on the aggregations.
 
 Each kernel entry point looks at the device of its first tensor: a CUDA
 tensor goes to the hand-written Hopper kernel, a CPU tensor to the
@@ -30,15 +30,17 @@ from repro_torch.kernels.segment_sum import (  # noqa: F401
 
 
 def gather_scale_segment_sum(h, edge_src, coef, order, row_ptr,
-                             num_dst: int, *, transpose: bool = False):
+                             num_dst: int, *, transpose: bool = False,
+                             col=None):
     """K1: ``out[d] = sum_{e in d's range} coef[e] * h[edge_src[e]]``
     (``coef`` (E,) or (E, heads)); ``transpose`` marks a launch over the
     src-grouped layout from a backward, which the kernel wrapper counts
-    apart."""
+    apart.  With ``col`` (E, heads), returns ``(out, col_out)``: also the
+    per-head sum of ``col`` over each range, from the same walk."""
     fn = _ss.pick(functools.partial(_ss.gather_scale_segment_sum_cuda,
                                     transpose=transpose),
                   _ss.gather_scale_segment_sum_plain, h)
-    return fn(h, edge_src, coef, order, row_ptr, num_dst)
+    return fn(h, edge_src, coef, order, row_ptr, num_dst, col=col)
 
 
 def segment_sum(msgs, order, row_ptr, num_dst: int):
@@ -53,6 +55,15 @@ def gat_attention(hs, es, ed, edge_src, order, row_ptr, num_dst: int, *,
     with ``stats`` also the per-destination max and denominator."""
     fn = _ss.pick(_gat.gat_attention_cuda, _gat.gat_attention_plain, hs)
     return fn(hs, es, ed, edge_src, order, row_ptr, num_dst, stats=stats)
+
+
+def gat_backward_dst(g, hs, es, ed, m, l, edge_src, order, row_ptr,
+                     num_edges: int):
+    """The destination pass of K3's VJP: ``(alpha, dpre, ded)`` from the
+    output cotangent and the forward's ``(m, l)``."""
+    fn = _ss.pick(_gat.gat_backward_dst_cuda, _gat.gat_backward_dst_plain,
+                  hs)
+    return fn(g, hs, es, ed, m, l, edge_src, order, row_ptr, num_edges)
 
 
 def gather_scale_segment_sum_q(q, mn, scale, edge_src, coef, order,

@@ -9,7 +9,8 @@ Five kernels, each with its plain PyTorch version beside it:
   kernel (``src/repro/kernels/segment_sum.py:320``).  Over the
   src-grouped layout, gathering through ``edge_dst``, the same kernel is
   its own transpose (``_fused_bwd`` ``:441``); a coefficient of shape
-  (E, heads) weights each head's columns separately (the GAT backward).
+  (E, heads) weights each head's columns separately, and a column of the
+  same shape is summed per head in the same walk (the GAT backward).
 * :func:`segment_sum_cuda` (K2) — ``out[d] = sum_{e: seg_e=d} msgs[e]``;
   the counterpart of the blocked scatter (``segment_sum.py:138``).
 * :func:`gather_rows_cuda` (K5) — ``out[e] = g[seg_e]``, the transpose of
@@ -170,12 +171,14 @@ def _segments(row_ptr: torch.Tensor, n: int) -> torch.Tensor:
 
 def gather_scale_segment_sum_plain(h: torch.Tensor, edge_src: torch.Tensor,
                                    coef: torch.Tensor, order: torch.Tensor,
-                                   row_ptr: torch.Tensor,
-                                   num_dst: int) -> torch.Tensor:
+                                   row_ptr: torch.Tensor, num_dst: int, *,
+                                   col: Optional[torch.Tensor] = None):
     """Plain PyTorch K1 over a grouped layout: ``index_add_`` of the
     scaled rows ``h[edge_src[e]]`` of the listed edges.  ``coef`` is
     (E,), or (E, heads) to scale each head's ``F / heads`` columns by its
-    own coefficient."""
+    own coefficient.  Given ``col`` (E, heads), returns ``(out,
+    col_out)``, ``col_out`` the (num_dst, heads) sum of ``col`` over each
+    group's listed edges."""
     e = order.long()
     seg = _segments(row_ptr, num_dst)
     rows = h[edge_src.long()[e]]
@@ -187,16 +190,23 @@ def gather_scale_segment_sum_plain(h: torch.Tensor, edge_src: torch.Tensor,
         msgs = (rows.reshape(len(e), heads, h.shape[1] // heads)
                 * c[..., None]).reshape(len(e), h.shape[1])
     out = torch.zeros((num_dst, h.shape[1]), dtype=h.dtype, device=h.device)
-    return out.index_add(0, seg, msgs)
+    out = out.index_add(0, seg, msgs)
+    if col is None:
+        return out
+    return out, torch.zeros((num_dst, col.shape[1]), dtype=col.dtype,
+                            device=col.device).index_add(0, seg, col[e])
 
 
 def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
                                   coef: torch.Tensor, order: torch.Tensor,
                                   row_ptr: torch.Tensor, num_dst: int, *,
-                                  transpose: bool = False) -> torch.Tensor:
+                                  transpose: bool = False,
+                                  col: Optional[torch.Tensor] = None):
     """K1 on the card (``csrc/segment_sum.cu``, ``gss_forward``).
     ``transpose=True`` marks a launch over the src-grouped layout from a
-    backward; it is counted under ``gather_scale_segment_sum_t``."""
+    backward; it is counted under ``gather_scale_segment_sum_t``.  A
+    ``col`` of ``coef``'s shape (E, heads) is summed in the same launch,
+    as the plain version does."""
     dev = _require_cuda(h, "gather_scale_segment_sum_cuda")
     _check(h, "h", torch.float32, 2, dev)
     _check(edge_src, "edge_src", torch.int32, 1, dev)
@@ -212,16 +222,26 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
         raise ValueError(f"{F} columns do not split into {heads} heads")
     _check_layout(order, row_ptr, num_dst, dev)
     out = torch.empty((num_dst, F), dtype=torch.float32, device=dev)
+    col_out = None
+    if col is not None:
+        _check(col, "col", torch.float32, 2, dev)
+        if tuple(col.shape) != (edge_src.shape[0], heads):
+            raise ValueError(f"col {tuple(col.shape)} must be (E, heads) = "
+                             f"{(edge_src.shape[0], heads)}")
+        col_out = (torch.zeros if F == 0 else torch.empty)(
+            (num_dst, heads), dtype=torch.float32, device=dev)
     if num_dst == 0 or F == 0:
-        return out
+        return out if col is None else (out, col_out)
     lib = build.library("segment_sum")
     build.check(lib.gss_forward(
         h.data_ptr(), edge_src.data_ptr(), coef.data_ptr(),
-        order.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-        num_dst, F, heads, _stream()), "gss_forward")
+        None if col is None else col.data_ptr(), order.data_ptr(),
+        row_ptr.data_ptr(), out.data_ptr(),
+        None if col is None else col_out.data_ptr(), num_dst, F, heads,
+        _stream()), "gss_forward")
     launches["gather_scale_segment_sum_t" if transpose
              else "gather_scale_segment_sum"] += 1
-    return out
+    return out if col is None else (out, col_out)
 
 
 # ---------------------------------------------------------------------------

@@ -124,7 +124,7 @@ class GATLayer(MessagePassing):
         ed = torch.einsum("nhd,hd->nh", hdst, self.a_dst).contiguous()
         return kops.GatAttention.apply(
             hs.reshape(-1, heads * hd).contiguous(), es, ed, g.edge_src,
-            g.edge_dst, g.edge_mask, g.order, g.row_ptr, g.src_layout,
+            g.edge_dst, g.order, g.row_ptr, g.src_layout,
             g.num_dst)
 
 

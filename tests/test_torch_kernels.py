@@ -267,7 +267,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
         "segment_sum": 0, "gather_scale_segment_sum_q": 0,
         "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
-        "flash_attention": 0, "flash_attention_fp32": 0,
+        "gat_attention_backward": 0, "flash_attention": 0, "flash_attention_fp32": 0,
         "ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
         "ssd_chunk_state_bf16_cuda_core": 0}
 
@@ -510,8 +510,8 @@ def test_gradcheck_k3_function(heads, hd):
     src_layout = _layout(src, 10, mask)
     assert torch.autograd.gradcheck(
         lambda a, b, c: ops.GatAttention.apply(
-            a, b, c, _t(src), _t(dst), _t(mask), order, row_ptr, src_layout,
-            8), (hs, es, ed))
+            a, b, c, _t(src), _t(dst), order, row_ptr, src_layout, 8),
+        (hs, es, ed))
 
 
 def test_functions_match_the_reference_custom_vjps():
@@ -548,7 +548,7 @@ def test_functions_match_the_reference_custom_vjps():
         jnp.asarray(ed))
     refs = vjp(jnp.asarray(g))
     ins = [_t(a).requires_grad_() for a in (h, es, ed)]
-    out = ops.GatAttention.apply(*ins, _t(src), _t(dst), _t(mask), order,
-                                 row_ptr, src_layout, D)
+    out = ops.GatAttention.apply(*ins, _t(src), _t(dst), order, row_ptr,
+                                 src_layout, D)
     for got, want in zip(torch.autograd.grad(out, ins, _t(g)), refs):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
