@@ -22,7 +22,9 @@ Phases, in order; any failure makes the exit code nonzero:
    behind a device sleep, L2 flushed before each) of the kernel, the
    plain version and, where one PyTorch call computes the same function,
    that call; beside the least time the card could take (bytes over
-   3.35 TB/s, or flops over 67 TFLOP/s fp32);
+   3.35 TB/s, or flops over 67 TFLOP/s fp32) and, for K1, K3 and K4,
+   the gather bound (every listed edge's row, the output and the indices
+   over 3.35 TB/s: what a graph whose sources lie anywhere allows);
 3. serve GraphSAGE at Reddit's widths (602 → 256 → 41, fanouts 10/25,
    232 965 nodes) through ``repro_torch.launch.serve_gnn``: 128
    requests, throughput, p50/p99, the sample/forward span split; K1 must
@@ -230,13 +232,17 @@ def bound(bytes_: float, flops: float, peak: float = FP32_FLOPS_PER_S
 
 def check_case(torch, label, kernel, plain, args, *, timed=False,
                library=None, bytes_=0.0, flops=0.0, flush=None, rel=1e-4,
-               elem_rel=None, elem_abs=None, peak=FP32_FLOPS_PER_S):
+               elem_rel=None, elem_abs=None, peak=FP32_FLOPS_PER_S,
+               gather_bytes=None):
     """Kernel vs plain on the same inputs: the max abs error within
     ``rel`` of the plain version's largest value, or, with ``elem_rel``,
     each element within ``elem_rel`` of its plain value plus its own
     ``elem_abs`` (a tensor of the output's shape) plus ``rel`` of the
-    largest; optionally timed.  Returns the measurement dict and records
-    a failure on disagreement."""
+    largest; optionally timed.  ``gather_bytes``, for a gather over a
+    layout, are the bytes of every listed edge's row (not only the
+    distinct ones) plus the output and the indices: over 3.35 TB/s they
+    give ``gather_bound_ms``, the rate a scattered graph allows.  Returns
+    the measurement dict and records a failure on disagreement."""
     out1 = kernel(*args)
     out2 = kernel(*args)
     ref = plain(*args)
@@ -270,6 +276,8 @@ def check_case(torch, label, kernel, plain, args, *, timed=False,
         res["library_ms"] = (median_ms(torch, library, flush)
                              if library is not None else None)
         res["bound_ms"], res["bound_by"] = bound(bytes_, flops, peak)
+        if gather_bytes is not None:
+            res["gather_bound_ms"] = gather_bytes / HBM_BYTES_PER_S * 1e3
     print("   " + json.dumps(res), flush=True)
     if not ok:
         failures.append(f"{label}: err {err} (max|ref| {scale}, "
@@ -476,11 +484,13 @@ class Checker:
             plain_out = lambda *a: plain(*a)[0]
         else:
             kernel_out, plain_out = kernel, plain
+        idx_bytes = (8 + 4 * heads) * nnz + col_bytes
         return check_case(
             torch, label, kernel_out, plain_out, args, timed=timed,
             library=library,
-            bytes_=4 * (U * F + num_out * F) + (8 + 4 * heads) * nnz
-            + col_bytes, flops=2 * nnz * F, flush=self.flush)
+            bytes_=4 * (U * F + num_out * F) + idx_bytes, flops=2 * nnz * F,
+            flush=self.flush,
+            gather_bytes=4 * (nnz * F + num_out * F) + idx_bytes)
 
     def k2(self, label, msgs, seg, order, row_ptr, num_out, *, timed=True):
         """K2 ``out[d] = sum msgs[e]`` over the layout grouped by ``seg``;
@@ -510,7 +520,9 @@ class Checker:
             (hs, es, ed, g.edge_src, g.order, g.row_ptr, D), timed=timed,
             bytes_=(4 * (U * heads * hd + D * heads * hd + U * heads
                          + D * heads) + 12 * nnz),
-            flops=nnz * heads * (8 + 2 * hd), flush=self.flush)
+            flops=nnz * heads * (8 + 2 * hd), flush=self.flush,
+            gather_bytes=(4 * (nnz * heads * hd + D * heads * hd
+                               + nnz * heads + D * heads) + 12 * nnz))
 
     def k5(self, label, rows, seg, order, num_edges, *, timed=True):
         """K5 ``out[e] = rows[seg_e]`` on the listed edges."""
@@ -1037,7 +1049,9 @@ def phase_train_kernels(torch, g, g_gat, results):
         (q, mn, scale, blk.edge_src, blk.edge_mask.to(torch.float32),
          blk.order, blk.row_ptr, blk.num_dst), timed=True,
         bytes_=bU * FEAT + 8 * bU + 4 * blk.num_dst * FEAT + 12 * bnnz,
-        flops=4 * bnnz * FEAT, flush=flush)
+        flops=4 * bnnz * FEAT, flush=flush,
+        gather_bytes=bnnz * FEAT + 8 * bnnz + 4 * blk.num_dst * FEAT
+        + 12 * bnnz)
 
     # the GAT backward at both layers' shapes, each timed
     results["gat_backward"], (hs, es, ed, gout) = gat_backward_case(
@@ -1182,8 +1196,9 @@ def _repeat_and_cpu_step(torch, arch, classes, res, results):
 
 
 # the port's kernels by name, as the profiler lists them
-PORT_KERNELS = ("segmented_rows", "gather_rows_kernel", "edge_dot_kernel",
-                "gat_forward_kernel", "gat_backward_dst_kernel")
+PORT_KERNELS = ("gss_lanes_kernel", "segmented_rows", "gather_rows_kernel",
+                "edge_dot_kernel", "gat_forward_kernel",
+                "gat_backward_dst_kernel")
 
 
 def _profile_step(torch, arch, classes, g, results):
@@ -1792,7 +1807,10 @@ def kernels_line(results) -> dict:
     the float32 routes of K7 and K8 run in the float32 prefills of phases
     9 and 10).  K3's row is the served inner block, with GAT's whole graph
     at 4 x 64 and 4 x 10 beside it; its VJP's row is 4 x 64, with 4 x 10
-    beside it."""
+    beside it.  K1's row is the served inner block, with the whole graph
+    at 602, 256 and 41 beside it; its transpose's row is GCN's 256, with
+    41 and the GAT VJP's source pass (4 x 64, 4 x 10, without and with
+    the column) beside it."""
     rows = []
     meta = [("gather_scale_segment_sum", "gather_scale_segment_sum",
              "segment_sum.cu", "src/repro/kernels/segment_sum.py:345",
@@ -1848,11 +1866,22 @@ def kernels_line(results) -> dict:
         extra = {"gat_attention": {f"at_{w}": f"gat_attention.full.{w}"
                                    for w in (wide, narrow)},
                  "gat_attention_backward": {f"at_{narrow}":
-                                            f"gat_backward.{narrow}"}}
+                                            f"gat_backward.{narrow}"},
+                 # K1 over the whole graph at each trainer's width, and
+                 # its transposes (GCN's, the GAT VJP's source pass)
+                 "gather_scale_segment_sum": {
+                     f"at_full_{F}": f"k1.full.{F}"
+                     for F in (FEAT, HIDDEN, CLASSES)},
+                 "gather_scale_segment_sum_t": {
+                     "at_41": f"k1_transpose.{CLASSES}",
+                     **{f"at_{w}": f"k1_transpose.{w}"
+                        for w in (wide, narrow)},
+                     **{f"at_{w}_col": f"k1_transpose_col.{w}"
+                        for w in (wide, narrow)}}}
         for label, key_ in extra.get(name, {}).items():
             rows[-1][label] = {k: results[key_][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+                "library_ms") if k in results[key_]}
     return {"kernels": rows}
 
 

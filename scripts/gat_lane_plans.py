@@ -26,9 +26,10 @@ def plans(heads, hd):
     """Every plan of at most MAX_VPL vectors a lane that fills whole
     heads, one group holding all heads (as lane_plan searches them)."""
     from repro_torch.kernels import gat_fused as gf
+    from repro_torch.kernels import segment_sum as ss
     vec = next(v for v in (4, 2, 1) if hd % v == 0)
     out, lph = [], 1
-    while heads * lph <= gf.WARP:
+    while heads * lph <= ss.WARP:
         vpl = -(-(hd // vec) // lph)
         if vpl <= gf.MAX_VPL:
             out.append({"vec": vec, "hpg": heads, "lph": lph, "vpl": vpl,
@@ -44,6 +45,7 @@ def main() -> int:
         return 2
     from repro_torch.core.abstraction import DeviceGraph
     from repro_torch.kernels import gat_fused as gf
+    from repro_torch.kernels import segment_sum as ss
     dev = torch.device("cuda")
     c = cs.Checker(torch, seed=3)
     dga = DeviceGraph.from_graph(cs.reddit_graph(cs.GAT_CLASSES), dev)
@@ -71,10 +73,11 @@ def main() -> int:
     out = {"card": cs.nvidia_smi_line()}
     try:
         for label, hd, D, fn, ref in cases:
-            picked = chosen(4, hd, 16, gf._floats_per_lane(D))
+            picked = chosen(4, hd, 16, ss._floats_per_lane(D),
+                            max_vpl=gf.MAX_VPL)
             rows = []
             for plan in plans(4, hd):
-                gf.lane_plan = lambda *a, p=plan: p
+                gf.lane_plan = lambda *a, p=plan, **k: p
                 got = fn()
                 torch.cuda.synchronize()
                 err = (got - ref).abs().max().item()

@@ -37,9 +37,12 @@ _F = ctypes.c_float
 # a scale is float, the return value is cudaGetLastError() after the launch
 SIGNATURES = {
     "segment_sum": {
-        "gss_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # K1 and K4 end in their lane plan (segment_sum._plan_args)
+        "gss_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P],
         "seg_forward": [_P, _P, _P, _P, _I, _I, _P],
-        "gssq_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "gssq_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
         "gather_rows": [_P, _P, _P, _P, _I, _I, _P],
         "edge_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },

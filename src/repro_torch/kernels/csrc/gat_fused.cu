@@ -56,9 +56,10 @@
 // read as whole vectors by lanes that all work: at hd 64, float4, 4
 // lanes of 4 float4 a head, two destinations a warp; at hd 10, float2,
 // one lane of 5 float2 a head, eight destinations a warp
-// (gat_fused.lane_plan in Python makes the plan; over a whole graph it
-// gives a lane 16 floats, over a served block 8, whichever ran faster on
-// the card).  Each group walks its destination's edges once, one edge a
+// (segment_sum.lane_plan in Python makes the plan, lanes.cuh holds the
+// Lane walk K1 and K4 share; over a whole graph the plan gives a lane 16
+// floats, over a served block 8, whichever ran faster on the card).
+// Each group walks its destination's edges once, one edge a
 // step: lane j loads the order and edge_src entries of edge j of a chunk
 // of G edges and the group shares them by shuffles.  The forward keeps a
 // running max with a rescaled denominator and accumulator (the
@@ -74,69 +75,17 @@
 // summation order: the results are bitwise repeatable.
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
+
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;
+using lanes::FULL;
+using lanes::Lane;
+using lanes::load_vec;
+using lanes::store_vec;
+using lanes::THREADS;
 constexpr float NEG_INF = -1e30f;
 constexpr float SLOPE = 0.2f;
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-  } else if constexpr (VEC == 2) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    x[0] = v.x; x[1] = v.y;
-  } else {
-    x[0] = __ldg(p);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  } else {
-    p[0] = x[0];
-  }
-}
-
-// Where a lane sits: its destination d and its head h (group gid takes
-// heads hb * HPG .. hb * HPG + HPG - 1 of destination d, gid = d * nhb +
-// hb), its place lih among the head's LPH lanes and its first vector v0
-// within the head; `live` lanes own columns of a real destination.
-// k0..k1 is the destination's edge range.
-struct Lane {
-  int gl, d, h, lih, v0, k0, k1;
-  bool has_d, live;
-  __device__ Lane(const int* row_ptr, int num_dst, int heads, int hpg, int lph, int vpl, int G) {
-    gl = threadIdx.x & (G - 1);
-    const long long gid = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-    const int nhb = (heads + hpg - 1) / hpg;
-    has_d = gid / nhb < num_dst;
-    d = has_d ? (int)(gid / nhb) : 0;
-    h = (int)(gid % nhb) * hpg + gl / lph;
-    live = has_d && gl / lph < hpg && h < heads;
-    lih = gl % lph;
-    v0 = lih * vpl;
-    k0 = has_d ? __ldg(row_ptr + d) : 0;
-    k1 = has_d ? __ldg(row_ptr + d + 1) : 0;
-  }
-  // this lane's edge of the chunk of G edges from kc: e = order[kc + gl],
-  // s = edge_src[e] (0 past the range)
-  __device__ void chunk(const int* order, const int* edge_src, int kc, int G, int& e,
-                        int& s) const {
-    e = s = 0;
-    if (gl < min(G, k1 - kc)) {
-      e = __ldg(order + kc + gl);
-      s = __ldg(edge_src + e);
-    }
-  }
-};
 
 template <int VEC, int VPL>
 __global__ void __launch_bounds__(THREADS)
@@ -308,19 +257,12 @@ __global__ void __launch_bounds__(THREADS)
   if (ln.live && ln.lih == 0) ded[dh] = ded_dh;
 }
 
-// every (destination, head block) gets a group
-static int grid_blocks(int num_dst, int heads, int hpg, int G) {
-  const long long groups = (long long)num_dst * ((heads + hpg - 1) / hpg);
-  const int per_block = THREADS / G;
-  return (int)((groups + per_block - 1) / per_block);
-}
-
 template <int VEC, int VPL>
 static void launch_forward(cudaStream_t st, const float* hs, const float* es, const float* ed,
                            const int* edge_src, const int* order, const int* row_ptr, float* out,
                            float* m_out, float* l_out, int num_dst, int heads, int hd, int hpg,
                            int lph, int G) {
-  const int blocks = grid_blocks(num_dst, heads, hpg, G);
+  const int blocks = lanes::grid_blocks(num_dst, heads, hpg, G);
   gat_forward_kernel<VEC, VPL><<<blocks, THREADS, 0, st>>>(
       hs, es, ed, edge_src, order, row_ptr, out, m_out, l_out, num_dst, heads, hd, hpg, lph, G);
 }
@@ -331,7 +273,7 @@ static void launch_backward_dst(cudaStream_t st, const float* g, const float* hs
                                 const int* edge_src, const int* order, const int* row_ptr,
                                 float* alpha, float* dpre, float* ded, int num_dst, int heads,
                                 int hd, int hpg, int lph, int G) {
-  const int blocks = grid_blocks(num_dst, heads, hpg, G);
+  const int blocks = lanes::grid_blocks(num_dst, heads, hpg, G);
   gat_backward_dst_kernel<VEC, VPL><<<blocks, THREADS, 0, st>>>(
       g, hs, es, ed, m, l, edge_src, order, row_ptr, alpha, dpre, ded, num_dst, heads, hd, hpg,
       lph, G);

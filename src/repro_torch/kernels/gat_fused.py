@@ -32,74 +32,17 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.segment_sum import (_check, _check_layout,
-                                             _edge_output, _require_cuda,
-                                             _segments, _stream)
+from repro_torch.kernels.segment_sum import (_align, _check, _check_layout,
+                                             _edge_output, _floats_per_lane,
+                                             _require_cuda, _segments,
+                                             _stream, lane_plan)
 
 NEG_INF = -1e30
 LEAKY_SLOPE = 0.2
 MAX_HEADS = 32          # each head takes at least one lane of a warp
 MAX_VPL = 8             # vectors a lane holds (the kernels' template range)
-WARP = 32
-# Over at least this many destinations (a whole graph, not a served
-# block) a lane takes 16 floats of a row instead of 8: two destinations a
-# warp at 4 x 64.  On GAT's graph (232 965 destinations) K3 took 0.415
-# against 0.452 ms and the VJP's destination pass 0.480 against 0.497; on
-# a served block (1 664 destinations, fanout 10) K3 took 0.0163 against
-# 0.0122 (scripts/gat_lane_plans.py on an NVIDIA H100 80GB HBM3, 700 W)
-WIDE_DST = 1 << 16
 
 launches = {"gat_attention": 0, "gat_attention_backward": 0}
-
-
-def lane_plan(heads: int, hd: int, align: int = 16,
-              floats_per_lane: int = 8) -> dict:
-    """How the kernels of ``csrc/gat_fused.cu`` lay a destination's row of
-    ``heads * hd`` columns over groups of lanes: ``vec`` floats a load
-    (the widest of 4, 2, 1 dividing ``hd`` and ``align``, the pointers'
-    common byte alignment), ``hpg`` heads a group (a destination takes
-    ``ceil(heads / hpg)`` groups), ``lph`` lanes a head and ``vpl`` vectors
-    a lane (``lph * vpl`` vectors cover the head), ``group`` lanes a group
-    (the power of two holding ``hpg * lph``).  Of the plans with at most
-    :data:`MAX_VPL` vectors a lane, the one with the fewest idle vector
-    slots, then the one nearest ``floats_per_lane`` floats a lane, then
-    the one with the most heads a group (fewer index loads).  Raises
-    ``ValueError`` when no plan fits a warp."""
-    if not 0 < heads <= MAX_HEADS or hd < 0:
-        raise ValueError(f"{heads} heads of width {hd}: the GAT kernels "
-                         f"take 1..{MAX_HEADS} heads")
-    vec = next(v for v in (4, 2, 1) if hd % v == 0 and align % (4 * v) == 0)
-    nvh = hd // vec
-    best = None
-    for hpg in range(1, heads + 1):
-        lph = 1
-        while hpg * lph <= WARP:
-            vpl = max(1, -(-nvh // lph))
-            if vpl <= MAX_VPL:
-                group = 1 << (hpg * lph - 1).bit_length()
-                slots = -(-heads // hpg) * group * vpl
-                key = ((slots - heads * nvh) / slots,
-                       abs(vpl * vec - floats_per_lane), -hpg)
-                if best is None or key < best[0]:
-                    best = (key, {"vec": vec, "hpg": hpg, "lph": lph,
-                                  "vpl": vpl, "group": group})
-            lph *= 2
-    if best is None:
-        raise ValueError(f"{heads} heads of width {hd} do not fit one warp "
-                         f"of at most {MAX_VPL} vectors of {vec} a lane")
-    return best[1]
-
-
-def _floats_per_lane(num_dst: int) -> int:
-    return 16 if num_dst >= WIDE_DST else 8
-
-
-def _align(*tensors) -> int:
-    """The common byte alignment (16, 8 or 4) of the tensors' bases."""
-    bits = 0
-    for t in tensors:
-        bits |= t.data_ptr()
-    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
 
 
 def _check_gat(hs, es, ed, edge_src, order, row_ptr, num_dst, dev) -> None:
@@ -170,7 +113,8 @@ def gat_attention_cuda(hs: torch.Tensor, es: torch.Tensor, ed: torch.Tensor,
         l = torch.empty_like(m)
     if num_dst == 0:
         return (out, m, l) if stats else out
-    plan = lane_plan(heads, hd, _align(hs, out), _floats_per_lane(num_dst))
+    plan = lane_plan(heads, hd, _align(hs, out), _floats_per_lane(num_dst),
+                     max_vpl=MAX_VPL)
     lib = build.library("gat_fused")
     build.check(lib.gat_forward(
         hs.data_ptr(), es.data_ptr(), ed.data_ptr(), edge_src.data_ptr(),
@@ -227,7 +171,8 @@ def gat_backward_dst_cuda(g, hs, es, ed, m, l, edge_src, order, row_ptr,
     ded = torch.empty((D, heads), dtype=torch.float32, device=dev)
     if D == 0:
         return alpha, dpre, ded
-    plan = lane_plan(heads, hd, _align(g, hs), _floats_per_lane(D))
+    plan = lane_plan(heads, hd, _align(g, hs), _floats_per_lane(D),
+                     max_vpl=MAX_VPL)
     lib = build.library("gat_fused")
     build.check(lib.gat_backward_dst(
         g.data_ptr(), hs.data_ptr(), es.data_ptr(), ed.data_ptr(),

@@ -25,9 +25,10 @@ The TPU kernels tile the reductions as one-hot matmuls because a TPU has
 no efficient scatter.  These walk a grouped layout instead: ``order``
 lists the edges stably sorted by the grouping index and
 ``row_ptr[d]:row_ptr[d+1]`` is group ``d``'s range (:func:`dst_layout`).
-One CUDA block owns one output row and writes it once, so there are no
-atomics and every sum is bitwise repeatable.  See ``csrc/segment_sum.cu``
-for the bounds.
+Each output row is owned by the lanes that write it once (K1 and K4: a
+group of lanes under a :func:`lane_plan`, shared with GAT's kernels;
+K2: one CUDA block), so there are no atomics and every sum is bitwise
+repeatable.  See ``csrc/segment_sum.cu`` for the bounds.
 
 An edge a layout does not list (a masked pad slot) is never read: the
 per-edge outputs of K5 and K6 are zero there.
@@ -42,6 +43,7 @@ same backward formulas as the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -58,6 +60,22 @@ launches = {"gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
             "gather_rows": 0, "edge_dot": 0}
 
 Layout = Tuple[torch.Tensor, torch.Tensor]
+
+WARP = 32
+#: K1's and K4's range of vectors a lane (a 602-wide row of float2 is one
+#: warp of 10 a lane) and the elements of gathered rows a lane may hold
+#: in flight: over a whole graph and for K4, and for K1 over a block
+#: (``csrc/segment_sum.cu``: GSS_MAX_VPL, GSS_WHOLE_WORDS, GSS_MAX_WORDS)
+GSS_MAX_VPL = 12
+GSS_WHOLE_WORDS = 24
+GSS_MAX_WORDS = 80
+# Over at least this many destinations (a whole graph, not a served
+# block) a lane takes 16 floats of a row instead of 8: two destinations a
+# warp at 4 x 64.  On GAT's graph (232 965 destinations) K3 took 0.415
+# against 0.452 ms and the VJP's destination pass 0.480 against 0.497; on
+# a served block (1 664 destinations, fanout 10) K3 took 0.0163 against
+# 0.0122 (scripts/gat_lane_plans.py on an NVIDIA H100 80GB HBM3, 700 W)
+WIDE_DST = 1 << 16
 
 
 def dst_layout(edge_dst: np.ndarray, num_dst: int,
@@ -166,6 +184,130 @@ def _segments(row_ptr: torch.Tensor, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# lane plans: how the lane-group kernels (K1, K4, K3) lay a row over lanes
+# ---------------------------------------------------------------------------
+
+def lane_plan(heads: int, hd: int, align: int = 16,
+              floats_per_lane: int = 8, *, max_vpl: int) -> dict:
+    """How the lane-group kernels (``csrc/lanes.cuh``: K3 and its VJP's
+    destination pass in ``csrc/gat_fused.cu``, K1 and K4 in
+    ``csrc/segment_sum.cu``) lay a destination's row of ``heads * hd``
+    columns over groups of lanes: ``vec`` floats a load (the widest of 4,
+    2, 1 dividing ``hd`` and ``align``, the pointers' common byte
+    alignment), ``hpg`` heads a group (a destination takes ``ceil(heads /
+    hpg)`` groups), ``lph`` lanes a head and ``vpl`` vectors a lane
+    (``lph * vpl`` vectors cover the head), ``group`` lanes a group (the
+    power of two holding ``hpg * lph``).  Of the plans with at most
+    ``max_vpl`` vectors a lane, the one with the fewest idle vector slots,
+    then the one nearest ``floats_per_lane`` floats a lane, then the one
+    with the most heads a group (fewer index loads).  Raises
+    ``ValueError`` when no plan fits a warp."""
+    if not 0 < heads <= WARP or hd < 0:
+        raise ValueError(f"{heads} heads of width {hd}: the lane-group "
+                         f"kernels take 1..{WARP} heads")
+    vec = next(v for v in (4, 2, 1) if hd % v == 0 and align % (4 * v) == 0)
+    nvh = hd // vec
+    best = None
+    for hpg in range(1, heads + 1):
+        lph = 1
+        while hpg * lph <= WARP:
+            vpl = max(1, -(-nvh // lph))
+            if vpl <= max_vpl:
+                group = 1 << (hpg * lph - 1).bit_length()
+                slots = -(-heads // hpg) * group * vpl
+                key = ((slots - heads * nvh) / slots,
+                       abs(vpl * vec - floats_per_lane), -hpg)
+                if best is None or key < best[0]:
+                    best = (key, {"vec": vec, "hpg": hpg, "lph": lph,
+                                  "vpl": vpl, "group": group})
+            lph *= 2
+    if best is None:
+        raise ValueError(f"{heads} heads of width {hd} do not fit one warp "
+                         f"of at most {max_vpl} vectors of {vec} a lane")
+    return best[1]
+
+
+def _floats_per_lane(num_dst: int) -> int:
+    return 16 if num_dst >= WIDE_DST else 8
+
+
+def _align(*tensors) -> int:
+    """The common byte alignment (16, 8 or 4) of the tensors' bases."""
+    bits = 0
+    for t in tensors:
+        bits |= t.data_ptr()
+    return 16 if bits % 16 == 0 else 8 if bits % 8 == 0 else 4
+
+
+#: edges whose rows a lane of K1 or K4 may have in flight
+GSS_NES = (1, 2, 4)
+#: over a block (fewer than WIDE_DST destinations) a lane of K1 or K4
+#: holds at most this many floats of a row: a wider row is cut into slices
+BLOCK_FLOATS = 16
+
+
+def gss_ne(words: int, budget: int) -> int:
+    """The most of :data:`GSS_NES` edges whose rows of ``words`` elements
+    a lane fit ``budget`` elements (one when none fits)."""
+    return max([n for n in GSS_NES if n * words <= budget], default=1)
+
+
+def gss_built(vec: int, vpl: int, ne: int, quantized: bool = False) -> bool:
+    """Whether ``csrc/segment_sum.cu`` builds K1's (K4's with
+    ``quantized``) instance of ``vpl`` vectors of ``vec`` a lane and
+    ``ne`` edges in flight: the ones :func:`gss_plan` can pick
+    (``gss_instance`` there)."""
+    words = vpl * vec
+    return 1 <= vpl <= GSS_MAX_VPL and (
+        ne == gss_ne(words, GSS_WHOLE_WORDS)
+        or not quantized and ne == gss_ne(words, GSS_MAX_WORDS))
+
+
+def gss_plan(heads: int, hd: int, align: int = 16, num_dst: int = 0, *,
+             quantized: bool = False) -> dict:
+    """K1's lane plan (K4's with ``quantized``: rows of bytes, one head):
+    :func:`lane_plan` with up to :data:`GSS_MAX_VPL` vectors a lane, plus
+    ``nsl``, the slices a head is cut into (each a group of its own), and
+    ``ne``, the edges whose rows a lane has in flight.
+
+    Over a whole graph (at least :data:`WIDE_DST` destinations) K1 is
+    bound by the gathered rows in flight on each SM: a lane takes 16
+    floats, a head is sliced only when one warp cannot hold it, and ``ne``
+    is the most of :data:`GSS_NES` within :data:`GSS_WHOLE_WORDS` floats a
+    lane (one at 602 and 256 wide, two at 41 and 4 x 10), so registers
+    stay few and resident warps many.  Over a block (a served block, a
+    mini-batch block) the time is its slowest destination's latency: a
+    lane takes 8 floats, a row wider than a warp of
+    :data:`BLOCK_FLOATS` floats a lane is sliced (602 wide: two warps of
+    5 float2 a lane), and ``ne`` is the most within
+    :data:`GSS_MAX_WORDS`, but K4 keeps :data:`GSS_WHOLE_WORDS` (its
+    bytes and scales take registers of their own).  All from
+    ``scripts/k1_lane_plans.py`` on an NVIDIA H100 80GB HBM3, 700 W
+    (PERF.md, PR 17).  The search runs once per shape: each launch asks
+    again."""
+    return dict(_gss_plan(heads, hd, align, num_dst >= WIDE_DST, quantized))
+
+
+@functools.lru_cache(maxsize=None)
+def _gss_plan(heads: int, hd: int, align: int, whole: bool,
+              quantized: bool) -> tuple:
+    vec = next(v for v in (4, 2, 1) if hd % v == 0 and align % (4 * v) == 0)
+    nvh = hd // vec
+    per_lane = GSS_MAX_VPL if whole else min(GSS_MAX_VPL,
+                                             BLOCK_FLOATS // vec)
+    nsl = max(1, -(-nvh // (WARP * per_lane)))
+    # a sliced head, or more heads than a warp has lanes: each (slice of
+    # a) head is a group of its own
+    one = nsl > 1 or heads > WARP
+    plan = lane_plan(1 if one else heads, -(-nvh // nsl) * vec, 4 * vec,
+                     _floats_per_lane(WIDE_DST if whole else 0),
+                     max_vpl=GSS_MAX_VPL)
+    budget = GSS_WHOLE_WORDS if whole or quantized else GSS_MAX_WORDS
+    plan.update(nsl=nsl, ne=gss_ne(plan["vpl"] * vec, budget))
+    return tuple(plan.items())
+
+
+# ---------------------------------------------------------------------------
 # K1: fused gather -> scale -> segment-sum (and its transpose)
 # ---------------------------------------------------------------------------
 
@@ -195,6 +337,14 @@ def gather_scale_segment_sum_plain(h: torch.Tensor, edge_src: torch.Tensor,
         return out
     return out, torch.zeros((num_dst, col.shape[1]), dtype=col.dtype,
                             device=col.device).index_add(0, seg, col[e])
+
+
+def _plan_args(plan: dict, quantized: bool = False) -> tuple:
+    """A K1 / K4 plan as the C entry points take it: (vec, hpg, lph, vpl,
+    nsl, group, ne), K4 without hpg (one head)."""
+    keys = ("vec", "lph", "vpl", "nsl", "group", "ne") if quantized \
+        else ("vec", "hpg", "lph", "vpl", "nsl", "group", "ne")
+    return tuple(plan[k] for k in keys)
 
 
 def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
@@ -232,13 +382,14 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
             (num_dst, heads), dtype=torch.float32, device=dev)
     if num_dst == 0 or F == 0:
         return out if col is None else (out, col_out)
+    plan = gss_plan(heads, F // heads, _align(h, out), num_dst)
     lib = build.library("segment_sum")
     build.check(lib.gss_forward(
         h.data_ptr(), edge_src.data_ptr(), coef.data_ptr(),
         None if col is None else col.data_ptr(), order.data_ptr(),
         row_ptr.data_ptr(), out.data_ptr(),
         None if col is None else col_out.data_ptr(), num_dst, F, heads,
-        _stream()), "gss_forward")
+        *_plan_args(plan), _stream()), "gss_forward")
     launches["gather_scale_segment_sum_t" if transpose
              else "gather_scale_segment_sum"] += 1
     return out if col is None else (out, col_out)
@@ -408,11 +559,18 @@ def gather_scale_segment_sum_q_cuda(q: torch.Tensor, mn: torch.Tensor,
     out = torch.empty((num_dst, F), dtype=torch.float32, device=dev)
     if num_dst == 0 or F == 0:
         return out
+    # the uint8 rows set the vector width (602-byte rows are 2-byte
+    # aligned, uchar2); the float output row takes the same width
+    vec = next(v for v in (4, 2, 1)
+               if F % v == 0 and q.data_ptr() % v == 0
+               and out.data_ptr() % (4 * v) == 0)
+    plan = gss_plan(1, F, 4 * vec, num_dst, quantized=True)
     lib = build.library("segment_sum")
     build.check(lib.gssq_forward(
         q.data_ptr(), mn.data_ptr(), scale.data_ptr(), edge_src.data_ptr(),
         coef.data_ptr(), order.data_ptr(), row_ptr.data_ptr(),
-        out.data_ptr(), num_dst, F, _stream()), "gssq_forward")
+        out.data_ptr(), num_dst, F, *_plan_args(plan, quantized=True),
+        _stream()), "gssq_forward")
     launches["gather_scale_segment_sum_q"] += 1
     return out
 

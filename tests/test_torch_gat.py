@@ -7,7 +7,8 @@ destinations that no edge reaches.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against these plain versions there).  What can be checked here is their
-launch plan, ``gat_fused.lane_plan``, and their walk: the emulations below
+launch plan (``segment_sum.lane_plan`` with ``gat_fused.MAX_VPL`` vectors
+a lane), and their walk: the emulations below
 repeat, lane by lane in float32 numpy, the index arithmetic and the order
 of operations of ``csrc/gat_fused.cu`` (chunks of G edges shared by a
 group, the online softmax, the xor tree over a head's lanes, the second
@@ -38,6 +39,11 @@ def _one_torch_thread():
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _k3_plan(*args, **kw):
+    """K3's lane plan, as ``gat_fused`` asks ``segment_sum.lane_plan``."""
+    return segment_sum.lane_plan(*args, max_vpl=gat_fused.MAX_VPL, **kw)
 
 
 def _graph(seed, S, D, E, n_pad, *, heavy=0):
@@ -76,7 +82,7 @@ PLAN_SHAPES = [(4, 64), (4, 10), (4, 16), (4, 1), (4, 3), (2, 5), (3, 8),
 @pytest.mark.parametrize("heads,hd", PLAN_SHAPES)
 @pytest.mark.parametrize("align", [16, 8, 4])
 def test_lane_plan_gives_each_column_one_lane_of_its_head(heads, hd, align):
-    p = gat_fused.lane_plan(heads, hd, align)
+    p = _k3_plan(heads, hd, align)
     vec, hpg, lph, G = p["vec"], p["hpg"], p["lph"], p["group"]
     assert hd % vec == 0 and align % (4 * vec) == 0
     assert vec == next(v for v in (4, 2, 1)
@@ -100,19 +106,19 @@ def test_lane_plan_fills_every_lane_at_gats_widths():
     destination a warp; the forward over a whole graph, 4 lanes of 4, two
     destinations a warp) and 4 x 10 (float2, one lane of 5 vectors a head,
     eight destinations a warp), no idle lane or vector slot."""
-    assert gat_fused.lane_plan(4, 64) == {"vec": 4, "hpg": 4, "lph": 8,
-                                          "vpl": 2, "group": 32}
-    assert gat_fused.lane_plan(4, 64, floats_per_lane=16) == {
+    assert _k3_plan(4, 64) == {"vec": 4, "hpg": 4, "lph": 8, "vpl": 2,
+                               "group": 32}
+    assert _k3_plan(4, 64, floats_per_lane=16) == {
         "vec": 4, "hpg": 4, "lph": 4, "vpl": 4, "group": 16}
     for fpl in (8, 16):
-        assert gat_fused.lane_plan(4, 10, floats_per_lane=fpl) == {
+        assert _k3_plan(4, 10, floats_per_lane=fpl) == {
             "vec": 2, "hpg": 4, "lph": 1, "vpl": 5, "group": 4}
 
 
 @pytest.mark.parametrize("heads,hd", [(33, 1), (2, 1025), (0, 4)])
 def test_lane_plan_refuses_what_one_warp_cannot_hold(heads, hd):
     with pytest.raises(ValueError):
-        gat_fused.lane_plan(heads, hd)
+        _k3_plan(heads, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +237,7 @@ def test_kernel_walks_emulated_match_the_plain_versions(heads, hd, fpl):
     src, dst, mask = _graph(hd, S, D, 60, 5, heavy=40)
     hs, es, ed, g = _inputs(hd, S, D, heads, hd)
     order, row_ptr = dst_layout(dst, D, mask)
-    plan = gat_fused.lane_plan(heads, hd, floats_per_lane=fpl)
+    plan = _k3_plan(heads, hd, floats_per_lane=fpl)
     out, m, l = _emulate_forward(hs, es, ed, src, order, row_ptr, D, plan)
     p_out, p_m, p_l = gat_fused.gat_attention_plain(
         _t(hs), _t(es), _t(ed), _t(src), _t(order), _t(row_ptr), D,
