@@ -63,6 +63,25 @@ Phases, in order; any failure makes the exit code nonzero:
    --use-kernel`` (wire rows into K4); K4 launches once per int8 step
    and never under fp32; step time, cache
    hit ratio, fetched MiB and the loss trend;
+11. (run after phase 7) locality reordering, the dataset registry, the
+   importance and layer-wise samplers and a changing graph, at Reddit's
+   widths: (a) for each reorder policy (none, degree, bfs, rcm) the 41-
+   and 40-class graphs packed (host seconds, ``locality_report``), then
+   phase 5's whole-graph cases of K1 (602, 256, 41), K1ᵀ (256), K3 and
+   its VJP (4 x 64) and K5 (602, src layout) on them, checked and timed
+   as in phase 5, one line a policy beside phase 5's times; (b)
+   full-batch SAGE and GAT under ``--reorder bfs`` and ``rcm``: phase 6's
+   launches, each epoch's loss within 1e-4 (relative) of phase 6's, and
+   phase 6's predictions but for near ties; (c) SAGE served under
+   ``--reorder bfs``: every request answered in the workload's original
+   ids, K1 twice a forward; (d) SAGE served with ``--update-stream`` (a
+   stream of 2 000 synthesized events written to ``chiprun_out/``): every
+   event folded, then the updated server against a cold one built on the
+   folded graph within 1e-5; (e) mini-batch SAGE with ``--sampler
+   importance`` (over a sixteenth of the nodes), ``fastgcn`` and
+   ``ladies``: falling loss, K1's launches as phase 7's fp32 run, K1's
+   plan searches and host time a launch; (f) ``train_gnn --dataset
+   pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like`` (SAGE);
 8. K7 (flash attention) and K8 (the Mamba2 SSD chunk state) against their
    plain versions, checked and timed as in phase 2 (K7's bf16 outputs,
    from the tensor-core route, element by element within one bf16 ulp
@@ -159,6 +178,9 @@ EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
 MB_BATCH = 1024
 
 failures: list = []
+# phase 6's trained SAGE and GAT with their graphs: phase 11b compares
+# the packed runs' predictions with them
+TRAINED: dict = {}
 
 
 def phase(name):
@@ -1134,6 +1156,8 @@ def phase_fullbatch(torch, results):
         require(counts == want, f"{arch}: launches {counts}, by design "
                 f"{want}")
         _repeat_and_cpu_step(torch, arch, classes, res, results)
+        if arch in ("sage", "gat"):
+            TRAINED[arch] = (res["model"], res["graph"])   # for phase 11b
         if arch in ("gcn", "gat"):
             _profile_step(torch, arch, classes, res["graph"], results)
 
@@ -1344,6 +1368,416 @@ def phase_minibatch(torch, results):
         require(counts == want, f"{codec}: launches {counts}, by design "
                 f"{want}")
 
+
+# ---------------------------------------------------------------------------
+# phase 11: locality reordering, the dataset registry, the importance and
+# layer-wise samplers and serving a changing graph, at Reddit's widths
+# ---------------------------------------------------------------------------
+
+REORDER_POLICIES = ("none", "degree", "bfs", "rcm")
+# the phase-5 cases phase 11(a) repeats over each packed graph, under
+# phase 5's keys
+REORDER_CASES = ("k1.full.602", f"k1.full.{HIDDEN}", f"k1.full.{CLASSES}",
+                 f"k1_transpose.{HIDDEN}",
+                 f"gat_attention.full.{GAT_HEADS}x{HIDDEN // GAT_HEADS}",
+                 "gat_backward", "gather_rows.602")
+# the events of phase 11(d)'s stream (half feature rows, the rest edge
+# additions and removals)
+UPDATE_EVENTS = 2000
+# ImportanceSampler walks 8 x 2 steps in Python per destination (about
+# 0.9-2.8 s a batch of 1024 on a CPU core): phase 11(e) runs it one epoch
+# over a sixteenth of the nodes, at the same widths and degree
+IMPORTANCE_NODES = NODES // 16
+
+
+def packed(g):
+    """Each policy's packing of ``g``, with the host seconds it took and
+    its ``locality_report``."""
+    from repro_torch.core.reordering import locality_report, reorder_graph
+    for policy in REORDER_POLICIES:
+        t0 = time.perf_counter()
+        gp, _, _ = reorder_graph(g, policy)
+        secs = time.perf_counter() - t0
+        yield policy, gp, {"seconds": secs, **locality_report(gp)}
+
+
+def reorder_cases(torch, c, g, g_gat) -> dict:
+    """Phase 5's whole-graph cases of the gathers over ``g`` (41 classes)
+    and ``g_gat`` (40), as packed: K1 at 602 (SAGE layer 0), 256 and 41,
+    K1ᵀ at 256, K3 and its VJP at 4 x 64, K5 at 602 over the src layout.
+    K5's and the VJP's results gain a ``gather_bound_ms``: every listed
+    edge's row (the VJP: hs in its destination pass, g in its source
+    pass), the outputs and the indices over 3.35 TB/s."""
+    from repro_torch.core.abstraction import DeviceGraph
+    dev, randn = c.dev, c.randn
+    dg = DeviceGraph.from_graph(g, dev, src_layout=True)
+    N, E = g.num_nodes, dg.edge_src.numel()
+    src, dst, order, row_ptr = dg.edge_src, dg.edge_dst, dg.order, dg.row_ptr
+    order_s, row_ptr_s = dg.src_layout
+    nnz = int(order.numel())
+    coef = torch.rsqrt(dg.out_deg)[src.long()] * \
+        torch.rsqrt(dg.in_deg)[dst.long()]
+    out = {"k1.full.602": c.k1(
+        f"K1 full graph, SAGE layer 0 (F {FEAT})", randn(N, FEAT), src,
+        dg.edge_mask.to(torch.float32), order, row_ptr, N)}
+    for F in (HIDDEN, CLASSES):
+        out[f"k1.full.{F}"] = c.k1(f"K1 full graph, F {F}", randn(N, F), src,
+                                   coef, order, row_ptr, N)
+    out[f"k1_transpose.{HIDDEN}"] = c.k1(
+        f"K1 over the src layout, GCN F={HIDDEN}", randn(N, HIDDEN), dst,
+        coef, order_s, row_ptr_s, N, transpose=True)
+    r = c.k5(f"K5 gather ({E} x {FEAT}, src layout)", randn(N, FEAT), src,
+             order_s, E)
+    r["gather_bound_ms"] = (4 * 2 * nnz * FEAT + 8 * nnz) / HBM_BYTES_PER_S \
+        * 1e3
+    out["gather_rows.602"] = r
+    dga = DeviceGraph.from_graph(g_gat, dev, src_layout=True)
+    hd = HIDDEN // GAT_HEADS
+    out[f"gat_attention.full.{GAT_HEADS}x{hd}"] = c.k3(
+        f"K3 GAT's full graph, 4 x {hd}", dga, GAT_HEADS, hd)
+    r, _ = gat_backward_case(torch, c, dga, GAT_HEADS, hd, timed=True)
+    na, Ea, Na = int(dga.order.numel()), dga.edge_src.numel(), dga.num_src
+    r["gather_bound_ms"] = (4 * (2 * na * HIDDEN + 2 * Na * HIDDEN
+                                 + 6 * Na * GAT_HEADS) + 16 * na + 8 * Ea) \
+        / HBM_BYTES_PER_S * 1e3
+    out["gat_backward"] = r
+    return out
+
+
+@phase("11a. the gathers over the graph as each reorder policy packs it")
+def phase_reorder_kernels(torch, g, g_gat, results):
+    """For each policy, ``g`` (41 classes) and ``g_gat`` (40) packed
+    by ``reorder_graph`` (its host seconds and ``locality_report``
+    printed), then :func:`reorder_cases` on them, each case held against
+    its plain version within phase 5's bounds and timed as there (25
+    launches, L2 flushed), beside phase 5's time of the unpacked graph
+    from this process."""
+    out = {}
+    for (policy, gp, rep), (_, gap, rep_gat) in zip(packed(g),
+                                                    packed(g_gat)):
+        print(f"   reorder={policy}: {rep['seconds']:.2f} s (GAT's graph "
+              f"{rep_gat['seconds']:.2f} s); " + json.dumps(rep), flush=True)
+        cases = reorder_cases(torch, Checker(torch, seed=5), gp, gap)
+        line = []
+        for key in REORDER_CASES:
+            r, base = cases[key], results.get(key, {}).get("ms")
+            share = r["gather_bound_ms"] / r["ms"]
+            line.append(f"{key} {r['ms']:.5g} ms ["
+                        + ("not run" if base is None else f"{base:.5g}")
+                        + f"] {share:.0%} of gather bound")
+        print(f"   {policy}: " + "; ".join(line), flush=True)
+        out[policy] = {"locality": rep, "locality_gat": rep_gat,
+                       "cases": cases}
+    results["reorder.kernels"] = out
+
+
+def final_logits(torch, arch, classes, model, g):
+    """``model``'s logits over all of ``g`` on the card, on the host."""
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.models.gnn import model as GM
+    cfg = GM.GNNConfig(arch=arch, feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=classes)
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        return GM.forward_full(cfg, model, DeviceGraph.from_graph(g, dev),
+                               torch.from_numpy(g.features).to(dev)
+                               ).cpu().numpy()
+
+
+@phase("11b. full-batch SAGE and GAT over the packed graph")
+def phase_reorder_train(torch, results):
+    """SAGE and GAT full-batch through ``train_gnn --reorder bfs`` and
+    ``rcm``: launches as phase 6's and each epoch's loss within 1e-4
+    (relative) of phase 6's unpacked run of the same arch (training is
+    invariant under the relabelling up to summation order).  The trained
+    models' predictions, mapped back to the original ids, agree with phase
+    6's model's except on near ties: a node whose class differs has a top-2
+    margin in phase 6's logits within 1e-3 of their largest value (float32
+    sums in another order, amplified by ten AdamW epochs, can flip those).
+    The accuracy difference is printed in nodes."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_gnn
+    for arch in ("sage", "gat"):
+        classes = GAT_CLASSES if arch == "gat" else CLASSES
+        base = results[f"train.{arch}"]
+        logits0 = final_logits(torch, arch, classes, *TRAINED[arch])
+        pred0 = logits0.argmax(1)
+        top2 = np.sort(logits0, 1)[:, -2:]
+        margin0 = top2[:, 1] - top2[:, 0]
+        for policy in ("bfs", "rcm"):
+            ops.reset_launch_counts()
+            res = train_gnn.main(train_args(arch, classes, [
+                "--epochs", str(TRAIN_EPOCHS), "--reorder", policy]))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(res["losses"], base["losses"]))
+            logits = final_logits(torch, arch, classes, res["model"],
+                                  res["graph"])[res["reorder"]["inv"]]
+            flipped = logits.argmax(1) != pred0
+            near = 1e-3 * float(np.abs(logits0).max())
+            summary = {
+                "losses": res["losses"], "max_rel_loss_diff": rel,
+                "accuracy": res["accuracy"],
+                "accuracy_diff_nodes": round(abs(res["accuracy"]
+                                                 - base["accuracy"]) * NODES),
+                "max_abs_logit_diff": float(np.abs(logits - logits0).max()),
+                "predictions_differing": int(flipped.sum()),
+                "their_max_margin": float(margin0[flipped].max())
+                if flipped.any() else 0.0, "near_tie_bound": near,
+                "median_epoch_ms": float(np.median(res["epoch_s"][1:]))
+                * 1e3, "unpacked_median_epoch_ms": base["median_epoch_ms"],
+                "reorder_s": res["reorder"]["seconds"], "launches": counts}
+            print(f"   {arch} --reorder {policy}: " + json.dumps(summary),
+                  flush=True)
+            results[f"reorder.train.{arch}.{policy}"] = summary
+            want = _expected(arch, TRAIN_EPOCHS)
+            require(counts == want, f"{arch} {policy}: launches {counts}, "
+                    f"by design {want}")
+            require(len(res["losses"]) == len(base["losses"])
+                    and rel <= 1e-4, f"{arch} {policy}: losses within 1e-4 "
+                    f"of the unpacked run ({rel})")
+            require(summary["their_max_margin"] <= near,
+                    f"{arch} {policy}: predictions that differ from the "
+                    f"unpacked run's are near ties ({summary})")
+
+
+def serve_args(extra=()):
+    return ["--arch", "sage", "--nodes", str(NODES), "--classes",
+            str(CLASSES), "--feat-dim", str(FEAT), "--hidden", str(HIDDEN),
+            "--fanouts", *map(str, FANOUTS), "--device", "cuda", *extra]
+
+
+@phase("11c. serve GraphSAGE over the bfs-packed graph")
+def phase_reorder_serve(torch, results):
+    """``serve_gnn --reorder bfs --requests 128``: every request answered
+    in the workload's original ids, in its order, K1 twice a forward;
+    p50 and req/s beside phase 3's unpacked run."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_gnn
+    from repro_torch.serving import poisson_workload
+    ops.reset_launch_counts()
+    res = serve_gnn.main(serve_args(["--requests", "128", "--reorder",
+                                     "bfs"]))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    base = res["no_cache"]
+    forwards = res["forward_calls"] + base["forward_calls"]
+    # the launcher's workload, as its clients sent it
+    sent = [r.node_id for r in poisson_workload(128, np.arange(NODES),
+                                                2000.0, seed=1)]
+    summary = {k: res[k] for k in ("served", "throughput_rps", "p50_ms",
+                                   "p99_ms", "embedding_hit_ratio")}
+    summary.update(no_cache={k: base[k] for k in (
+        "served", "throughput_rps", "p50_ms", "p99_ms")},
+        reorder_s=res["reorder"]["seconds"] if "reorder" in res else None,
+        launches=counts, forward_calls=forwards,
+        unpacked=results.get("serve", "not run"))
+    print("   serve --reorder bfs: " + json.dumps(summary, default=str),
+          flush=True)
+    print("   (SAGE serving is host-bound: PERF.md §7 records 1 599 to "
+          "1 999 req/s for unchanged code on different machines)")
+    results["reorder.serve"] = summary
+    for name, r in (("cached", res), ("no-cache", base)):
+        require(r["served"] == 128 and r["all_logits_finite"],
+                f"{name}: every request answered, finite logits")
+        require([q.node_id for q in r["responses"]] == sent,
+                f"{name}: responses in the workload's original ids")
+    require(counts == {"gather_scale_segment_sum": 2 * forwards},
+            f"K1 twice a forward: {counts}, {forwards} forwards")
+
+
+@phase("11d. serve GraphSAGE over a changing graph")
+def phase_update_stream(torch, g, results):
+    """A stream of :data:`UPDATE_EVENTS` events from ``synthesize_updates``
+    on ``g`` (the 41-class graph), written to ``chiprun_out/``, served by
+    ``serve_gnn --update-stream`` (128 requests, staleness 4, so cached
+    rows outside a fold's frontier stay servable): its folds, events,
+    touched nodes and invalidated rows; then a cold server built on
+    ``log.apply(g)`` with the same weights answers a fixed set of seeds
+    (the touched nodes first) as the updated server does, within 1e-5."""
+    from repro_torch.core.updates import load_update_stream, synthesize_updates
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_gnn
+    from repro_torch.serving import GNNInferenceServer
+    from repro_torch.serving.batcher import MicroBatch
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    path = os.path.join(ROOT, "chiprun_out", "updates.jsonl")
+    n_events = synthesize_updates(g, UPDATE_EVENTS, seed=11).to_jsonl(path)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_gnn.main(serve_args(["--requests", "128", "--staleness", "4",
+                                     "--update-stream", path]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    forwards = res["forward_calls"] + res["no_cache"]["forward_calls"]
+    folds = res["folds"]
+    summary = {"events_in_stream": n_events, "folds": len(folds),
+               "events": sum(f["events"] for f in folds),
+               "touched_nodes": sum(f["touched_nodes"] for f in folds),
+               "invalidated_rows": sum(f["invalidated_rows"] for f in folds),
+               "update_seq": res["update_seq"],
+               "no_cache_update_seq": res["no_cache"]["update_seq"],
+               "served": res["served"], "throughput_rps":
+               res["throughput_rps"], "p50_ms": res["p50_ms"],
+               "p99_ms": res["p99_ms"], "launches": counts, "wall_s": wall}
+    print("   serve --update-stream: " + json.dumps(summary), flush=True)
+    require(res["served"] == 128 and res["no_cache"]["served"] == 128
+            and res["all_logits_finite"], "every request answered, finite")
+    require(res["update_seq"] == n_events
+            and res["no_cache"]["update_seq"] == n_events
+            and summary["events"] == n_events, "every event folded")
+    require(counts == {"gather_scale_segment_sum": 2 * forwards},
+            f"K1 twice a forward: {counts}, {forwards} forwards")
+
+    srv = res["server"]
+    log = load_update_stream(path)
+    t0 = time.perf_counter()
+    cold = GNNInferenceServer(
+        log.apply(g), srv.cfg, srv.params, fanouts=list(FANOUTS),
+        buckets=srv.batcher.buckets, cache_policy="degree",
+        cache_capacity=int(NODES * 0.2), max_staleness=4, seed=0)
+    cold.warmup()
+    cold_s = time.perf_counter() - t0
+    touched = log.delta(0).nodes
+    rng = np.random.default_rng(12)
+    others = np.setdiff1d(rng.choice(NODES, 256, replace=False), touched)
+    seeds = np.concatenate([touched[:128], others[:128]])
+    worst, top = 0.0, 0.0
+    for start in range(0, len(seeds), BUCKET):
+        ids = np.full(BUCKET, -1, np.int64)
+        chunk = seeds[start:start + BUCKET]
+        ids[:len(chunk)] = chunk
+        a = srv.serve_batch(MicroBatch([], ids, BUCKET, 0.0))[:len(chunk)]
+        b = cold.serve_batch(MicroBatch([], ids, BUCKET, 0.0))[:len(chunk)]
+        worst = max(worst, float(np.abs(a - b).max()))
+        top = max(top, float(np.abs(b).max()))
+    summary.update(delta_vs_cold_max_abs=worst, cold_max_abs=top,
+                   cold_build_s=cold_s, seeds=len(seeds))
+    print(f"   updated server vs a cold one on log.apply(g), {len(seeds)} "
+          f"seeds ({min(128, len(touched))} touched): max |diff| "
+          f"{worst:.3e} (max |logit| {top:.3e}); cold build "
+          f"{cold_s:.1f} s", flush=True)
+    results["update_stream"] = summary
+    require(worst <= 1e-5, f"updated server within 1e-5 of a cold rebuild "
+            f"({worst})")
+
+
+def timed_k1_host(torch):
+    """Wrap K1's CUDA wrapper to keep each call's host seconds; returns
+    the list and a function that restores the wrapper."""
+    from repro_torch.kernels import segment_sum as ss
+    saved, host = ss.gather_scale_segment_sum_cuda, []
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = saved(*args, **kw)
+        host.append(time.perf_counter() - t0)
+        return out
+    ss.gather_scale_segment_sum_cuda = call
+
+    def restore():
+        ss.gather_scale_segment_sum_cuda = saved
+    return host, restore
+
+
+@phase("11e. mini-batch GraphSAGE with the new samplers")
+def phase_samplers(torch, results):
+    """``train_gnn --minibatch --sampler importance|fastgcn|ladies``, SAGE
+    602 → 256 → 41, batch 1024, one epoch (importance over
+    :data:`IMPORTANCE_NODES` nodes): finite, falling loss and K1's
+    launches as phase 7's fp32 run (two forward, one transpose a step).
+    The layer-wise blocks change E every step; K1's plan search is
+    memoised per shape and not per E, so its searches during a run stay
+    as few as the shapes, and each launch's host time is that of a launch
+    (both read here)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.launch import train_gnn
+    for sampler in ("importance", "fastgcn", "ladies"):
+        nodes = IMPORTANCE_NODES if sampler == "importance" else NODES
+        ops.reset_launch_counts()
+        searches = ss._gss_plan.cache_info().misses
+        host, restore = timed_k1_host(torch)
+        t0 = time.perf_counter()
+        try:
+            args = train_args("sage", CLASSES, [
+                "--minibatch", "--sampler", sampler, "--batch",
+                str(MB_BATCH), "--epochs", "1", "--cache", "degree"])
+            args[args.index("--nodes") + 1] = str(nodes)
+            res = train_gnn.main(args)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        losses, steps = res["losses"], res["steps"]
+        summary = {"nodes": nodes, "steps": steps,
+                   "wall_s": time.perf_counter() - t0,
+                   "median_step_ms": float(np.median(res["step_s"])) * 1e3,
+                   "loss_first10": float(np.mean(losses[:10])),
+                   "loss_last10": float(np.mean(losses[-10:])),
+                   "launches": counts,
+                   "k1_plan_searches": ss._gss_plan.cache_info().misses
+                   - searches,
+                   "k1_host_us_median": float(np.median(host)) * 1e6,
+                   "k1_host_us_max_after_first_10":
+                   float(np.max(host[10:])) * 1e6 if len(host) > 10
+                   else None}
+        print(f"   minibatch sage --sampler {sampler}: "
+              + json.dumps(summary), flush=True)
+        results[f"sampler.{sampler}"] = summary
+        require(bool(np.isfinite(losses).all())
+                and summary["loss_last10"] < summary["loss_first10"],
+                f"{sampler}: finite, falling loss")
+        want = {"gather_scale_segment_sum": 2 * steps,
+                "gather_scale_segment_sum_t": steps}
+        require(counts == want, f"{sampler}: launches {counts}, by design "
+                f"{want}")
+        require(summary["k1_plan_searches"] <= 4,
+                f"{sampler}: {summary['k1_plan_searches']} K1 plan searches "
+                f"in {steps} steps")
+
+
+@phase("11f. each launcher over a named dataset")
+def phase_datasets(torch, results):
+    """``train_gnn --dataset pubmed-like`` (GCN full-batch, 10 epochs) and
+    ``serve_gnn --dataset reddit-like`` (SAGE, 64 requests): a path
+    check, launches as designed."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_gnn, train_gnn
+    ops.reset_launch_counts()
+    res = train_gnn.main(["--arch", "gcn", "--dataset", "pubmed-like",
+                          "--hidden", str(HIDDEN), "--epochs",
+                          str(TRAIN_EPOCHS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    losses = res["losses"]
+    summary = {"train": {"losses": losses, "accuracy": res["accuracy"],
+                         "median_epoch_ms": float(np.median(
+                             res["epoch_s"][1:])) * 1e3,
+                         "launches": counts}}
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            f"pubmed-like: finite, falling loss {losses}")
+    want = _expected("gcn", TRAIN_EPOCHS)
+    require(counts == want, f"pubmed-like: launches {counts}, by design "
+            f"{want}")
+    ops.reset_launch_counts()
+    res = serve_gnn.main(["--arch", "sage", "--dataset", "reddit-like",
+                          "--hidden", str(HIDDEN), "--requests", "64",
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    forwards = res["forward_calls"] + res["no_cache"]["forward_calls"]
+    summary["serve"] = {k: res[k] for k in ("served", "throughput_rps",
+                                            "p50_ms", "p99_ms")}
+    summary["serve"]["launches"] = counts
+    print("   datasets: " + json.dumps(summary), flush=True)
+    results["datasets"] = summary
+    require(res["served"] == 64 and res["all_logits_finite"],
+            "reddit-like: every request answered, finite logits")
+    require(counts == {"gather_scale_segment_sum": 2 * forwards},
+            f"reddit-like: K1 twice a forward: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -1908,10 +2342,18 @@ def main() -> int:
     phase_cpu_parity(torch, blocks, x_np)
     phase_profile(torch, blocks, x_np, results)
     phase_gin_gat(torch, results)
-    phase_train_kernels(torch, g, reddit_graph(GAT_CLASSES), results)
+    g_gat = reddit_graph(GAT_CLASSES)
+    phase_train_kernels(torch, g, g_gat, results)
     del blocks, x_np
     phase_fullbatch(torch, results)
     phase_minibatch(torch, results)
+    phase_reorder_kernels(torch, g, g_gat, results)
+    del g_gat
+    phase_reorder_train(torch, results)
+    phase_reorder_serve(torch, results)
+    phase_update_stream(torch, g, results)
+    phase_samplers(torch, results)
+    phase_datasets(torch, results)
     phase_lm_kernels(torch, results)
     phase_phi3(torch, results)
     phase_mamba2(torch, results)

@@ -185,3 +185,181 @@ class NeighborSampler:
             dst = blocks[-1].src_nodes[blocks[-1].src_nodes >= 0]
         blocks.reverse()
         return MiniBatch(blocks, seeds, blocks[0].src_nodes)
+
+
+# ===========================================================================
+# importance / layer-wise sampling (PinSage / FastGCN / LADIES)
+# ===========================================================================
+
+class ImportanceSampler(NeighborSampler):
+    """PinSage-style: score neighbors by short-random-walk visit counts and
+    keep the top-``fanout`` instead of a uniform pick."""
+
+    name = "importance"
+
+    def __init__(self, g: Graph, fanouts, *, walk_len: int = 2,
+                 n_walks: int = 8, seed: int = 0):
+        super().__init__(g, fanouts, seed=seed)
+        self.walk_len = walk_len
+        self.n_walks = n_walks
+
+    def _walk_scores(self, d: int) -> tuple:
+        counts: dict = {}
+        for _ in range(self.n_walks):
+            v = d
+            for _ in range(self.walk_len):
+                nbr = self.gr.neighbors(v)
+                if len(nbr) == 0:
+                    break
+                v = int(self.rng.choice(nbr))
+                counts[v] = counts.get(v, 0) + 1
+        return counts
+
+    def sample(self, seeds: np.ndarray) -> MiniBatch:
+        seeds = np.asarray(seeds, np.int64)
+        blocks: List[Block] = []
+        dst = seeds
+        for layer in reversed(range(len(self.fanouts))):
+            f = self.fanouts[layer]
+            edges = []
+            for d in dst:
+                scores = self._walk_scores(int(d))
+                top = sorted(scores, key=scores.get, reverse=True)[:f]
+                for s in top:
+                    edges.append((s, d))
+            e = np.asarray(edges, np.int64).reshape(-1, 2)
+            src_extra = np.unique(e[:, 0]) if len(e) else np.zeros(0, np.int64)
+            blocks.append(_build_block(self.g, dst, src_extra, e,
+                                       len(dst) * (1 + f), len(dst) * f))
+            dst = blocks[-1].src_nodes[blocks[-1].src_nodes >= 0]
+        blocks.reverse()
+        return MiniBatch(blocks, seeds, blocks[0].src_nodes)
+
+
+class LayerWiseSampler:
+    """FastGCN [Chen+ 2018] (``dependent=False``) and LADIES [Zou+ 2019]
+    (``dependent=True``): sample a fixed node budget per layer with
+    probability ∝ (in-)degree; LADIES restricts candidates to the union of
+    neighbors of the previous layer (layer-dependent)."""
+
+    def __init__(self, g: Graph, layer_sizes: Sequence[int], *,
+                 dependent: bool = True, seed: int = 0):
+        self.g = g
+        self.gr = g.reverse()
+        self.layer_sizes = list(layer_sizes)
+        self.dependent = dependent
+        self.rng = np.random.default_rng(seed)
+        deg = g.in_degree().astype(np.float64) + 1.0
+        self.prob = deg / deg.sum()
+        self.name = "ladies" if dependent else "fastgcn"
+
+    def sample(self, seeds: np.ndarray) -> MiniBatch:
+        seeds = np.asarray(seeds, np.int64)
+        blocks: List[Block] = []
+        dst = seeds
+        for layer in reversed(range(len(self.layer_sizes))):
+            budget = self.layer_sizes[layer]
+            if self.dependent:
+                cand = np.unique(np.concatenate(
+                    [self.gr.neighbors(d) for d in dst]
+                    + [np.zeros(0, np.int64)]))
+            else:
+                cand = np.arange(self.g.num_nodes)
+            if len(cand) == 0:
+                cand = dst
+            p = self.prob[cand]
+            p = p / p.sum()
+            n_pick = min(budget, len(cand))
+            picked = self.rng.choice(cand, n_pick, replace=False, p=p)
+            # connect: edges from picked -> dst that exist in g
+            edges = []
+            pick_set = set(picked.tolist())
+            for d in dst:
+                for s in self.gr.neighbors(d):
+                    if int(s) in pick_set:
+                        edges.append((int(s), int(d)))
+            e = np.asarray(edges, np.int64).reshape(-1, 2)
+            blocks.append(_build_block(
+                self.g, dst, picked, e, len(dst) + budget,
+                max(len(e), 1)))
+            dst = blocks[-1].src_nodes[blocks[-1].src_nodes >= 0]
+        blocks.reverse()
+        return MiniBatch(blocks, seeds, blocks[0].src_nodes)
+
+
+# ===========================================================================
+# subgraph sampling (ClusterGCN / GraphSAINT)
+# ===========================================================================
+
+def bfs_clusters(g: Graph, n_clusters: int, *, seed: int = 0) -> np.ndarray:
+    """Cheap METIS stand-in: multi-source BFS growth from random centers
+    (balanced-ish, locality-preserving).  Returns (N,) cluster ids."""
+    rng = np.random.default_rng(seed)
+    n = g.num_nodes
+    centers = rng.choice(n, n_clusters, replace=False)
+    assign = -np.ones(n, np.int64)
+    frontier = [[c] for c in centers]
+    assign[centers] = np.arange(n_clusters)
+    active = True
+    while active:
+        active = False
+        for cid in range(n_clusters):
+            nxt = []
+            for v in frontier[cid]:
+                for u in g.neighbors(v):
+                    if assign[u] < 0:
+                        assign[u] = cid
+                        nxt.append(int(u))
+            frontier[cid] = nxt
+            active = active or bool(nxt)
+    unassigned = np.flatnonzero(assign < 0)
+    assign[unassigned] = rng.integers(0, n_clusters, len(unassigned))
+    return assign
+
+
+class ClusterSampler:
+    """ClusterGCN [Chiang+ 2019]: mini-batch = union of q random clusters;
+    training runs on the induced subgraph."""
+
+    name = "cluster"
+
+    def __init__(self, g: Graph, n_clusters: int, clusters_per_batch: int,
+                 *, seed: int = 0):
+        self.g = g
+        self.assign = bfs_clusters(g, n_clusters, seed=seed)
+        self.q = clusters_per_batch
+        self.n_clusters = n_clusters
+        self.rng = np.random.default_rng(seed + 1)
+
+    def sample_subgraph(self):
+        cids = self.rng.choice(self.n_clusters, self.q, replace=False)
+        nodes = np.flatnonzero(np.isin(self.assign, cids))
+        return nodes, self.g.subgraph(nodes)
+
+
+class SaintRWSampler:
+    """GraphSAINT [Zeng+ 2019] random-walk sampler: roots + fixed-length
+    walks induce the subgraph; builds a full GCN per subgraph."""
+
+    name = "saint_rw"
+
+    def __init__(self, g: Graph, n_roots: int, walk_len: int, *,
+                 seed: int = 0):
+        self.g = g
+        self.n_roots = n_roots
+        self.walk_len = walk_len
+        self.rng = np.random.default_rng(seed)
+
+    def sample_subgraph(self):
+        roots = self.rng.choice(self.g.num_nodes, self.n_roots, replace=False)
+        nodes = set(roots.tolist())
+        for r in roots:
+            v = int(r)
+            for _ in range(self.walk_len):
+                nbr = self.g.neighbors(v)
+                if len(nbr) == 0:
+                    break
+                v = int(self.rng.choice(nbr))
+                nodes.add(v)
+        nodes = np.asarray(sorted(nodes), np.int64)
+        return nodes, self.g.subgraph(nodes)

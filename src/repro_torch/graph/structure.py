@@ -1,8 +1,5 @@
 """Graph substrate: CSR graphs (host-side numpy for preprocessing,
 device-side torch views for the model).
-
-``Graph.reordered`` (locality reordering) is not ported yet: it arrives
-with ``core/reordering.py``.
 """
 from __future__ import annotations
 
@@ -65,6 +62,17 @@ class Graph:
             features=None if self.features is None else self.features[nodes],
             labels=None if self.labels is None else self.labels[nodes],
             num_classes=self.num_classes)
+
+    def reordered(self, policy: str = "bfs"):
+        """Locality-reordered copy (survey §3.2.4): returns
+        ``(packed, perm, inv)`` where ``packed`` is this graph relabeled
+        by the policy (``none``/``degree``/``bfs``/``rcm``),
+        ``perm[new_id] = old_id`` and ``inv[old_id] = new_id``.  External
+        node ids map into the packed space via ``inv`` and packed results
+        are reported in original ids via ``perm`` — the id round-trip the
+        launchers' ``--reorder`` flag relies on."""
+        from repro_torch.core.reordering import reorder_graph
+        return reorder_graph(self, policy)
 
 
 def from_edges(num_nodes: int, edges: np.ndarray, *, features=None,

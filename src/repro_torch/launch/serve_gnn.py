@@ -1,6 +1,6 @@
 """Online GNN inference serving driver (PyTorch port, single replica).
 
-Serves per-node prediction requests against a synthetic SBM graph
+Serves per-node prediction requests against a synthetic (or named) graph
 through the ``repro_torch.serving`` stack: Poisson workload → bucketed
 micro-batching → fixed-shape neighbor sampling → historical-embedding +
 feature caching → forward on the device (the hand-written Hopper
@@ -17,8 +17,18 @@ GraphSAGE at Reddit's widths:
       --nodes 232965 --classes 41 --feat-dim 602 --hidden 256 \\
       --fanouts 10 25 --requests 256 --device cuda
 
-The flags of the reference's other modes are accepted and refused with
-the ROADMAP.md item that ports them; none is silently ignored.
+A named graph of the synthetic registry (``--dataset``), a locality
+order of the served graph (``--reorder``: requests and responses keep
+their original ids) and a changing graph (``--update-stream``, a JSONL
+log written by ``GraphUpdateLog.to_jsonl``, folded every
+``--update-every`` completions):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn \\
+      --dataset reddit-like --reorder bfs --update-stream u.jsonl
+
+The flags of the reference's replicated and checkpointed modes are
+accepted and refused with the ROADMAP.md item that ports them; none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -32,10 +42,6 @@ _NOT_PORTED = {
         lambda a: a.replicas > 1 or a.autoscale,
         "replica/router (replicated serving)"),
     "--ckpt-dir": (lambda a: bool(a.ckpt_dir), "checkpoint"),
-    "--update-stream": (lambda a: bool(a.update_stream),
-                        "updates (dynamic graphs)"),
-    "--reorder": (lambda a: a.reorder != "none", "reordering"),
-    "--dataset": (lambda a: bool(a.dataset), "datasets"),
 }
 
 
@@ -48,7 +54,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="sage",
                     choices=["gcn", "sage", "gat", "gin", "ggnn"])
     ap.add_argument("--dataset", default="",
-                    help="named dataset (not ported yet: refused)")
+                    help="named dataset from repro_torch.graph.datasets; "
+                         "default: an SBM sized by --nodes")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--rate", type=float, default=2000.0,
                     help="offered load, requests/s (virtual clock)")
@@ -76,13 +83,24 @@ def parse_args(argv=None):
                          "raises when CUDA is missing)")
     ap.add_argument("--reorder", default="none",
                     choices=["none", "degree", "bfs", "rcm"],
-                    help="locality reordering (not ported yet: refused)")
+                    help="locality-reorder the served graph (survey "
+                         "§3.2.4); the sampler and caches operate on "
+                         "the packed graph while request node ids map "
+                         "in through the inverse permutation and "
+                         "responses are reported in original ids")
     ap.add_argument("--replicas", type=int, default=1,
                     help="replica count (> 1 not ported yet: refused)")
     ap.add_argument("--autoscale", action="store_true",
                     help="autoscaling (not ported yet: refused)")
     ap.add_argument("--update-stream", default="",
-                    help="graph-update stream (not ported yet: refused)")
+                    help="JSONL graph-update stream "
+                         "(repro_torch.core.updates.GraphUpdateLog "
+                         "format) folded into the served graph mid-run: "
+                         "incremental delta-frontier cache invalidation "
+                         "instead of a cold restart")
+    ap.add_argument("--update-every", type=int, default=0,
+                    help="completions between update folds (0 = auto: "
+                         "~4 folds across the run)")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint directory (not ported yet: refused)")
     ap.add_argument("--train-epochs", type=int, default=0,
@@ -132,19 +150,24 @@ def run(args):
     import torch
 
     from repro_torch import device as D
-    from repro_torch.graph import generators as G
+    from repro_torch.launch.train_gnn import load_graph, reorder_for_launch
     from repro_torch.models.gnn import model as GM
     from repro_torch.models.gnn.model import GNNConfig
     from repro_torch.serving import GNNInferenceServer, poisson_workload
 
     device = D.resolve(args.device)
-    g = G.sbm(args.nodes, args.classes, p_in=0.9, p_out=0.02,
-              seed=args.seed)
-    g = G.featurize(g, args.feat_dim, seed=args.seed, class_sep=1.5)
+    g = load_graph(args)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
           f"{g.num_classes} classes")
+    # the serving stack (sampler, feature and embedding caches) operates
+    # entirely on the packed graph; external node ids cross the API
+    # boundary through inv (in) and perm (out)
+    g, reorder = reorder_for_launch(g, args.reorder)
+    perm = inv = None
+    if args.reorder != "none":
+        perm, inv = reorder["perm"], reorder["inv"]
 
-    cfg = GNNConfig(arch=args.arch, feat_dim=args.feat_dim,
+    cfg = GNNConfig(arch=args.arch, feat_dim=g.features.shape[1],
                     hidden=args.hidden, num_classes=g.num_classes,
                     num_layers=len(args.fanouts),
                     use_kernel=args.use_kernel,
@@ -168,8 +191,13 @@ def run(args):
     print(f"model: {cfg.arch} {cfg.feat_dim}->{cfg.hidden}->"
           f"{cfg.num_classes}, fanouts {args.fanouts}, on {device}")
 
+    # the workload arrives in ORIGINAL node ids (clients know nothing of
+    # the packing); ids map into the packed space here, at the boundary
     workload = poisson_workload(args.requests, np.arange(g.num_nodes),
                                 args.rate, seed=args.seed + 1)
+    if inv is not None:
+        for r in workload:
+            r.node_id = int(inv[r.node_id])
     capacity = int(g.num_nodes * args.cache_frac)
 
     def serve(policy: str) -> dict:
@@ -179,13 +207,30 @@ def run(args):
             max_staleness=args.staleness,
             max_wait_s=args.max_wait_ms / 1e3, seed=args.seed)
         srv.warmup()
+        # each serve pass folds a fresh copy of the stream into a fresh
+        # copy of the graph, so baseline and cached runs stay comparable
+        kw = _update_stream_kw(args, inv)
+        if kw:
+            srv.g = srv.sampler.g = copy.deepcopy(g)
+            srv.cache.g = srv.cache.features.g = srv.g
+            srv.sampler.apply_delta(np.zeros(0, np.int64))
         wl = copy.deepcopy(workload)
-        srv.run(wl)
+        srv.run(wl, **kw)
+        if perm is not None:
+            # report completed responses in the clients' original ids
+            for r in wl:
+                r.node_id = int(perm[r.node_id])
         out = srv.summary()
+        out["update_seq"] = srv._update_seq
+        out["reorder"] = reorder
+        out["folds"] = srv.folds
         out["forward_calls"] = srv.forward_calls
         out["all_logits_finite"] = all(
             r.logits is not None and bool(np.isfinite(r.logits).all())
             for r in wl)
+        # the answered requests and the server that answered them, for a
+        # caller that checks them (the summary's numbers stay JSON-able)
+        out["responses"], out["server"] = wl, srv
         return out
 
     base = serve("none")
@@ -212,8 +257,37 @@ def run(args):
           f"{res['wire_bytes'] / 2**20:.2f} MiB on the wire")
     print(f"bytes saved vs no-cache: {saved / 2**20:.2f} MiB "
           f"({saved / max(base['feature_bytes'], 1):.1%})")
+    if res["folds"]:
+        folds = res["folds"]
+        print(f"graph updates folded through seq {res['update_seq']} in "
+              f"{len(folds)} folds: touched "
+              f"{sum(f['touched_nodes'] for f in folds)} nodes, "
+              f"invalidated {sum(f['invalidated_rows'] for f in folds)} "
+              f"cache rows")
     res["no_cache"] = base
     return res
+
+
+def _update_stream_kw(args, inv=None) -> dict:
+    """Build the ``run(update_log=, update_every=, update_chunk=)``
+    kwargs for ``--update-stream``: default cadence folds after every
+    quarter of the workload, spreading the stream across ~4 chunks so
+    mutations actually interleave with traffic (an end-of-run fold would
+    never exercise mid-run invalidation).  ``inv`` relabels an
+    original-id stream into the packed id space under ``--reorder``."""
+    if not args.update_stream:
+        return {}
+    from repro_torch.core.updates import load_update_stream
+    log = load_update_stream(args.update_stream)
+    if inv is not None:
+        log = log.relabel(inv)
+    every = args.update_every or max(1, args.requests // 4)
+    chunk = max(1, -(-log.last_seq // 4))          # ceil(last_seq / 4)
+    print(f"update stream: {log.last_seq} events from "
+          f"{args.update_stream}, folding {chunk} events every "
+          f"{every} completions")
+    return {"update_log": log, "update_every": every,
+            "update_chunk": chunk}
 
 
 if __name__ == "__main__":

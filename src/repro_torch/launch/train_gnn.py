@@ -7,18 +7,26 @@ hand-written Hopper kernels):
 * **full-batch** (NeuGraph/ROC style, any architecture): the whole graph
   is one ``DeviceGraph`` with its dst- and src-grouped layouts, and each
   epoch is one AdamW step;
-* **single-device mini-batch** (``--minibatch``, DistDGL style): a
-  ``NeighborSampler`` (fanouts 5, 5) in two ``PipelinedLoader`` threads,
-  a ``FeatureStore`` with the ``--cache`` policy over the wire codec
-  ``--wire-codec``; under ``int8 --use-kernel`` the input rows stay in the
-  wire format into SAGE's layer-0 aggregation (the int8-in kernel), and
-  under ``int8`` alone they are decoded on the host, as in the reference.
+* **single-device mini-batch** (``--minibatch``, DistDGL style): the
+  ``--sampler`` (``neighbor`` or PinSage-style ``importance``, fanouts 5,
+  5; ``fastgcn`` or ``ladies``, 128 nodes a layer) in two
+  ``PipelinedLoader`` threads, a ``FeatureStore`` with the ``--cache``
+  policy over the wire codec ``--wire-codec``; under ``int8
+  --use-kernel`` the input rows stay in the wire format into SAGE's
+  layer-0 aggregation (the int8-in kernel), and under ``int8`` alone they
+  are decoded on the host, as in the reference.
+
+The graph is an SBM sized by ``--nodes`` or a ``--dataset`` of the
+synthetic registry; ``--reorder`` packs it by a locality policy before
+anything is built on it.
 
   PYTHONPATH=src python -m repro_torch.launch.train_gnn --arch gcn \\
       --nodes 512 --epochs 30 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train_gnn --minibatch \\
       --sampler neighbor --cache degree --wire-codec int8 --use-kernel \\
       --epochs 2
+  PYTHONPATH=src python -m repro_torch.launch.train_gnn --arch sage \\
+      --dataset pubmed-like --reorder rcm --epochs 30
 
 The flags of the reference's other paths are refused, with the
 ROADMAP.md item that ports them, whenever they are set away from their
@@ -37,14 +45,10 @@ _NOT_PORTED = {
     "--devices > 1": (lambda a: a.devices > 1,
                       "Queue 1, distributed paths"),
     "--fullgraph": (lambda a: a.fullgraph, "Queue 1, distributed paths"),
+    # the reference reads the stream only under --fullgraph (continual
+    # training folds deltas through the async trainer's ghost buffers)
     "--update-stream": (lambda a: bool(a.update_stream),
-                        "Queue 1, updates (dynamic graphs)"),
-    "--reorder": (lambda a: a.reorder != "none", "Queue 1, reordering"),
-    "--dataset": (lambda a: bool(a.dataset), "Queue 1, datasets"),
-    "--sampler importance|fastgcn|ladies": (
-        lambda a: a.minibatch and a.sampler in ("importance", "fastgcn",
-                                                "ladies"),
-        "Queue 1, launch/train_gnn.py: the other samplers"),
+                        "Queue 1, distributed paths"),
     "--sampler cluster|saint": (
         lambda a: a.minibatch and a.sampler in ("cluster", "saint"),
         "Queue 1, launch/train_gnn.py: the other samplers; the reference "
@@ -55,7 +59,7 @@ _NOT_PORTED = {
         lambda a: (a.partitioner, a.mode, a.staleness, a.refresh_frac)
         != ("hash", "pull", 4, 0.0), "Queue 1, distributed paths"),
     "--updates-per-epoch": (lambda a: a.updates_per_epoch != 0,
-                            "Queue 1, updates (dynamic graphs)"),
+                            "Queue 1, distributed paths"),
 }
 
 
@@ -71,7 +75,10 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default="gcn",
                     choices=["gcn", "sage", "gat", "gin", "ggnn", "appnp"])
     ap.add_argument("--dataset", default="",
-                    help="named dataset (not ported yet: refused)")
+                    help="named dataset from repro_torch.graph.datasets "
+                         "(its graph, features and classes replace "
+                         "--nodes/--classes/--feat-dim); default: an SBM "
+                         "sized by --nodes")
     ap.add_argument("--partitioner", default="hash",
                     choices=["hash", "ldg", "fennel", "auto"],
                     help="edge-cut partitioner of the distributed paths "
@@ -93,20 +100,26 @@ def parse_args(argv=None):
                     help="asynchronous full-graph refresh fraction (not "
                          "ported yet: refused unless 0)")
     ap.add_argument("--update-stream", default="",
-                    help="graph-update stream (not ported yet: refused)")
+                    help="graph-update stream of continual --fullgraph "
+                         "training (not ported yet: refused)")
     ap.add_argument("--updates-per-epoch", type=int, default=0,
-                    help="graph updates per epoch (not ported yet: "
-                         "refused unless 0)")
+                    help="graph updates per epoch of continual "
+                         "--fullgraph training (not ported yet: refused "
+                         "unless 0)")
     ap.add_argument("--sampler", default="neighbor",
                     choices=["neighbor", "importance", "fastgcn", "ladies",
                              "cluster", "saint"],
-                    help="mini-batch sampler (neighbor only so far)")
+                    help="mini-batch sampler: neighbor and importance "
+                         "(fanouts 5, 5), fastgcn and ladies (128 nodes "
+                         "a layer); cluster and saint are refused")
     ap.add_argument("--cache", default="degree",
                     choices=["none", "degree", "importance", "random"])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--reorder", default="none",
                     choices=["none", "degree", "bfs", "rcm"],
-                    help="locality reordering (not ported yet: refused)")
+                    help="locality-reorder the graph (survey §3.2.4) "
+                         "before anything is built on it; training is "
+                         "invariant under the relabelling")
     ap.add_argument("--use-kernel", action="store_true",
                     help="with --minibatch --wire-codec int8: keep the "
                          "input rows in the wire format into the int8-in "
@@ -178,28 +191,63 @@ def run(args) -> dict:
     import torch
 
     from repro_torch import device as D
-    from repro_torch.graph import generators as G
     from repro_torch.models.gnn import model as GM
     from repro_torch.models.gnn.model import GNNConfig
     from repro_torch.optim import AdamW
 
     device = D.resolve(args.device)
     rng = np.random.default_rng(args.seed)
-    g = G.sbm(args.nodes, args.classes, p_in=0.9, p_out=0.02,
-              seed=args.seed)
-    g = G.featurize(g, args.feat_dim, seed=args.seed, class_sep=1.5)
+    g = load_graph(args)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
           f"{g.num_classes} classes; device={device}")
+    # pack BEFORE anything is built on the graph (layouts, samplers,
+    # caches), so every structure keys off the packed id space; training
+    # is invariant under the relabelling, so perm only serves reporting
+    g, reorder = reorder_for_launch(g, args.reorder)
 
-    cfg = GNNConfig(arch=args.arch, feat_dim=args.feat_dim,
+    cfg = GNNConfig(arch=args.arch, feat_dim=g.features.shape[1],
                     hidden=args.hidden, num_classes=g.num_classes,
                     use_kernel=args.use_kernel, wire_codec=args.wire_codec)
     model = GM.init_gnn(cfg, torch.Generator().manual_seed(args.seed),
                         device=device)
     opt = AdamW(model.parameters(), lr=args.lr, weight_decay=0.0)
     if args.minibatch:
-        return _minibatch(args, g, cfg, model, opt, rng, device)
-    return _fullbatch(args, g, cfg, model, opt, device)
+        out = _minibatch(args, g, cfg, model, opt, rng, device)
+    else:
+        out = _fullbatch(args, g, cfg, model, opt, device)
+    out["reorder"] = reorder
+    return out
+
+
+def load_graph(args):
+    """The launch's host graph: the ``--dataset`` registry entry, or an
+    SBM of ``--nodes`` nodes and ``--classes`` classes with
+    ``--feat-dim`` features (both launchers make it so)."""
+    from repro_torch.graph import generators as G
+    if args.dataset:
+        from repro_torch.graph.datasets import load
+        return load(args.dataset, seed=args.seed).graph
+    g = G.sbm(args.nodes, args.classes, p_in=0.9, p_out=0.02,
+              seed=args.seed)
+    return G.featurize(g, args.feat_dim, seed=args.seed, class_sep=1.5)
+
+
+def reorder_for_launch(g, policy: str):
+    """``g`` packed by ``policy`` (``none`` returns it as it is), and what
+    the launch reports of it: the policy, the host seconds the packing
+    took, its ``locality_report`` and ``(perm, inv)``."""
+    from repro_torch.core.reordering import locality_report
+    t0 = time.perf_counter()
+    g, perm, inv = g.reordered(policy)
+    info = {"policy": policy, "seconds": time.perf_counter() - t0,
+            "perm": perm, "inv": inv}
+    if policy != "none":
+        info["locality"] = locality_report(g)
+        print(f"reorder={policy} ({info['seconds']:.2f} s): gather stride "
+              f"{info['locality']['avg_gather_stride']:.1f}, reuse hit "
+              f"{info['locality']['reuse_hit_rate']:.2%}, edge locality "
+              f"{info['locality']['edge_locality']:.2%}")
+    return g, info
 
 
 def _sync(device) -> None:
@@ -249,7 +297,14 @@ def _minibatch(args, g, cfg, model, opt, rng, device) -> dict:
     from repro_torch.core.scheduling import PipelinedLoader
     from repro_torch.models.gnn import model as GM
 
-    sampler = SA.NeighborSampler(g, [5, 5], seed=args.seed)
+    if args.sampler == "neighbor":
+        sampler = SA.NeighborSampler(g, [5, 5], seed=args.seed)
+    elif args.sampler == "importance":
+        sampler = SA.ImportanceSampler(g, [5, 5], seed=args.seed)
+    else:                                      # fastgcn | ladies
+        sampler = SA.LayerWiseSampler(g, [128, 128],
+                                      dependent=args.sampler == "ladies",
+                                      seed=args.seed)
     cache_ids = CA.CACHE_POLICIES[args.cache](g, g.num_nodes // 10)
     store = CA.FeatureStore(g, cache_ids, codec=args.wire_codec)
     step = GM.make_minibatch_train_step(cfg, opt)

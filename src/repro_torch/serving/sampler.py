@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.sampling import Block, MiniBatch, sample_block_padded
+from repro_torch.core.updates import k_hop_nodes
 from repro_torch.graph.structure import Graph
 
 
@@ -61,9 +62,10 @@ class ServingSampler:
         self.seed = seed
         # per-(layer, node) pick memo: because a node's pick is a pure
         # function of (seed, layer, node, neighbor list), memoizing it is
-        # semantically invisible — it only skips re-deriving the rng.  (The
-        # reference's delta hooks, apply_delta/affected_seed_mask, arrive
-        # with core/updates.py.)
+        # semantically invisible — it only skips re-deriving the rng.  The
+        # delta path (apply_delta) drops exactly the touched entries, so
+        # untouched nodes keep their sampled neighborhoods bit-identical
+        # across graph mutations (the property the cache relies on).
         self._memo: dict = {}
         self.memo_hits = 0
         self.memo_misses = 0
@@ -95,6 +97,36 @@ class ServingSampler:
             self._memo[key] = pick
             return pick
         return picker
+
+    # -- delta awareness ---------------------------------------------------
+    def apply_delta(self, touched: np.ndarray) -> int:
+        """React to a graph mutation whose frontier is ``touched`` node
+        ids: rebuild the reversed adjacency (the graph arrays were folded
+        in place) and drop the memoized picks of touched nodes across all
+        layers, so only they are re-sampled against the new neighbor
+        lists.  Untouched nodes keep their exact previous expansion.
+        Returns the number of memo entries dropped."""
+        self.gr = self.g.reverse()
+        dropped = 0
+        for node in np.asarray(touched, np.int64):
+            for layer in range(len(self.fanouts)):
+                if self._memo.pop((layer, int(node)), None) is not None:
+                    dropped += 1
+        return dropped
+
+    def affected_seed_mask(self, seeds: np.ndarray,
+                           touched: np.ndarray) -> np.ndarray:
+        """Which ``seeds`` (padded, -1 = empty) have a k-hop sampled ball
+        that can intersect the ``touched`` delta frontier — the only
+        seeds whose outputs may change, so the only ones a delta-aware
+        caller must re-serve.  Conservative: uses the full k-hop
+        neighborhood (a superset of any sampled subset)."""
+        ball = k_hop_nodes(self.g, np.asarray(touched, np.int64),
+                           len(self.fanouts))
+        hit = np.zeros(self.g.num_nodes, bool)
+        hit[ball] = True
+        seeds = np.asarray(seeds, np.int64)
+        return (seeds >= 0) & hit[np.maximum(seeds, 0)]
 
     # -- shape contract ----------------------------------------------------
     def block_shapes(self, bucket: int) -> List[Tuple[int, int, int]]:

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import telemetry
 from repro_torch.core.abstraction import DeviceGraph
 from repro_torch.core.telemetry import Histogram
+from repro_torch.core.updates import fold_in_place
 from repro_torch.graph.structure import Graph
 from repro_torch.models.gnn import model as GM
 from repro_torch.models.gnn.model import GNNConfig
@@ -182,6 +183,11 @@ class GNNInferenceServer:
         # forward calls made, warmup included (a run compares it with the
         # aggregation kernels' launch counts)
         self.forward_calls = 0
+        # last GraphUpdateLog sequence number folded into self.g — the
+        # cursor apply_graph_update() advances (monotone, idempotent)
+        self._update_seq = 0
+        # what each apply_graph_update call folded (its returned dict)
+        self.folds: List[dict] = []
         # telemetry plane (no-ops unless repro_torch.core.telemetry is enabled)
         self._m_queue = telemetry.gauge(
             "serving_queue_depth", "admitted requests waiting to batch")
@@ -224,7 +230,61 @@ class GNNInferenceServer:
         if self.owns_cache:
             self.cache.bump_params_version(version)
 
-    # (the reference's apply_graph_update arrives with core/updates.py)
+    # -- dynamic graphs ----------------------------------------------------
+    def apply_graph_update(self, log, upto_seq: Optional[int] = None, *,
+                           flush: bool = False) -> dict:
+        """Fold pending
+        :class:`repro_torch.core.updates.GraphUpdateLog` events into the
+        served graph IN PLACE and incrementally invalidate every
+        dependent state:
+
+        * the sampler drops memoized picks of touched nodes and rebuilds
+          its reversed adjacency (untouched nodes keep their exact
+          previous expansion);
+        * the embedding cache surgically invalidates the (L-1)-hop
+          frontier of the delta — the cached plane is the FINAL-layer
+          input, which depends on a node's (L-1)-hop sampled ball, so any
+          node whose ball the delta can reach is aged to ``NEVER`` while
+          everything else stays hot.
+
+        The frontier is the union of pre- and post-mutation adjacency
+        (a removed edge poisons the neighborhoods it used to feed).
+        Idempotent per sequence number: re-applying an already-folded
+        prefix is a no-op.  Called only between batches (same contract as
+        :meth:`swap_params`).
+
+        ``flush=True`` is the rebuild-on-schedule BASELINE the dynamic
+        bench compares against: instead of the surgical frontier, every
+        admitted cache row is invalidated on every fold — including folds
+        with zero pending events, since a system without delta tracking
+        cannot know nothing changed.
+
+        Returns what was folded (events, touched nodes, invalidated cache
+        rows, the new cursor); each call's dict is also kept in
+        ``self.folds``."""
+        upto = log.last_seq if upto_seq is None else upto_seq
+        if upto <= self._update_seq:
+            n_inv = (self.cache.invalidate_rows(np.arange(self.g.num_nodes))
+                     if flush and self.use_cache else 0)
+            self.folds.append({"events": 0, "touched_nodes": 0,
+                               "invalidated_rows": n_inv,
+                               "upto_seq": self._update_seq})
+            return self.folds[-1]
+        hops = len(self.sampler.fanouts) - 1
+        delta, frontier = fold_in_place(
+            self.g, log, self._update_seq, upto, hops=hops)
+        self.sampler.apply_delta(delta.nodes)
+        if not self.use_cache:
+            n_inv = 0
+        elif flush:
+            n_inv = self.cache.invalidate_rows(np.arange(self.g.num_nodes))
+        else:
+            n_inv = self.cache.invalidate_rows(frontier)
+        self._update_seq = upto
+        self.folds.append({"events": delta.n_events,
+                           "touched_nodes": int(len(delta.nodes)),
+                           "invalidated_rows": n_inv, "upto_seq": upto})
+        return self.folds[-1]
 
     # -- one micro-batch ---------------------------------------------------
     def serve_batch(self, mb: MicroBatch) -> np.ndarray:
@@ -296,17 +356,25 @@ class GNNInferenceServer:
 
     # -- the serve loop ----------------------------------------------------
     def run(self, workload: List[InferenceRequest], *,
-            tick_every_s: float = 0.0) -> ServeStats:
+            tick_every_s: float = 0.0,
+            update_log=None, update_every: int = 0,
+            update_chunk: int = 0) -> ServeStats:
         """Serve a workload to completion.  ``tick_every_s`` simulates
         periodic feature-refresh epochs: every interval of virtual time the
         cache's version clock advances, aging historical embeddings — the
         staleness bound then decides whether they can still be served.
-        (The reference's ``update_log`` stream arrives with
-        core/updates.py.)"""
+
+        ``update_log`` streams live graph mutations into the run: after
+        every ``update_every`` completed requests the next ``update_chunk``
+        pending events (0 = all pending) are folded via
+        :meth:`apply_graph_update` — between batches, so no batch ever
+        straddles a mutation."""
         workload = sorted(workload, key=lambda r: r.arrival_s)
         queue = RequestQueue()
         vnow = 0.0
         next_tick = tick_every_s if tick_every_s > 0 else float("inf")
+        next_update = (update_every if update_log is not None
+                       and update_every > 0 else float("inf"))
         i = 0
         t_start = time.perf_counter()
         while i < len(workload) or len(queue):
@@ -356,6 +424,16 @@ class GNNInferenceServer:
             self._m_batches.inc()
             self.stats.served += len(mb.requests)
             self.stats.batches += 1
+            if self.stats.served >= next_update:
+                upto = (None if update_chunk <= 0 else
+                        min(self._update_seq + update_chunk,
+                            update_log.last_seq))
+                self.apply_graph_update(update_log, upto)
+                next_update += update_every
+        if update_log is not None and update_log.last_seq > self._update_seq:
+            # drain the stream: a run must leave the served graph caught
+            # up with every event published before it finished
+            self.apply_graph_update(update_log)
         self.stats.wall_s += time.perf_counter() - t_start
         return self.stats
 

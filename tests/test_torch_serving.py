@@ -102,10 +102,7 @@ def test_serve_gnn_main_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--autoscale"],
-                                  ["--ckpt-dir", "ck"],
-                                  ["--update-stream", "u.jsonl"],
-                                  ["--reorder", "bfs"],
-                                  ["--dataset", "reddit-like"]])
+                                  ["--ckpt-dir", "ck"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         serve_gnn.parse_args(["--device", "cpu"] + flag)

@@ -253,9 +253,6 @@ def test_train_gnn_minibatch_runs_on_cpu(codec):
 
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"], ["--fullgraph"], ["--update-stream", "u.jsonl"],
-    ["--reorder", "bfs"], ["--dataset", "reddit-like"],
-    ["--minibatch", "--sampler", "importance"],
-    ["--minibatch", "--sampler", "ladies"],
     ["--minibatch", "--sampler", "cluster"],
     ["--minibatch", "--sampler", "saint"],
     ["--wire-codec", "int8"],          # the reference's own refusal
