@@ -82,6 +82,21 @@ Phases, in order; any failure makes the exit code nonzero:
    ``ladies``: falling loss, K1's launches as phase 7's fp32 run, K1's
    plan searches and host time a launch; (f) ``train_gnn --dataset
    pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like`` (SAGE);
+12. (run after phase 11) phase 3's SAGE served through the replicated
+   tier (``serve_gnn --replicas``, ``repro_torch.serving.ReplicaRouter``):
+   (a) 2 replicas under ``least_queue`` and ``round_robin``, 256 requests
+   at 2 000 req/s, then 32 of the nodes phase 3 served asked of the same
+   router, within 1e-5 of phase 3's largest logit; (b) ``--replicas 1
+   --autoscale --rate 8000``, 512 requests: at least one scale-up; (c)
+   ``--hot-swap-every 64 --ckpt-dir`` then a second run resuming the
+   saved version, the restored weights bitwise equal to the saved ones
+   and 32 nodes' answers under them bitwise equal; (d) ``--update-stream``
+   on phase 11(d)'s stream, every event folded, a replica against a cold
+   server on the folded graph within 1e-5.  In every run: zero drops and
+   torn batches, K1 twice a forward across the fleet (warmups and reaped
+   replicas included); req/s, p50 and p99 are virtual-clock numbers (the
+   replicas run one after another on the card, so N replicas model N
+   cards);
 8. K7 (flash attention) and K8 (the Mamba2 SSD chunk state) against their
    plain versions, checked and timed as in phase 2 (K7's bf16 outputs,
    from the tensor-core route, element by element within one bf16 ulp
@@ -95,7 +110,9 @@ Phases, in order; any failure makes the exit code nonzero:
    and a window of 40 (untimed), then K7 at Phi-3-mini's prefill (8 x
    1024, 32 x 96, causal) in bf16 and float32 (the TF32 split route),
    with G 5 at hd 128, a window of 256, Sq < Skv and Sq 1, each also in
-   float32 (1e-4 of the largest value); K8 at Mamba2-780m's prefill (32
+   float32 (1e-4 of the largest value), and at phase 13's three prefill
+   shapes (8 x 1024: Qwen2.5-14B 40 / 8 x 128, Gemma-7B 16 / 16 x 256,
+   GLM-4-9B 32 / 2 x 128; timed in bf16, checked in float32); K8 at Mamba2-780m's prefill (32
    chunks of 256, 48 x 64, N 128) in bf16 (the tensor-core route, 1e-4
    of the largest value) with G 1 and 2 and in float32 (the CUDA-core
    route), and in bf16 at ragged chunks of 100 and 7 positions and over
@@ -119,7 +136,16 @@ Phases, in order; any failure makes the exit code nonzero:
    card and on the CPU: forward, prefill and decode logits within 1e-4
    of the largest;
 10. serve Mamba2-780m the same way, with exactly 48 K8 launches per
-   prefill (bf16 route; its float32 prefill, 48 of the float32 route).
+   prefill (bf16 route; its float32 prefill, 48 of the float32 route);
+13. serve Qwen2.5-14B, Gemma-7B and GLM-4-9B one after another (each
+   freed before the next) at their published widths and full depth in
+   bf16, random weights: a prefill of 8 x 1024 with exactly one K7 launch
+   (bf16 route) a layer, 32 decode steps in its grown cache, finite
+   logits, tok/s and peak memory; float32 prefill against the decode-only
+   loop on a 4-layer cut at full width (1e-3 of the largest logit, K7's
+   float32 route once a layer); a 2-layer float32 cut on the card and the
+   CPU as in 9(d).  Full depth in float32 is left out: Qwen2.5-14B's
+   float32 weights (about 59 GB) do not fit beside the rest.
 
 The last lines are the card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line, and
@@ -181,6 +207,9 @@ failures: list = []
 # phase 6's trained SAGE and GAT with their graphs: phase 11b compares
 # the packed runs' predictions with them
 TRAINED: dict = {}
+# phase 3's cached run's logits by node: phase 12a asks the router for
+# the same nodes
+PHASE3_LOGITS: dict = {}
 
 
 def phase(name):
@@ -671,6 +700,7 @@ def phase_serve(torch, results):
     print("   serve: " + json.dumps(summary), flush=True)
     results["serve"] = summary
     results["launches.sage"] = counts
+    PHASE3_LOGITS.update({r.node_id: r.logits for r in res["responses"]})
     require(res["served"] == 128 and base["served"] == 128,
             "every request served")
     require(res["all_logits_finite"] and base["all_logits_finite"],
@@ -1781,11 +1811,228 @@ def phase_datasets(torch, results):
 
 
 # ---------------------------------------------------------------------------
+# replicated serving: phase 3's SAGE behind the router
+# ---------------------------------------------------------------------------
+
+def router_run(torch, label, extra):
+    """``serve_gnn`` in replicated mode on phase 3's graph and model (the
+    launch counts set to 0 just before): every request answered once,
+    finite, zero drops and zero torn batches; req/s, p50 and p99 printed
+    as the virtual-clock numbers they are.  Returns the launcher's
+    result and a JSON-able summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_gnn
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve_gnn.main(serve_args(extra))
+    torch.cuda.synchronize()
+    n = int(extra[extra.index("--requests") + 1])
+    summary = {k: res[k] for k in (
+        "served", "dropped", "torn_batches", "throughput_rps", "p50_ms",
+        "p99_ms", "replicas_peak", "replicas_final", "hot_swaps",
+        "version_counts", "scale_events", "params_version",
+        "forward_calls")}
+    # the router's req/s divides by the host's wall time of its run, in
+    # which the replicas computed one after another on this card; on the
+    # virtual clock, where N replicas model N cards, the run spans first
+    # arrival to last answer
+    span = (max(r.done_s for r in res["responses"])
+            - min(r.arrival_s for r in res["responses"]))
+    summary.update(virtual_rps=n / span,
+                   embedding_hit_ratio=res.get("embedding_hit_ratio"),
+                   wall_s=time.perf_counter() - t0)
+    print(f"   {label}: virtual clock (N replicas model N cards): "
+          f"{summary['virtual_rps']:.1f} req/s, p50 {summary['p50_ms']:.3f} "
+          f"ms, p99 {summary['p99_ms']:.3f} ms; wall (the replicas in turn "
+          f"on this card): {summary['throughput_rps']:.1f} req/s "
+          + json.dumps(summary), flush=True)
+    require(res["served"] == n and res["dropped"] == 0
+            and sum(res["version_counts"].values()) == n,
+            f"{label}: every request served once, none dropped")
+    require(res["torn_batches"] == 0, f"{label}: no torn batch")
+    require(res["all_logits_finite"], f"{label}: finite logits")
+    return res, summary
+
+
+def require_k1_per_forward(torch, label, forwards):
+    """K1 launched exactly twice per forward since the last reset, and no
+    other kernel."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    require(counts == {"gather_scale_segment_sum": 2 * forwards},
+            f"{label}: K1 twice a forward: {counts}, {forwards} forwards")
+    return counts
+
+
+@phase("12a. replicated SAGE serving: 2 replicas, both dispatch policies")
+def phase_replicas(torch, results):
+    """``--replicas 2`` under ``least_queue`` and ``round_robin``, 256
+    requests at 2 000 req/s; then 32 of the nodes phase 3 served, asked of
+    the same router (version 0): within 1e-5 of phase 3's largest logit.
+    K1 twice a forward across the fleet, warmups included."""
+    from repro_torch.serving import InferenceRequest
+    nodes = sorted(PHASE3_LOGITS)[:32]
+    require(len(nodes) == 32, f"phase 3 served 32 nodes ({len(nodes)})")
+    for policy in ("least_queue", "round_robin"):
+        label = f"--replicas 2 --router-policy {policy}"
+        res, summary = router_run(torch, label, [
+            "--requests", "256", "--replicas", "2", "--router-policy",
+            policy])
+        router = res["router"]
+        wl = [InferenceRequest(i, n, 0.0) for i, n in enumerate(nodes)]
+        router.run(wl)
+        worst = max(float(np.abs(r.logits - PHASE3_LOGITS[r.node_id]).max())
+                    for r in wl)
+        top = max(float(np.abs(PHASE3_LOGITS[n]).max()) for n in nodes)
+        summary.update(
+            dispatched={r.rid: r.served for r in router.replicas},
+            vs_phase3_max_abs=worst, phase3_max_abs=top,
+            launches=require_k1_per_forward(torch, label,
+                                            router.forward_calls))
+        print(f"   32 of phase 3's nodes through the router at version "
+              f"{router.version}: max |diff| {worst:.3e} (max |logit| "
+              f"{top:.3e})", flush=True)
+        results[f"replicas.{policy}"] = summary
+        require(all(r.params_version == 0 for r in wl),
+                "answered at version 0")
+        require(worst <= 1e-5 * top, f"{label}: within 1e-5 of phase 3's "
+                f"largest logit ({worst})")
+
+
+@phase("12b. replicated SAGE serving: autoscaling from one replica")
+def phase_autoscale(torch, results):
+    res, summary = router_run(torch, "--replicas 1 --autoscale", [
+        "--requests", "512", "--replicas", "1", "--autoscale", "--rate",
+        "8000"])
+    stats = res["router"].stats
+    summary.update(scale_actions=[e["action"] for e in stats.scale_events],
+                   launches=require_k1_per_forward(
+                       torch, "autoscale", res["router"].forward_calls))
+    print(f"   replicas: peak {stats.replicas_peak}, final "
+          f"{stats.replicas_final}; actions {summary['scale_actions']}",
+          flush=True)
+    results["replicas.autoscale"] = summary
+    require("up" in summary["scale_actions"], "at least one scale-up")
+
+
+@phase("12c. rolling hot swaps, a checkpoint and a resume")
+def phase_hot_swap(torch, results):
+    """``--replicas 2 --hot-swap-every 64 --ckpt-dir``, then a second run
+    on the same directory: it resumes the saved version; the same 32 nodes
+    served in one batch (by a server without a cache, so both answers are
+    computed alike) under the weights before the save and under the
+    restored ones are bitwise equal."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.serving import GNNInferenceServer
+    from repro_torch.serving.batcher import MicroBatch
+    ckpt = os.path.join(ROOT, "chiprun_out", f"ckpt_{os.getpid()}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        first, s1 = router_run(torch, "--hot-swap-every 64 --ckpt-dir", [
+            "--requests", "256", "--replicas", "2", "--hot-swap-every",
+            "64", "--ckpt-dir", ckpt])
+        saved = first["params_version"]
+        s1["launches"] = require_k1_per_forward(
+            torch, "hot swaps", first["router"].forward_calls)
+        require(first["hot_swaps"] >= 1 and saved == first["hot_swaps"],
+                f"hot swaps happened: {s1}")
+        require(latest_step(ckpt) == saved, f"step {saved} saved")
+        second, s2 = router_run(torch, "resumed from --ckpt-dir", [
+            "--requests", "256", "--replicas", "2", "--ckpt-dir", ckpt])
+        r1, r2 = first["router"], second["router"]
+        versions = {int(v) for v in second["version_counts"]}
+        require(r2.version == saved and versions <= {0, saved},
+                f"the second run resumed version {saved}: {s2}")
+        sd1, sd2 = r1.params.state_dict(), r2.params.state_dict()
+        require(list(sd1) == list(sd2)
+                and all(torch.equal(sd1[k], sd2[k]) for k in sd1),
+                "restored weights bitwise equal to the saved ones")
+        ids = np.full(BUCKET, -1, np.int64)
+        ids[:32] = sorted(PHASE3_LOGITS)[:32]
+        answers, forwards = [], r2.forward_calls
+        for router in (r1, r2):
+            srv = GNNInferenceServer(
+                router.g, router.cfg, router.params, fanouts=list(FANOUTS),
+                buckets=[BUCKET], cache_policy="none", seed=0)
+            answers.append(srv.serve_batch(MicroBatch([], ids, BUCKET, 0.0))
+                           [:32])
+            forwards += srv.forward_calls
+        same = bool(np.array_equal(answers[0], answers[1]))
+        results["replicas.hot_swap"] = {
+            "first": s1, "second": s2, "restored_bitwise": same,
+            "launches": require_k1_per_forward(torch, "resume", forwards)}
+        print(f"   version {saved} saved and resumed; 32 nodes under the "
+              f"restored weights bitwise equal: {same}", flush=True)
+        require(same, "answers under the restored weights bitwise equal")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+@phase("12d. replicated SAGE serving over a changing graph")
+def phase_replica_updates(torch, g, results):
+    """``--replicas 2 --update-stream`` on phase 11(d)'s stream (128
+    requests, staleness 4): every event folded into the fleet's graph,
+    then a replica of the updated router against a cold server built on
+    ``log.apply(g)`` with the same weights, within 1e-5."""
+    from repro_torch.core.updates import load_update_stream, synthesize_updates
+    from repro_torch.serving import GNNInferenceServer
+    from repro_torch.serving.batcher import MicroBatch
+    path = os.path.join(ROOT, "chiprun_out", "updates.jsonl")
+    if not os.path.exists(path):          # phase 11(d) did not write it
+        synthesize_updates(g, UPDATE_EVENTS, seed=11).to_jsonl(path)
+    log = load_update_stream(path)
+    res, summary = router_run(torch, "--replicas 2 --update-stream", [
+        "--requests", "128", "--replicas", "2", "--staleness", "4",
+        "--update-stream", path])
+    router = res["router"]
+    require(res["update_seq"] == log.last_seq,
+            f"every event folded ({res['update_seq']} of {log.last_seq})")
+    cold = GNNInferenceServer(
+        log.apply(g), router.cfg, router.params, fanouts=list(FANOUTS),
+        buckets=[BUCKET], cache_policy="degree",
+        cache_capacity=int(NODES * 0.2), max_staleness=4, seed=0)
+    cold.warmup()
+    touched = log.delta(0).nodes
+    rng = np.random.default_rng(12)
+    others = np.setdiff1d(rng.choice(NODES, 256, replace=False), touched)
+    seeds = np.concatenate([touched[:128], others[:128]])
+    srv = router.replicas[0].server
+    worst, top = 0.0, 0.0
+    for start in range(0, len(seeds), BUCKET):
+        ids = np.full(BUCKET, -1, np.int64)
+        chunk = seeds[start:start + BUCKET]
+        ids[:len(chunk)] = chunk
+        a = srv.serve_batch(MicroBatch([], ids, BUCKET, 0.0))[:len(chunk)]
+        b = cold.serve_batch(MicroBatch([], ids, BUCKET, 0.0))[:len(chunk)]
+        worst = max(worst, float(np.abs(a - b).max()))
+        top = max(top, float(np.abs(b).max()))
+    summary.update(update_seq=res["update_seq"], delta_vs_cold_max_abs=worst,
+                   cold_max_abs=top, launches=require_k1_per_forward(
+                       torch, "update stream", router.forward_calls
+                       + cold.forward_calls))
+    print(f"   the updated fleet vs a cold server on log.apply(g), "
+          f"{len(seeds)} seeds: max |diff| {worst:.3e} (max |logit| "
+          f"{top:.3e})", flush=True)
+    results["replicas.update_stream"] = summary
+    require(worst <= 1e-5, f"updated fleet within 1e-5 of a cold rebuild "
+            f"({worst})")
+
+
+# ---------------------------------------------------------------------------
 # transformer serving: Phi-3-mini-3.8B (dense, K7) and Mamba2-780m (ssm,
 # K8) at their published widths, bf16 as their configs state
 # ---------------------------------------------------------------------------
 
 PHI3, MAMBA2 = "phi3-mini-3.8b", "mamba2-780m"
+# phase 13's dense configs: QKV bias and G 5 (Qwen2.5-14B, 40 / 8 x 128),
+# GeGLU with tied, scaled embeddings at hd 256 (Gemma-7B, 16 / 16 x 256),
+# partial rotary and G 16 (GLM-4-9B, 32 / 2 x 128)
+ZOO = ("qwen2.5-14b", "gemma-7b", "glm4-9b")
+# phase 13's float32 prefill against the decode-only loop runs on a cut of
+# this many layers at full width (Qwen2.5-14B's float32 weights at full
+# depth, about 59 GB, do not fit beside the rest)
+ZOO_FP32_LAYERS = 4
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 # the configs phases 9 and 10 serve: empty, the published ones (32 and 48
 # layers, one K7 or K8 launch each per prefill).  A rehearsal off the card
@@ -1830,7 +2077,7 @@ LM_FP32_REL = {PHI3: 1e-3, MAMBA2: 3e-3}
 LM_BF16_RMS = {PHI3: 0.1, MAMBA2: 0.6}
 # the 2-layer float32 cut on the card and the CPU: (batch, tokens); Mamba2
 # takes two SSD chunks of 256
-LM_CUT = {PHI3: (2, 256), MAMBA2: (2, 512)}
+LM_CUT = {PHI3: (2, 256), MAMBA2: (2, 512), **{a: (2, 256) for a in ZOO}}
 
 
 def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
@@ -1904,6 +2151,7 @@ def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
 
 @phase("8. K7 flash attention and K8 SSD chunk state vs plain versions")
 def phase_lm_kernels(torch, results):
+    from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import layers as TL
     c = Checker(torch, seed=8)
     S, Bsz, Sd = LM_PROMPT, LM_BATCH, LM_PROMPT + LM_GEN
@@ -1941,6 +2189,18 @@ def phase_lm_kernels(torch, results):
     results["flash_attention_fp32"] = k7_case(
         torch, c, cases[0][1][0] + ", float32", *cases[0][1][1:],
         dtype=torch.float32)
+    # the prefill shapes of phase 13's configs, timed in bf16 (the route
+    # their served prefill takes) and checked in float32 (their cut's)
+    for arch in ZOO:
+        cfg = LM_CONFIGS.get(arch) or get_config(arch)
+        shape = (Bsz, cfg.num_heads, cfg.num_kv_heads, S, S,
+                 cfg.resolved_head_dim)
+        label = (f"K7 {cfg.name} prefill (B {Bsz}, S {S}, {shape[1]} / "
+                 f"{shape[2]} x {shape[5]}, causal)")
+        results[f"flash_attention.{arch}"] = k7_case(
+            torch, c, label + ", bf16", *shape)
+        k7_case(torch, c, label + ", float32", *shape, dtype=torch.float32,
+                timed=False)
     # every case in both dtypes: float32 holds the CUDA-core kernel to
     # 1e-4 of the largest value at each head width and mask
     for _, args, kw in cases[1:]:
@@ -2234,6 +2494,99 @@ def phase_mamba2(torch, results):
     lm_phase(torch, MAMBA2, results)
 
 
+def zoo_phase(torch, arch, results):
+    """One of phase 13's dense configs: (a) float32 at full width on a
+    ZOO_FP32_LAYERS-layer cut, prefill against the decode-only loop
+    within 1e-3 of the largest logit, K7's float32 route once a layer;
+    (b) bf16 at full width and depth: a LM_BATCH x LM_PROMPT prefill
+    launching K7's bf16 route exactly once a layer, LM_GEN decode steps
+    in its grown cache, finite logits, tok/s and peak memory; (c) a
+    2-layer float32 cut on the card and on the CPU (``lm_cut_parity``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.prefill_gap import decode_loop, gap
+    from repro_torch.models.transformer import model as M
+    dev = torch.device("cuda")
+    cfg = LM_CONFIGS.get(arch) or get_config(arch)
+    V, nl = cfg.vocab_size, cfg.num_layers
+    out: dict = {}
+    prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    with torch.inference_mode():
+        cut = cfg.replace(num_layers=min(ZOO_FP32_LAYERS, nl),
+                          param_dtype="float32", compute_dtype="float32")
+        p32 = M.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        ops.reset_launch_counts()
+        lg32, _ = M.prefill(cut, p32, {"tokens": prompts[:2]})
+        counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+        results[f"launches.lm_fp32.{arch}"] = counts32
+        g = gap(lg32[:, :V], decode_loop(cut, p32, prompts[:2])[:, :V])
+        out["fp32_cut_prefill_vs_decode"] = dict(g, layers=cut.num_layers,
+                                                 launches=counts32)
+        print(f"   (a) float32, {cut.num_layers}-layer cut, 2 x {LM_PROMPT}: "
+              f"prefill vs the decode-only loop " + json.dumps(g),
+              flush=True)
+        require(counts32 == {"flash_attention_fp32": cut.num_layers},
+                f"K7's float32 route once a layer of the cut: {counts32}")
+        require(g["max_abs"] <= 1e-3 * g["max_abs_ref"],
+                f"float32 prefill agrees with the decode-only loop: {g}")
+        del p32, lg32
+        torch.cuda.empty_cache()
+
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+        M.prefill(cfg, params, {"tokens": prompts[:, :256]})      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(cfg, params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        results[f"launches.lm.{arch}"] = counts
+        peak_prefill = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits.float()).all())
+        cache = _with_room(torch, cache, LM_GEN)
+        torch.cuda.reset_peak_memory_stats()
+        tok = torch.argmax(logits[:, :V], -1)[:, None]
+        t0 = time.perf_counter()
+        for i in range(LM_GEN):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          {"token": tok,
+                                           "pos": LM_PROMPT + i})
+            tok = torch.argmax(logits[:, :V], -1)[:, None]
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        finite = finite and bool(torch.isfinite(logits.float()).all())
+        decode_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        out["prefill"] = {
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+            "params": M.param_count(params),
+            "prefill_ms": t_prefill * 1e3,
+            "prefill_tok_s": LM_BATCH * LM_PROMPT / t_prefill,
+            "decode_ms_per_step": t_decode / LM_GEN * 1e3,
+            "decode_tok_s": LM_BATCH * LM_GEN / t_decode,
+            "max_memory_allocated": max(peak_prefill,
+                                        torch.cuda.max_memory_allocated()),
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in cache.values()),
+            "launches": counts}
+        print(f"   (b) bf16, {nl} layers: prefill {LM_BATCH} x {LM_PROMPT}, "
+              f"then {LM_GEN} decode steps: " + json.dumps(out["prefill"]),
+              flush=True)
+        require(finite, "finite prefill and decode logits")
+        require(counts == {"flash_attention": nl} and decode_counts == counts,
+                f"a prefill launches K7's bf16 route once a layer ({nl}) and "
+                f"the decode steps none: {counts}, {decode_counts}")
+        del params, cache, logits
+    torch.cuda.empty_cache()
+    out["cut"] = lm_cut_parity(torch, cfg, arch)
+    results[f"lm.{arch}"] = out
+
+
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
@@ -2316,6 +2669,16 @@ def kernels_line(results) -> dict:
             rows[-1][label] = {k: results[key_][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms") if k in results[key_]}
+        if name == "flash_attention":
+            # phase 13's configs: the case at each prefill shape (phase 8)
+            # and its launches in that config's prefill (phase 13)
+            for arch in ZOO:
+                r = results[f"flash_attention.{arch}"]
+                rows[-1][f"at_{arch}"] = dict(
+                    {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                    launches=results[f"launches.lm.{arch}"].get(name, 0))
     return {"kernels": rows}
 
 
@@ -2354,9 +2717,17 @@ def main() -> int:
     phase_update_stream(torch, g, results)
     phase_samplers(torch, results)
     phase_datasets(torch, results)
+    phase_replicas(torch, results)
+    phase_autoscale(torch, results)
+    phase_hot_swap(torch, results)
+    phase_replica_updates(torch, g, results)
     phase_lm_kernels(torch, results)
     phase_phi3(torch, results)
     phase_mamba2(torch, results)
+    for arch in ZOO:
+        phase(f"13. serve {arch} at full width, bf16")(zoo_phase)(
+            torch, arch, results)
+        torch.cuda.empty_cache()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as f:

@@ -1,4 +1,4 @@
-"""Online GNN inference serving driver (PyTorch port, single replica).
+"""Online GNN inference serving driver (PyTorch port).
 
 Serves per-node prediction requests against a synthetic (or named) graph
 through the ``repro_torch.serving`` stack: Poisson workload → bucketed
@@ -26,23 +26,25 @@ log written by ``GraphUpdateLog.to_jsonl``, folded every
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn \\
       --dataset reddit-like --reorder bfs --update-stream u.jsonl
 
-The flags of the reference's replicated and checkpointed modes are
-accepted and refused with the ROADMAP.md item that ports them; none is
-silently ignored.
+Replicated mode (``--replicas N`` or ``--autoscale``) serves through the
+elastic :class:`repro_torch.serving.router.ReplicaRouter` instead: the
+traffic spread over N replicas sharing one forward and (by default) one
+embedding cache, optional queue-depth/p99 autoscaling, rolling weight
+hot-swap every K completions with per-response version tags, and
+crash-safe stop/resume through ``--ckpt-dir``.  The replicas run one
+after another on one device and the router lays their measured compute
+side by side in virtual time, so its req/s and p99 model N devices:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --replicas 2 \
+      --hot-swap-every 100 --requests 256 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --replicas 1 \
+      --autoscale --rate 8000 --requests 512 --router-policy least_queue
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import sys
-
-# flag -> (is it set?, the ROADMAP.md "Queue 1" item that ports it)
-_NOT_PORTED = {
-    "--replicas > 1 / --autoscale": (
-        lambda a: a.replicas > 1 or a.autoscale,
-        "replica/router (replicated serving)"),
-    "--ckpt-dir": (lambda a: bool(a.ckpt_dir), "checkpoint"),
-}
 
 
 def parse_args(argv=None):
@@ -89,20 +91,40 @@ def parse_args(argv=None):
                          "in through the inverse permutation and "
                          "responses are reported in original ids")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="replica count (> 1 not ported yet: refused)")
+                    help="initial replica count; > 1 (or --autoscale) "
+                         "serves through the elastic ReplicaRouter")
+    ap.add_argument("--router-policy", default="least_queue",
+                    choices=["round_robin", "least_queue"],
+                    help="request dispatch policy across replicas")
+    ap.add_argument("--private-cache", action="store_true",
+                    help="one EmbeddingCache per replica instead of the "
+                         "default fleet-shared cache")
     ap.add_argument("--autoscale", action="store_true",
-                    help="autoscaling (not ported yet: refused)")
+                    help="enable the queue-depth/p99 autoscaling "
+                         "controller (scales replicas within "
+                         "[--replicas, --max-replicas])")
+    ap.add_argument("--max-replicas", type=int, default=8,
+                    help="autoscaler upper bound on the fleet size")
+    ap.add_argument("--hot-swap-every", type=int, default=0,
+                    help="stage a rolling weight hot-swap every K "
+                         "completions (0 = never); new weights are a "
+                         "fresh init per version, every response is "
+                         "tagged with the one version that served it")
     ap.add_argument("--update-stream", default="",
                     help="JSONL graph-update stream "
                          "(repro_torch.core.updates.GraphUpdateLog "
                          "format) folded into the served graph mid-run: "
                          "incremental delta-frontier cache invalidation "
-                         "instead of a cold restart")
+                         "instead of a cold restart; with --replicas the "
+                         "router invalidates every replica")
     ap.add_argument("--update-every", type=int, default=0,
                     help="completions between update folds (0 = auto: "
                          "~4 folds across the run)")
     ap.add_argument("--ckpt-dir", default="",
-                    help="checkpoint directory (not ported yet: refused)")
+                    help="replicated mode only: write a crash-safe "
+                         "(params, version) checkpoint here after the "
+                         "run; if it already holds a complete step, "
+                         "resume weights from it")
     ap.add_argument("--train-epochs", type=int, default=0,
                     help="full-graph AdamW pre-training epochs before "
                          "serving (lr 1e-2, no weight decay)")
@@ -115,11 +137,9 @@ def parse_args(argv=None):
                          "trace here on exit")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag, (is_set, item) in _NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(
-                f"serve_gnn: {flag} is not ported to repro_torch yet; "
-                f"see ROADMAP.md, Queue 1: {item}")
+    if args.ckpt_dir and not (args.replicas > 1 or args.autoscale):
+        raise SystemExit("serve_gnn: --ckpt-dir is read only with "
+                         "--replicas > 1 or --autoscale")
     return args
 
 
@@ -145,7 +165,8 @@ def main(argv=None):
 def run(args):
     """The serving driver; ``main`` wraps it with the telemetry dump.
     Returns the cached run's summary with the baseline's under
-    ``"no_cache"`` (or the baseline's alone under ``--cache none``)."""
+    ``"no_cache"`` (or the baseline's alone under ``--cache none``); in
+    replicated mode, the router's summary."""
     import numpy as np
     import torch
 
@@ -199,6 +220,14 @@ def run(args):
         for r in workload:
             r.node_id = int(inv[r.node_id])
     capacity = int(g.num_nodes * args.cache_frac)
+
+    if args.replicas > 1 or args.autoscale:
+        out = _run_replicated(args, g, cfg, params, workload, capacity,
+                              _update_stream_kw(args, inv), device)
+        if perm is not None:
+            for r in workload:
+                r.node_id = int(perm[r.node_id])
+        return out
 
     def serve(policy: str) -> dict:
         srv = GNNInferenceServer(
@@ -288,6 +317,92 @@ def _update_stream_kw(args, inv=None) -> dict:
           f"{every} completions")
     return {"update_log": log, "update_every": every,
             "update_chunk": chunk}
+
+
+def _run_replicated(args, g, cfg, params, workload, capacity, update_kw,
+                    device):
+    """Serve through the elastic ReplicaRouter: N replicas, optional
+    autoscaling, rolling hot-swap every K completions, crash-safe
+    stop/resume via ``--ckpt-dir``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.serving import (AutoscalePolicy, ReplicaRouter,
+                                     restore_params)
+
+    router = ReplicaRouter(
+        g, cfg, params,
+        n_replicas=args.replicas,
+        policy=args.router_policy,
+        shared_cache=not args.private_cache,
+        cache_policy=args.cache,
+        cache_capacity=capacity,
+        max_staleness=args.staleness,
+        fanouts=args.fanouts,
+        buckets=args.buckets,
+        max_wait_s=args.max_wait_ms / 1e3,
+        seed=args.seed,
+        autoscale=AutoscalePolicy(
+            min_replicas=args.replicas,
+            max_replicas=args.max_replicas) if args.autoscale else None)
+
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        resumed, version = restore_params(args.ckpt_dir, params)
+        print(f"resumed weights from {args.ckpt_dir} "
+              f"(params version {version})")
+        if version > 0:
+            router.hot_swap(resumed, version=version)
+        else:
+            router.params = resumed
+            for rep in router.replicas:
+                rep.server.params = resumed
+
+    def fresh_params(version: int):
+        return GM.init_gnn(cfg, torch.Generator().manual_seed(
+            args.seed + version), device=device)
+
+    stats = router.run(workload,
+                       hot_swap_every=args.hot_swap_every,
+                       new_params_fn=(fresh_params
+                                      if args.hot_swap_every else None),
+                       **update_kw)
+    out = router.summary()
+    if update_kw:
+        print(f"graph updates folded through seq {router._update_seq}")
+    mode = "autoscale" if args.autoscale else "fixed"
+    # req/s divides by the host's wall time, in which the replicas ran
+    # one after another on this device; p50/p99 are on the virtual
+    # clock, where each replica models a device of its own
+    print(f"[replicated] {args.router_policy}/{mode}  "
+          f"{out['throughput_rps']:8.1f} req/s (wall, replicas in turn on "
+          f"{device})  p50 {out['p50_ms']:6.2f} ms  p99 "
+          f"{out['p99_ms']:6.2f} ms (virtual clock)")
+    print(f"served {out['served']}  dropped {out['dropped']}  "
+          f"torn batches {out['torn_batches']}  "
+          f"hot swaps {out['hot_swaps']}  "
+          f"replicas peak {stats.replicas_peak} "
+          f"final {stats.replicas_final}  "
+          f"scale events {out['scale_events']}")
+    print(f"version counts {out['version_counts']}  "
+          f"serving version {out['params_version']}")
+    if "embedding_hit_ratio" in out:
+        kind = "shared" if out["shared_cache"] else "private"
+        print(f"{kind} cache hit rate {out['embedding_hit_ratio']:.2%}  "
+              f"wire {out['wire_bytes'] / 2**20:.2f} MiB")
+    if args.ckpt_dir:
+        path = router.save(args.ckpt_dir)
+        print(f"checkpoint -> {path}")
+    out["update_seq"] = router._update_seq
+    out["forward_calls"] = router.forward_calls
+    out["all_logits_finite"] = all(
+        r.logits is not None and bool(np.isfinite(r.logits).all())
+        for r in workload)
+    # the answered requests and the router that answered them, for a
+    # caller that checks them (the summary's numbers stay JSON-able)
+    out["responses"], out["router"] = workload, router
+    return out
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the reference package, and a CUDA request without a
-card raises instead of running on the CPU."""
+neither ``jax`` nor the reference package (nor ``msgpack``, which the
+reference's checkpoints use and the port's requirements lack), and a
+CUDA request without a card raises instead of running on the CPU."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import torch
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(REPO, "src", "repro_torch")
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
@@ -38,12 +39,15 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'models.transformer.ssm',\n"
         "             'models.transformer.model', 'launch.serve',\n"
         "             'launch.prefill_gap', 'core.reordering',\n"
-        "             'core.updates', 'graph.datasets'):\n"
+        "             'core.updates', 'graph.datasets', 'checkpoint',\n"
+        "             'checkpoint.io', 'serving.replica',\n"
+        "             'serving.router', 'configs.qwen2_5_14b',\n"
+        "             'configs.gemma_7b', 'configs.glm4_9b'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro')]\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -13,10 +13,12 @@ from repro.graph import generators as RG
 from repro.models.gnn import model as RGM
 from repro.serving import GNNInferenceServer as RefServer
 from repro.serving.batcher import MicroBatch as RefMicroBatch
+from repro_torch.checkpoint import latest_step
+from repro_torch.core.updates import synthesize_updates
 from repro_torch.graph import generators as G
 from repro_torch.launch import serve_gnn
 from repro_torch.models.gnn import model as GM
-from repro_torch.serving import GNNInferenceServer
+from repro_torch.serving import GNNInferenceServer, poisson_workload
 from repro_torch.serving.batcher import MicroBatch
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -101,11 +103,64 @@ def test_serve_gnn_main_smoke_on_cpu():
     assert res["jit_entries"] <= 2
 
 
-@pytest.mark.parametrize("flag", [["--replicas", "2"], ["--autoscale"],
-                                  ["--ckpt-dir", "ck"]])
-def test_unported_flags_are_refused(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve_gnn.parse_args(["--device", "cpu"] + flag)
+SMALL = ["--device", "cpu", "--nodes", "120", "--feat-dim", "8",
+         "--hidden", "16", "--fanouts", "3", "3", "--buckets", "4", "16"]
+
+
+def test_serve_gnn_replicated_main_resumes_its_checkpoint(tmp_path):
+    """Two runs of the replicated launcher on one checkpoint directory:
+    the first autoscales and hot-swaps, then saves its version; the
+    second resumes that version (a rollout staged before its run) and
+    hot-swaps on from it."""
+    argv = SMALL + ["--requests", "64", "--replicas", "2", "--autoscale",
+                    "--max-replicas", "3", "--rate", "8000",
+                    "--hot-swap-every", "16", "--ckpt-dir", str(tmp_path)]
+    first = serve_gnn.main(argv)
+    assert first["served"] == 64 and first["dropped"] == 0
+    assert first["torn_batches"] == 0 and first["all_logits_finite"]
+    assert first["hot_swaps"] >= 1
+    saved = first["params_version"]
+    assert saved == first["hot_swaps"] and latest_step(str(tmp_path)) == saved
+    assert sum(first["version_counts"].values()) == 64
+    router = first["router"]
+    fwd = router.replicas[0].server._forward
+    assert all(r.server._forward is fwd for r in router.replicas)
+
+    second = serve_gnn.main(argv)
+    assert second["served"] == 64 and second["dropped"] == 0
+    assert second["torn_batches"] == 0
+    # the resume is a rollout of its own, then the run's swaps follow it
+    final = saved + second["hot_swaps"] - 1
+    assert second["params_version"] == final
+    versions = {int(v) for v in second["version_counts"]}
+    assert versions <= {0} | set(range(saved, final + 1)), versions
+    assert latest_step(str(tmp_path)) == final
+
+
+def test_serve_gnn_replicated_reorder_and_update_stream(tmp_path):
+    """The router under --reorder bfs and --update-stream: every event
+    folded into the fleet's graph, responses in the clients' ids."""
+    path = str(tmp_path / "u.jsonl")
+    g = G.featurize(G.sbm(120, 4, p_in=0.9, p_out=0.02, seed=0), 8,
+                    seed=0, class_sep=1.5)
+    n_events = synthesize_updates(g, 40, seed=1).to_jsonl(path)
+    res = serve_gnn.main(SMALL + ["--requests", "48", "--replicas", "2",
+                                  "--router-policy", "round_robin",
+                                  "--private-cache", "--reorder", "bfs",
+                                  "--update-stream", path])
+    assert res["served"] == 48 and res["all_logits_finite"]
+    assert res["update_seq"] == n_events
+    assert not res["shared_cache"]
+    sent = [r.node_id for r in poisson_workload(48, np.arange(120), 2000.0,
+                                                seed=1)]
+    assert [r.node_id for r in res["responses"]] == sent
+    assert res["forward_calls"] == res["router"].forward_calls > 0
+
+
+@pytest.mark.parametrize("flag", [[], ["--replicas", "1"]])
+def test_ckpt_dir_refused_under_a_single_replica(flag):
+    with pytest.raises(SystemExit, match="--replicas > 1 or --autoscale"):
+        serve_gnn.parse_args(["--device", "cpu", "--ckpt-dir", "ck"] + flag)
 
 
 def test_cuda_device_refused_without_a_card():

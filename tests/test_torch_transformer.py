@@ -32,7 +32,8 @@ from repro_torch.models.transformer import ssm as S
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("phi3-mini-3.8b", "mamba2-780m")
+ARCHS = ("phi3-mini-3.8b", "mamba2-780m", "qwen2.5-14b", "gemma-7b",
+         "glm4-9b")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,8 +96,7 @@ def test_config_copies_the_published_numbers(arch):
 @pytest.mark.parametrize("arch,item", [
     ("granite-moe-1b-a400m", "10a"), ("zamba2-2.7b", "10b"),
     ("deepseek-v3-671b", "10c"), ("whisper-tiny", "10d"),
-    ("qwen2-vl-7b", "10d"), ("gemma-7b", "10f"), ("qwen2.5-14b", "10f"),
-    ("glm4-9b", "10f")])
+    ("qwen2-vl-7b", "10d")])
 def test_unported_archs_name_their_roadmap_item(arch, item):
     with pytest.raises(SystemExit, match=f"item {item}"):
         base.get_config(arch)
