@@ -60,9 +60,9 @@ Phases, in order; any failure makes the exit code nonzero:
    GCN's two large products;
 7. mini-batch GraphSAGE at Reddit's widths: ``--batch 1024 --epochs 1
    --cache degree`` with ``--wire-codec fp32`` and then ``int8
-   --use-kernel`` (wire rows into K4); K4 launches once per int8 step
-   and never under fp32; step time, cache
-   hit ratio, fetched MiB and the loss trend;
+   --use-kernel`` for 60 of the epoch's 227 steps (``train_gnn.run``'s
+   ``steps_per_epoch``; wire rows into K4); K4 launches once per int8
+   step and never under fp32; step time, cache hit ratio, fetched MiB and the loss trend;
 11. (run after phase 7) locality reordering, the dataset registry, the
    importance and layer-wise samplers and a changing graph, at Reddit's
    widths: (a) for each reorder policy (none, degree, bfs, rcm) the 41-
@@ -145,7 +145,32 @@ Phases, in order; any failure makes the exit code nonzero:
    loop on a 4-layer cut at full width (1e-3 of the largest logit, K7's
    float32 route once a layer); a 2-layer float32 cut on the card and the
    CPU as in 9(d).  Full depth in float32 is left out: Qwen2.5-14B's
-   float32 weights (about 59 GB) do not fit beside the rest.
+   float32 weights (about 59 GB) do not fit beside the rest;
+14. (run last) distributed full-graph GCN at Reddit's widths (602 → 256
+   → 41, hash partitioner) with 4 ranks sharing the card: one spawned
+   world (``train_gnn.run_world``: gloo, CUDA tensors staged through
+   pinned host buffers) runs every job in turn: (a) ``--devices 4 --mode
+   pull`` (twice: bitwise equal), ``push``, ``stale`` and ``hysync`` (S 3),
+   10 AdamW epochs each: pull against phase 6's GCN, the other modes
+   against pull (the first 4 losses within 1e-4, the parameters within
+   ``DIST_ADAMW_PARAM_TOL``), beside float32's own error (phase 6's run
+   and pull against the same GCN in float64 through the plain versions
+   on the card) and two wrong paths (pull with its gathered rows in
+   bf16, pull without one rank's gradient), which must exceed the
+   bound; every synchronous mode and async S 0 under 10 SGD steps
+   against the card's single-card GCN within 1e-5; every rank's
+   parameters bitwise equal; (b) every rank launches K1 and K1ᵀ exactly
+   once an epoch each at 256 and at 41 columns (the wrapper counts by
+   width), nothing else (rank 0 one K1 more at each width for
+   ``--fullgraph``'s accuracy); (c) ``parameter_server_update`` against
+   ``allreduce_update`` within 1e-5; (d) ``--fullgraph`` at S 0, 1, 4
+   (fp32) and S 1 (int8): bytes per step fall with S, int8 moves
+   at most 0.35 of fp32's within 5 % of its loss, every rank's ghost
+   planes bitwise equal; phase 11(d)'s 2 000 events folded over 5
+   epochs; (e) ms an epoch split into the collectives (staging + gloo
+   wait) and the rest, CUDA-event spans, bytes a rank an epoch; K1 and
+   K1ᵀ at rank 0's pull (N_pad → n_local) and push (n_local → N_pad)
+   shapes against their bounds and ``torch.sparse.mm``.
 
 The last lines are the card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line, and
@@ -202,6 +227,9 @@ EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
                  "gin": {"gather_rows": 2, "segment_sum": 2},
                  "gat": {"gat_attention": 2}}
 MB_BATCH = 1024
+# phase 7's int8 run: a fixed number of steps (reduced from the epoch's
+# 227: a step is ~0.37 s of host encoding, and phase 14 needs the time)
+MB_INT8_STEPS = 60
 
 failures: list = []
 # phase 6's trained SAGE and GAT with their graphs: phase 11b compares
@@ -1186,8 +1214,8 @@ def phase_fullbatch(torch, results):
         require(counts == want, f"{arch}: launches {counts}, by design "
                 f"{want}")
         _repeat_and_cpu_step(torch, arch, classes, res, results)
-        if arch in ("sage", "gat"):
-            TRAINED[arch] = (res["model"], res["graph"])   # for phase 11b
+        if arch in ("gcn", "sage", "gat"):
+            TRAINED[arch] = (res["model"], res["graph"])   # phases 11b, 14
         if arch in ("gcn", "gat"):
             _profile_step(torch, arch, classes, res["graph"], results)
 
@@ -1363,10 +1391,13 @@ def phase_minibatch(torch, results):
     for codec in ("fp32", "int8"):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = train_gnn.main(train_args("sage", CLASSES, [
-            "--minibatch", "--batch", str(MB_BATCH), "--epochs", "1",
-            "--cache", "degree", "--wire-codec", codec,
-            *(["--use-kernel"] if codec == "int8" else [])]))
+        # the int8 run takes MB_INT8_STEPS steps of its epoch
+        res = train_gnn.run(train_gnn.parse_args(train_args(
+            "sage", CLASSES, [
+                "--minibatch", "--batch", str(MB_BATCH), "--epochs", "1",
+                "--cache", "degree", "--wire-codec", codec,
+                *(["--use-kernel"] if codec == "int8" else [])])),
+            steps_per_epoch=MB_INT8_STEPS if codec == "int8" else 0)
         torch.cuda.synchronize()
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         losses, steps = res["losses"], res["steps"]
@@ -2587,6 +2618,419 @@ def zoo_phase(torch, arch, results):
     results[f"lm.{arch}"] = out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distributed full-graph GCN, 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4
+# the synchronous modes (stale and hysync with a 3-epoch snapshot), two
+# pull runs for the bitwise repeat, then the asynchronous trainer
+DIST_SYNC = (("pull", []), ("pull_again", []), ("push", ["--mode", "push"]),
+             ("stale", ["--mode", "stale", "--staleness", "3"]),
+             ("hysync", ["--mode", "hysync", "--staleness", "3"]))
+DIST_ASYNC = (("async_s0", ["--staleness", "0"]),
+              ("async_s1", ["--staleness", "1"]),
+              ("async_s4", ["--staleness", "4"]),
+              ("async_s1_int8", ["--staleness", "1", "--wire-codec",
+                                 "int8"]))
+# the update-stream run: phase 11(d)'s stream in 4 folds over 5 epochs
+DIST_STREAM_EPOCHS, DIST_STREAM_PER_EPOCH = 5, 500
+# Parameters after 10 AdamW epochs: AdamW divides each gradient element
+# by its own running magnitude, so a nearly cancelled element moves by
+# far more than its rounding, and another order of summation over 233 k
+# rows moves the parameters by float32's own error on the problem.
+# Phase 14 reads it in every run (phase 6's float32 GCN and pull against
+# the same GCN in float64: 1.3e-4 and 2.4e-4 on an H100), beside two
+# wrong paths (DIST_FAULTS: 2.2e-2 and 1.1e-1), and requires the sound
+# readings within the bound and the wrong ones above it.  Under SGD (lr
+# 0.1) every mode is held to 1e-5, the first 4 losses to the
+# reference's 1e-4.
+DIST_ADAMW_PARAM_TOL, DIST_SGD_TOL, DIST_LOSS_TOL = 1e-3, 1e-5, 1e-4
+DIST_SGD_LR = 0.1
+DIST_SGD_MODES = ("pull", "push", "stale", "hysync", "async_s0")
+# pull with a fault put in for one job: every all-gathered row rounded
+# to bf16 (straight-through), or the last rank's gradient left out of
+# the sum
+DIST_FAULTS = ("bf16_gather", "rank_gradient_dropped")
+
+
+def dist_args(mode_flags, epochs=TRAIN_EPOCHS):
+    return train_args("gcn", CLASSES, ["--devices", str(DIST_WORLD),
+                                       "--epochs", str(epochs),
+                                       *mode_flags])
+
+
+def dist_coordination_job(rank, world, dev):
+    """Both coordinators (``core/coordination.py``) from the same
+    parameters, at GCN's Reddit shapes, on each rank's own random
+    gradients, three AdamW steps each: the largest parameter difference
+    (the reference's bound is 1e-5)."""
+    import torch
+    from repro_torch.core import coordination
+    from repro_torch.optim import AdamW
+    shapes = [(FEAT, HIDDEN), (HIDDEN,), (HIDDEN, CLASSES), (CLASSES,)]
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    gen = torch.Generator().manual_seed(1 + rank)
+    grads = [torch.randn(s, generator=gen).to(dev) for s in shapes]
+    out = {}
+    for name, fn in coordination.COORDINATORS.items():
+        ps = [torch.nn.Parameter(t.clone().to(dev)) for t in init]
+        opt = AdamW(ps, lr=1e-2, weight_decay=0.0)
+        for _ in range(3):
+            fn(opt, ps, grads)
+        out[name] = [p.detach() for p in ps]
+    return {"max_diff": max(float((a - b).abs().max()) for a, b in zip(
+        out["decentralized"], out["parameter_server"]))}
+
+
+def _dist_setup(world, dev, argv):
+    """The graph the launcher makes for ``argv`` (a phase-14 job's), its
+    GCN config and its hash cut over ``world`` ranks."""
+    from repro_torch.core import propagation as PR
+    from repro_torch.launch import train_gnn
+    from repro_torch.models.gnn import model as GM
+    args = train_gnn.parse_args(argv)
+    g, _ = train_gnn._rank_graph(args, lambda *a: None)
+    cfg = GM.GNNConfig(arch="gcn", feat_dim=g.features.shape[1],
+                       hidden=args.hidden, num_classes=g.num_classes)
+    return g, cfg, PR.shard_graph(g, world)
+
+
+def _params_np(model) -> list:
+    return [{k: v.detach().cpu().numpy() for k, v in layer.named_parameters()}
+            for layer in model]
+
+
+def dist_sgd_job(rank, world, dev, *, argv):
+    """Every synchronous mode and the asynchronous trainer at S 0, 10 SGD
+    steps each from phase 6's initial parameters
+    (``propagation.run_sync``, ``AsyncFullGraphTrainer.run``): each
+    mode's final parameters (numpy)."""
+    import torch
+    from repro_torch.core import propagation as PR
+    from repro_torch.distributed import AsyncFullGraphTrainer
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import Sgd
+    g, cfg, sg = _dist_setup(world, dev, argv)
+    out = {}
+    for mode in DIST_SGD_MODES:
+        model = GM.init_gnn(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+        opt = Sgd(model.parameters(), lr=DIST_SGD_LR)
+        if mode == "async_s0":
+            AsyncFullGraphTrainer(g, cfg, opt, world, staleness=0,
+                                  device=dev).run(model, TRAIN_EPOCHS)
+        else:
+            PR.run_sync(model, opt, sg, g, rank, dev, mode=mode,
+                        staleness=3, steps=TRAIN_EPOCHS)
+        out[mode] = _params_np(model)
+    return out
+
+
+def dist_fault_job(rank, world, dev, *, argv, fault):
+    """Pull, 10 AdamW epochs from phase 6's initial parameters as the
+    launcher runs it, with ``fault`` (one of ``DIST_FAULTS``) put into
+    ``core/propagation.py`` for this job alone: the final parameters
+    (numpy), a wrong path's reading against the AdamW bound."""
+    import torch
+    from repro_torch.core import propagation as PR
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import AdamW
+    g, cfg, sg = _dist_setup(world, dev, argv)
+    model = GM.init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    opt = AdamW(model.parameters(), lr=1e-2, weight_decay=0.0)
+    saved = PR.pull_aggregate, PR.sum_grads_and_loss
+
+    def bf16_gather(h, shard, *, coef_e=None):
+        wire = h.to(torch.bfloat16).to(h.dtype)
+        return saved[0](h + (wire - h).detach(), shard, coef_e=coef_e)
+
+    def rank_gradient_dropped(params, loss):
+        if rank == world - 1:
+            for p in params.parameters():
+                p.grad = None
+        return saved[1](params, loss)
+
+    if fault == "bf16_gather":
+        PR.pull_aggregate = bf16_gather
+    else:
+        PR.sum_grads_and_loss = rank_gradient_dropped
+    try:
+        PR.run_sync(model, opt, sg, g, rank, dev, mode="pull",
+                    steps=TRAIN_EPOCHS)
+    finally:
+        PR.pull_aggregate, PR.sum_grads_and_loss = saved
+    return {"params": _params_np(model)}
+
+
+def _single_card(torch, g, optimizer, *, float64=False, device="cuda"):
+    """Phase 6's GCN trained 10 steps from its initial parameters by
+    ``optimizer`` (``"adamw"``: the launcher's, or ``"sgd"``: lr
+    ``DIST_SGD_LR``); under ``float64`` through the kernels' plain
+    versions (the kernels take float32): the exact answer every float32
+    run is read against.  Its parameters (numpy)."""
+    from repro_torch.core.abstraction import DeviceGraph
+    from repro_torch.kernels import segment_sum
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import AdamW, Sgd
+    dev = torch.device(device)
+    dtype = torch.float64 if float64 else torch.float32
+    cfg = GM.GNNConfig(arch="gcn", feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=CLASSES)
+    model = GM.init_gnn(cfg, torch.Generator().manual_seed(0),
+                        device=dev).to(dtype)
+    opt = (AdamW(model.parameters(), lr=1e-2, weight_decay=0.0)
+           if optimizer == "adamw" else Sgd(model.parameters(),
+                                            lr=DIST_SGD_LR))
+    step = GM.make_fullgraph_train_step(cfg, opt)
+    dg = DeviceGraph.from_graph(g, dev, src_layout=True)
+    x = torch.from_numpy(g.features).to(dev, dtype)
+    y = torch.from_numpy(g.labels).to(dev)
+    mask = torch.ones(y.shape, dtype=dtype, device=dev)
+    pick = segment_sum.pick
+    if float64:
+        segment_sum.pick = lambda cuda_fn, plain_fn, t: plain_fn
+    try:
+        for _ in range(TRAIN_EPOCHS):
+            step(model, dg, x, y, mask)
+    finally:
+        segment_sum.pick = pick
+    return _params_np(model)
+
+
+def _dist_params_diff(a, b) -> float:
+    return max(float(np.abs(np.asarray(x[k]) - np.asarray(y[k])).max())
+               for x, y in zip(a, b) for k in x)
+
+
+def _dist_ranks_bitwise(res) -> bool:
+    first = res["ranks"][0]["params"]
+    return all(np.array_equal(r["params"][i][k], first[i][k])
+               for r in res["ranks"] for i in range(len(first))
+               for k in first[i])
+
+
+def _dist_summary(res) -> dict:
+    """ms an epoch (host clock, median of epochs 2..: the first builds
+    the staging buffers), split into the collectives (staging + gloo
+    wait) and the rest, the CUDA-event span, bytes a rank an epoch; each
+    a median over the epochs and the ranks' worst."""
+    rows = [e for r in res["ranks"] for e in r["epochs"][1:]] or [
+        e for r in res["ranks"] for e in r["epochs"]]
+    med = lambda k: float(np.median([e[k] for e in rows]))  # noqa: E731
+    return {"epoch_ms": med("wall_s") * 1e3,
+            "comm_ms": med("comm_s") * 1e3,
+            "stage_ms": med("stage_s") * 1e3,
+            "wait_ms": med("wait_s") * 1e3,
+            "rest_ms": (med("wall_s") - med("comm_s")) * 1e3,
+            "event_ms": (med("event_ms") if rows[0]["event_ms"] is not None
+                         else None),
+            "bytes_received_per_epoch": med("bytes_received"),
+            "bytes_sent_per_epoch": med("bytes_sent"),
+            "setup_s": max(r["setup_s"] for r in res["ranks"]),
+            "losses": res["losses"]}
+
+
+def _dist_k1_cases(torch, g, results):
+    """K1 and K1ᵀ at the distributed shapes of rank 0 (hash, 4 ranks):
+    pull ``N_pad -> n_local`` and push ``n_local -> N_pad``, at GCN's
+    widths, with the shard's own coefficients."""
+    from repro_torch.core import propagation as PR
+    c = Checker(torch, seed=14)
+    sg = PR.shard_graph(g, DIST_WORLD)
+    push = PR.push_layout(sg, g)
+    for layout, arrays in (("pull", None), ("push", push)):
+        sh = PR.rank_shard(sg, 0, c.dev, push_arrays=arrays)
+        dg = sh.graph
+        coef = sh.coef * dg.edge_mask.to(torch.float32)
+        print(f"   {layout} layout, rank 0: {dg.num_src} sources -> "
+              f"{dg.num_dst} destinations, {int(dg.order.numel())} edges",
+              flush=True)
+        for F in (HIDDEN, CLASSES):
+            results[f"k1.dist.{layout}.{F}"] = c.k1(
+                f"K1 {layout} layout, F {F} ({dg.num_src} -> "
+                f"{dg.num_dst})", c.randn(dg.num_src, F), dg.edge_src,
+                coef, dg.order, dg.row_ptr, dg.num_dst)
+            results[f"k1_transpose.dist.{layout}.{F}"] = c.k1(
+                f"K1 over the src layout, {layout}, F {F} ({dg.num_dst} "
+                f"-> {dg.num_src})", c.randn(dg.num_dst, F), dg.edge_dst,
+                coef, *dg.src_layout, dg.num_src, transpose=True)
+
+
+@phase("14. distributed full-graph GCN, 4 ranks on the card")
+def phase_distributed(torch, g, results):
+    """(a) pull, push, stale (S 3), hysync, 10 epochs each, and (d) the
+    asynchronous trainer at S 0, 1, 4 (fp32) and S 1 (int8), then one run
+    folding phase 11(d)'s stream, all in one spawned world of 4 ranks on
+    the card through ``train_gnn.run_world``; (c) the coordinators inside
+    the same world; (b) exact launch counts; (e) times, bytes, and K1 /
+    K1ᵀ at the distributed shapes."""
+    from repro_torch.core.updates import synthesize_updates
+    from repro_torch.launch import train_gnn
+    torch.cuda.empty_cache()
+    stream = os.path.join(ROOT, "chiprun_out", "updates.jsonl")
+    if not os.path.exists(stream):            # phase 11(d) did not run
+        os.makedirs(os.path.dirname(stream), exist_ok=True)
+        synthesize_updates(g, UPDATE_EVENTS, seed=11).to_jsonl(stream)
+    jobs = {name: dist_args(flags) for name, flags in DIST_SYNC}
+    jobs["coordination"] = dist_coordination_job
+    jobs["sgd"] = functools.partial(dist_sgd_job, argv=dist_args([]))
+    jobs.update({f"fault_{f}": functools.partial(
+        dist_fault_job, argv=dist_args([]), fault=f) for f in DIST_FAULTS})
+    jobs.update({name: dist_args(["--fullgraph", "--refresh-frac", "0",
+                                  *flags]) for name, flags in DIST_ASYNC})
+    jobs["async_stream"] = dist_args(
+        ["--fullgraph", "--staleness", "1", "--update-stream", stream,
+         "--updates-per-epoch", str(DIST_STREAM_PER_EPOCH)],
+        epochs=DIST_STREAM_EPOCHS)
+    t0 = time.perf_counter()
+    out = dict(zip(jobs, train_gnn.run_world(
+        list(jobs.values()), world=DIST_WORLD, device="cuda",
+        timeout_s=900)))
+    print(f"   one world of {DIST_WORLD} ranks, {len(jobs)} jobs: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # K1 and K1ᵀ once a layer an epoch each: at 256 and at 41 columns
+    want_k1_fwd = "gather_scale_segment_sum"
+    want_k1 = {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 2}
+    for name, res in out.items():
+        if name in ("coordination", "sgd") or name.startswith("fault_"):
+            continue
+        summary = _dist_summary(res)
+        epochs = len(res["losses"])
+        launches = [r["launches"] for r in res["ranks"]]
+        by_width = [r["launches_by_width"] for r in res["ranks"]]
+        summary["launches_per_rank"] = launches
+        summary["launches_per_rank_by_width"] = by_width
+        summary["ranks_bitwise_equal"] = _dist_ranks_bitwise(res)
+        if res["mode"] == "fullgraph":
+            summary["stats"] = res["stats"]
+            summary["accuracy"] = res["accuracy"]
+            summary["ghost_digests_equal"] = len(
+                {r["ghost_digest"] for r in res["ranks"]}) == 1
+        print(f"   {name}: " + json.dumps(summary), flush=True)
+        results[f"dist.{name}"] = summary
+        require(bool(np.isfinite(res["losses"]).all()),
+                f"{name}: finite losses")
+        require(summary["ranks_bitwise_equal"],
+                f"{name}: every rank's parameters bitwise equal")
+        for r, (counts, widths) in enumerate(zip(launches, by_width)):
+            want = {k: v * epochs for k, v in want_k1.items()}
+            # rank 0 of --fullgraph: one forward more, the accuracy
+            acc = int(res["mode"] == "fullgraph" and r == 0)
+            want["gather_scale_segment_sum"] += 2 * acc
+            require(counts == want, f"{name} rank {r}: launches {counts}, "
+                    f"by design {want} (K6 none, nothing else)")
+            want_w = {k: dict.fromkeys((HIDDEN, CLASSES), epochs + (
+                acc if k == want_k1_fwd else 0)) for k in want_k1}
+            require(widths == want_w, f"{name} rank {r}: K1 launches by "
+                    f"width {widths}, by design {want_w}")
+        if res["mode"] == "fullgraph":
+            require(summary["ghost_digests_equal"],
+                    f"{name}: every rank's ghost planes bitwise equal")
+    for layout in ("pull", "push"):
+        results[f"launches.dist.{layout}"] = out[layout]["ranks"][1][
+            "launches_by_width"]
+    # (a) pull against phase 6's single-card GCN (same graph and initial
+    # parameters), then the other modes against pull: the first 4 losses
+    # within the reference's 1e-4, the parameters after 10 AdamW epochs
+    # within DIST_ADAMW_PARAM_TOL, which both faults must exceed; beside
+    # them float32's own error (phase 6's run and pull against float64),
+    # and after 10 SGD steps every mode within 1e-5 of the single card
+    pull = out["pull"]
+    adamw = {}                       # name: (first 4 losses, parameters)
+    if "gcn" in TRAINED and "train.gcn" in results:
+        one = results["train.gcn"]["losses"]
+        ref = _params_np(TRAINED["gcn"][0])
+        adamw["pull"] = (max(abs(a - b) for a, b in zip(pull["losses"][:4],
+                                                        one[:4])),
+                         _dist_params_diff(pull["params"], ref))
+        results["dist.pull"].update(vs_single_card_early=adamw["pull"][0],
+                                    vs_single_card_params=adamw["pull"][1])
+        t0 = time.perf_counter()
+        exact = _single_card(torch, TRAINED["gcn"][1], "adamw",
+                             float64=True)
+        floor = {"single_card_vs_float64": _dist_params_diff(ref, exact),
+                 "pull_vs_float64": _dist_params_diff(pull["params"], exact),
+                 "float64_s": time.perf_counter() - t0}
+        results["dist.float32_floor"] = floor
+        print("   float32's own error, parameters after 10 AdamW epochs: "
+              + json.dumps(floor), flush=True)
+    else:
+        failures.append("14: phase 6's GCN is missing, pull not held to it")
+    for name in ("push", "stale", "hysync", "async_s0"):
+        res = out[name]
+        adamw[name] = (max(abs(a - b) for a, b in zip(res["losses"][:4],
+                                                      pull["losses"][:4])),
+                       _dist_params_diff(res["params"], pull["params"]))
+        results[f"dist.{name}"].update(vs_pull_early=adamw[name][0],
+                                       vs_pull_params=adamw[name][1])
+    faults = {f: _dist_params_diff(out[f"fault_{f}"]["ranks"][0]["params"],
+                                   pull["params"]) for f in DIST_FAULTS}
+    results["dist.faults_vs_pull"] = faults
+    print("   AdamW, 10 epochs (pull vs phase 6's GCN, the others vs pull; "
+          "first 4 losses, parameters): " + json.dumps(adamw), flush=True)
+    print("   pull with a fault, parameters vs pull: " + json.dumps(faults),
+          flush=True)
+    for name, (early, pdiff) in adamw.items():
+        require(early <= DIST_LOSS_TOL and pdiff <= DIST_ADAMW_PARAM_TOL,
+                f"{name}: losses 1-4 within {DIST_LOSS_TOL} and parameters "
+                f"within {DIST_ADAMW_PARAM_TOL} ({early:.3e}, {pdiff:.3e})")
+    for what in ("single_card_vs_float64", "pull_vs_float64"):
+        d = results.get("dist.float32_floor", {}).get(what, 0.0)
+        require(d <= DIST_ADAMW_PARAM_TOL, f"{what}: {d:.3e} within "
+                f"{DIST_ADAMW_PARAM_TOL}")
+    for f, d in faults.items():
+        require(d > DIST_ADAMW_PARAM_TOL, f"the AdamW bound "
+                f"{DIST_ADAMW_PARAM_TOL} catches the fault {f} ({d:.3e})")
+    sgd_ref = _single_card(torch, g, "sgd")
+    sgd = {}
+    for mode in DIST_SGD_MODES:
+        per_rank = [r[mode] for r in out["sgd"]["ranks"]]
+        sgd[mode] = _dist_params_diff(per_rank[0], sgd_ref)
+        require(all(_dist_params_diff(p, per_rank[0]) == 0.0
+                    for p in per_rank), f"SGD {mode}: ranks bitwise equal")
+    results["dist.sgd_vs_single_card"] = sgd
+    print("   SGD, 10 steps, parameters vs the single card: "
+          + json.dumps(sgd), flush=True)
+    require(max(sgd.values()) <= DIST_SGD_TOL,
+            f"every mode within 1e-5 of the single card under SGD: {sgd}")
+    require(_dist_params_diff(out["pull_again"]["params"], pull["params"])
+            == 0.0 and out["pull_again"]["losses"] == pull["losses"],
+            "two pull runs bitwise equal")
+    # (c) the coordinators
+    coord = [r["max_diff"] for r in out["coordination"]["ranks"]]
+    results["dist.coordination"] = {"max_diff_per_rank": coord}
+    print(f"   parameter server vs all-reduce: {coord}", flush=True)
+    require(max(coord) <= 1e-5, "PS within 1e-5 of all-reduce")
+    # (d) the asynchronous trainer's bytes and the int8 run
+    b = [out[f"async_s{s}"]["stats"]["bytes_per_step"] for s in (0, 1, 4)]
+    b8 = out["async_s1_int8"]["stats"]["bytes_per_step"]
+    l32 = out["async_s1"]["losses"][-1]
+    l8 = out["async_s1_int8"]["losses"][-1]
+    results["dist.async_bytes"] = {"s0": b[0], "s1": b[1], "s4": b[2],
+                                   "s1_int8": b8, "int8_ratio": b8 / b[1],
+                                   "int8_loss_rel": abs(l8 - l32) / l32}
+    print("   async bytes/step: " + json.dumps(results["dist.async_bytes"]),
+          flush=True)
+    require(b[0] > b[1] > b[2], f"bytes/step fall with S: {b}")
+    require(b8 <= 0.35 * b[1], "int8 moves <= 0.35 of fp32's bytes")
+    require(abs(l8 - l32) <= 0.05 * abs(l32), "int8 final loss within 5 % "
+            "of fp32's")
+    st = out["async_stream"]
+    folds = st["folds"]
+    results["dist.async_stream"].update(
+        folds=len(folds), events=sum(f["events"] for f in folds),
+        invalidated_rows=sum(f["invalidated_rows"] for f in folds),
+        fold_s=[f["seconds"] for f in folds])
+    require(st["update_seq"] == UPDATE_EVENTS and sum(
+        f["events"] for f in folds) == UPDATE_EVENTS
+        and all(f["invalidated_rows"] > 0 for f in folds),
+        "the stream folded in full, ghost rows invalidated at each fold")
+    # (e) K1 / K1ᵀ at the distributed shapes
+    _dist_k1_cases(torch, g, results)
+
+
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
@@ -2669,6 +3113,24 @@ def kernels_line(results) -> dict:
             rows[-1][label] = {k: results[key_][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms") if k in results[key_]}
+        # phase 14: K1 and its transpose at the distributed shapes (rank
+        # 0 of 4), with rank 1's launches at that width in the 10 pull
+        # (push) epochs, as the wrapper counted them
+        if name in ("gather_scale_segment_sum", "gather_scale_segment_sum_t"):
+            pre = "k1" if name == "gather_scale_segment_sum" else \
+                "k1_transpose"
+            for layout in ("pull", "push"):
+                for F in (HIDDEN, CLASSES):
+                    r = results.get(f"{pre}.dist.{layout}.{F}")
+                    if r is None:
+                        continue
+                    rows[-1][f"at_dist_{layout}_{F}"] = dict(
+                        {k: r[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")},
+                        launches_per_rank=results.get(
+                            f"launches.dist.{layout}", {}).get(
+                                name, {}).get(F, 0))
         if name == "flash_attention":
             # phase 13's configs: the case at each prefill shape (phase 8)
             # and its launches in that config's prefill (phase 13)
@@ -2728,6 +3190,7 @@ def main() -> int:
         phase(f"13. serve {arch} at full width, bf16")(zoo_phase)(
             torch, arch, results)
         torch.cuda.empty_cache()
+    phase_distributed(torch, g, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as f:

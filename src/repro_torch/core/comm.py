@@ -10,8 +10,9 @@ of that idea: every remote byte in all three system families flows
 through it.
 
 * :class:`WireCodec` — pluggable payload encodings with a per-row wire
-  size and host (numpy) encode/decode.  (The reference's in-step
-  quantize-dequantize, ``jax_qdq``, arrives with the async slice.)
+  size, host (numpy) encode/decode, and :meth:`~WireCodec.qdq`, which on
+  a torch tensor is the in-step quantize-dequantize (the reference's
+  ``jax_qdq``) that ``forward_stale`` applies inside a training step:
 
   - ``fp32``: identity; bit-exact with the pre-codec behavior.
   - ``bf16``: round-to-nearest-even truncation, 2 bytes/element.
@@ -42,6 +43,7 @@ import dataclasses
 from typing import Dict, NamedTuple, Optional, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core import telemetry
 
@@ -86,6 +88,8 @@ HEADER_BYTES = 64
 # int8 per-row affine metadata: row offset (min) + quantization step
 # (scale), one float32 each
 INT8_ROW_META_BYTES = 8
+# the float32 reciprocal of 255 XLA multiplies by for ``/ 255.0``
+_INV_255 = float(np.float32(1.0 / 255.0))
 
 
 # ---------------------------------------------------------------------------
@@ -127,9 +131,11 @@ class WireCodec:
     """A wire encoding for float32 row batches.
 
     Subclasses define ``name``, :meth:`wire_bytes_per_row`,
-    and :meth:`encode` / :meth:`decode` (host-side, numpy).  ``identity`` marks the lossless fp32 codec so
-    hot paths can skip encode/decode entirely and stay bit-exact;
-    ``error_feedback`` marks codecs whose senders should keep residuals.
+    :meth:`encode` / :meth:`decode` (host-side, numpy) and
+    :meth:`_qdq_tensor` (the in-step quantize-dequantize behind
+    :meth:`qdq`).  ``identity`` marks the lossless fp32 codec so hot paths
+    can skip encode/decode entirely and stay bit-exact; ``error_feedback``
+    marks codecs whose senders should keep residuals.
     """
 
     name: str = "abstract"
@@ -150,9 +156,17 @@ class WireCodec:
         receiver sees; lossy codecs do not round-trip exactly)."""
         raise NotImplementedError
 
-    def qdq(self, rows: np.ndarray) -> np.ndarray:
-        """Host-side quantize→dequantize: the receiver's view of ``rows``."""
+    def qdq(self, rows):
+        """Quantize→dequantize: the receiver's view of ``rows``.  Numpy
+        rows go through the host :meth:`encode` / :meth:`decode`; a torch
+        tensor through the in-step formula on its own device, float32 in
+        and out (the reference's ``jax_qdq``, bitwise on normal ranges)."""
+        if isinstance(rows, torch.Tensor):
+            return self._qdq_tensor(rows)
         return self.decode(self.encode(rows))
+
+    def _qdq_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
 
 class Fp32Codec(WireCodec):
@@ -177,9 +191,9 @@ class Fp32Codec(WireCodec):
         """Pass-through."""
         return payload.data[0]
 
-    def qdq(self, rows: np.ndarray) -> np.ndarray:
+    def qdq(self, rows):
         """Identity (no copy): fp32 is lossless."""
-        return np.asarray(rows)
+        return rows if isinstance(rows, torch.Tensor) else np.asarray(rows)
 
 
 class Bf16Codec(WireCodec):
@@ -202,6 +216,10 @@ class Bf16Codec(WireCodec):
     def decode(self, payload: WirePayload) -> np.ndarray:
         """Re-widen the 16-bit pattern to float32."""
         return _bf16_value(payload.data[0])
+
+    def _qdq_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Round-trip through ``torch.bfloat16`` (round-to-nearest-even)."""
+        return x.to(torch.bfloat16).to(torch.float32)
 
 
 class Int8Codec(WireCodec):
@@ -266,6 +284,30 @@ class Int8Codec(WireCodec):
         return (mn.astype(np.float64)
                 + q.astype(np.float64) * scale.astype(np.float64)
                 ).astype(np.float32)
+
+    def _qdq_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-row affine quantize→dequantize in float32, the reference's
+        ``jax_qdq`` as XLA compiles it inside the step: the scale is
+        ``(max - min) * float32(1 / 255)`` (XLA turns the division by a
+        constant into that product), ``torch.round`` rounds half to even
+        as ``jnp.round``, and ``min + q * scale`` is one fused
+        multiply-add (computed in float64, where the product is exact,
+        then rounded to float32).  No error feedback here: the caller carries the
+        residuals.  A row whose scale rounds so far down in the
+        subnormals that its max would need ``q = 256`` takes the next
+        float32 step, as :meth:`encode`'s repaired scale does (one step
+        is enough); no normal-range row is touched."""
+        mn = torch.amin(x, dim=-1, keepdim=True)
+        mx = torch.amax(x, dim=-1, keepdim=True)
+        scale = (mx - mn) * _INV_255
+        rng = mx.double() - mn.double()
+        short = (rng > 0) & (rng >= 255.5 * scale.double())
+        scale = torch.where(short, torch.nextafter(
+            scale, torch.full_like(scale, torch.inf)), scale)
+        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.clamp(torch.round((x - mn) / safe), 0.0, 255.0)
+        out = (mn.double() + q.double() * scale.double()).to(torch.float32)
+        return torch.where(scale > 0, out, mn)
 
 
 

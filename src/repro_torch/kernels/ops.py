@@ -110,7 +110,17 @@ def launch_counts() -> dict:
     return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
+def launch_counts_by_width() -> dict:
+    """K1's launches since the last reset by counter and row width:
+    ``{counter: {F: n}}``."""
+    out: dict = {}
+    for (name, width), n in sorted(_ss.launches_by_width.items()):
+        out.setdefault(name, {})[width] = n
+    return out
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+    _ss.launches_by_width.clear()

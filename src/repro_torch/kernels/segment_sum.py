@@ -58,6 +58,9 @@ from repro_torch.kernels import build
 launches = {"gather_scale_segment_sum": 0, "gather_scale_segment_sum_t": 0,
             "segment_sum": 0, "gather_scale_segment_sum_q": 0,
             "gather_rows": 0, "edge_dot": 0}
+#: K1's launches again, by counter and row width: ``{(counter, F): n}``
+#: (reset with ``launches``)
+launches_by_width: dict = {}
 
 Layout = Tuple[torch.Tensor, torch.Tensor]
 
@@ -390,8 +393,10 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
         row_ptr.data_ptr(), out.data_ptr(),
         None if col is None else col_out.data_ptr(), num_dst, F, heads,
         *_plan_args(plan), _stream()), "gss_forward")
-    launches["gather_scale_segment_sum_t" if transpose
-             else "gather_scale_segment_sum"] += 1
+    name = ("gather_scale_segment_sum_t" if transpose
+            else "gather_scale_segment_sum")
+    launches[name] += 1
+    launches_by_width[name, F] = launches_by_width.get((name, F), 0) + 1
     return out if col is None else (out, col_out)
 
 

@@ -16,8 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import collectives as C
 from repro_torch.core.abstraction import DeviceGraph
 from repro_torch.core.comm import QuantizedRows
+from repro_torch.core.propagation import aggregate
 from repro_torch.models.gnn.layers import APPNPLayer, LAYER_TYPES
 
 
@@ -126,6 +128,106 @@ def _pad_rows(h, num_src: int):
     if isinstance(h, QuantizedRows) or h.shape[0] >= num_src:
         return h
     return F.pad(h, (0, 0, 0, num_src - h.shape[0]))
+
+
+def forward_stale(params: nn.ModuleList, h_own: torch.Tensor, shard,
+                  ghosts: Sequence[torch.Tensor],
+                  refresh: Sequence[torch.Tensor], own_rows: torch.Tensor,
+                  *, codec=None, residuals=None, x_all=None):
+    """Staleness-bounded full-graph GCN forward of one rank.
+
+    The asynchronous counterpart of
+    :func:`repro_torch.core.propagation.gcn_forward_local`: layer
+    ``i >= 1`` aggregates *historical* activations for ghost sources
+    (per-layer stale planes from a :class:`repro_torch.core.halo.
+    HaloExchange`) and fresh activations only for owned rows and the rows
+    this step's refresh plan exchanges synchronously.  Layer 0 consumes
+    the static input features, which never go stale.  Each layer gathers
+    first and multiplies after (``h_all @ W`` over ``N_pad`` rows), where
+    the pull step multiplies first.
+
+    Args:
+        params: the GCN model (layers holding ``w``, ``b``).
+        h_own: ``(n_local, F)`` this rank's owned input features.
+        shard: this rank's pull-layout
+            :class:`~repro_torch.core.propagation.RankShard` (its edges,
+            the global-degree coefficients; pad edges are masked out, so
+            pad rows never aggregate).
+        ghosts: per-layer ``(N_pad, F_l)`` replicated stale activation
+            planes on the device, innermost first (layer ``l`` plane
+            feeds layer ``l+1``).
+        refresh: per-layer ``(N_pad,)`` bool — rows served *fresh* this
+            step (this step's synchronous exchange).  All-True degrades
+            to the synchronous pull forward.
+        own_rows: ``(N_pad,)`` bool — rows this rank owns (always fresh).
+        codec: optional :class:`repro_torch.core.comm.WireCodec`.  Under a
+            lossy codec, a refreshed row's sender quantizes the plane on
+            the wire (``codec.qdq``; with error feedback iff
+            ``codec.error_feedback``), so every rank that does *not* own
+            the row — refreshed or stale — reads the decoded wire value;
+            the owner keeps its exact local activations.  ``None`` or the
+            identity fp32 codec computes the exact pre-codec function.
+        residuals: per-layer ``(N_pad, F_l)`` error-feedback residuals
+            (required iff ``codec.error_feedback``, e.g. int8): the
+            sender adds them before quantizing and the returned
+            residuals carry ``pre - decoded`` for rows refreshed this
+            step.  Codecs without feedback (bf16) quantize statelessly.
+        x_all: the all-gathered ``(N_pad, F_in)`` input features, when
+            the caller gathered them once for the run (the same bits as
+            gathering them every step); else layer 0 gathers them.
+
+    Returns:
+        ``(h, planes, residuals_out)`` — ``h`` is the ``(n_local,
+        num_classes)`` output for owned rows; ``planes`` are the global
+        layer outputs ``h_0 .. h_{L-2}`` *as they crossed the wire*
+        (codec-decoded; exact under fp32; detached) for the host to
+        write back into the ghost buffers at the refreshed rows;
+        ``residuals_out`` the updated error-feedback state (``()`` under
+        an exact codec).
+
+    Gradient semantics: stale rows enter as constants (no gradient flows
+    into the buffers); refreshed rows take part in the all-gather and
+    carry exact gradients back to their owners — under a lossy codec
+    through a straight-through estimator (the wire value enters the
+    forward, the gradient of the unquantized activation flows back).
+    """
+    quantize = codec is not None and not codec.identity
+    h = h_own
+    planes, res_out = [], []
+    n_layers = len(params)
+    for i, layer in enumerate(params):
+        if i == 0:
+            # static inputs: never stale
+            h_all = x_all if x_all is not None else C.AllGather.apply(h)
+        elif not quantize:
+            h_all_fresh = C.AllGather.apply(h)      # (N_pad, F)
+            planes.append(h_all_fresh.detach())     # global layer-(i-1)
+            use_fresh = refresh[i - 1] | own_rows
+            h_all = torch.where(use_fresh[:, None], h_all_fresh,
+                                ghosts[i - 1])
+        else:
+            h_all_fresh = C.AllGather.apply(h)
+            mask = refresh[i - 1][:, None]
+            fresh = h_all_fresh.detach()
+            if codec.error_feedback:
+                # sender-side error feedback before quantizing the wire
+                # plane; residuals advance only for rows sent this step
+                res = residuals[i - 1]
+                pre = fresh + res
+                dec_raw = codec.qdq(pre)
+                res_out.append(torch.where(mask, pre - dec_raw, res))
+            else:                                   # stateless (bf16)
+                dec_raw = codec.qdq(fresh)
+            # straight-through: the forward sees the wire value, the
+            # backward the exact all-gather
+            dec = h_all_fresh + (dec_raw - fresh)
+            planes.append(dec.detach())             # what receivers store
+            h_all = torch.where(own_rows[:, None], h_all_fresh,
+                                torch.where(mask, dec, ghosts[i - 1]))
+        h = aggregate(h_all @ layer.w, shard.graph, shard.coef) + layer.b
+        if i + 1 < n_layers:
+            h = F.relu(h)
+    return h, planes, tuple(res_out)
 
 
 def forward_blocks_cached(cfg: GNNConfig, params: nn.ModuleList,

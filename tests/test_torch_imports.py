@@ -42,7 +42,11 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'core.updates', 'graph.datasets', 'checkpoint',\n"
         "             'checkpoint.io', 'serving.replica',\n"
         "             'serving.router', 'configs.qwen2_5_14b',\n"
-        "             'configs.gemma_7b', 'configs.glm4_9b'):\n"
+        "             'configs.gemma_7b', 'configs.glm4_9b',\n"
+        "             'core.partitioning', 'core.sync', 'core.halo',\n"
+        "             'core.collectives', 'core.propagation',\n"
+        "             'core.coordination', 'distributed',\n"
+        "             'distributed.pipeline', 'distributed.async_train'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

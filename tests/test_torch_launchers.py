@@ -1,9 +1,17 @@
 """The GNN launchers' ported options on the CPU: ``--reorder`` (training
 is invariant under the relabelling; served requests and responses keep
 their original ids), ``--dataset``, ``--sampler importance|fastgcn|
-ladies`` and the server's ``--update-stream`` / ``--update-every``.  The
-options still refused are held in ``test_torch_train.py`` and
-``test_torch_serving.py``."""
+ladies``, the server's ``--update-stream`` / ``--update-every``, and the
+trainer's distributed full-graph paths (``--devices 2 --device cpu``
+under every ``--mode`` and ``--partitioner auto``; ``--fullgraph`` with
+``--staleness``, ``--wire-codec int8`` and ``--update-stream``), spawned
+once as one world of jobs, plus one run through ``main`` and one through
+the command line.  The options still refused are held in
+``test_torch_train.py`` and ``test_torch_serving.py``."""
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -131,3 +139,97 @@ def test_serve_gnn_loads_a_dataset():
     assert res["server"].g.num_nodes == want.num_nodes
     assert res["server"].cfg.feat_dim == want.features.shape[1]
     assert res["server"].cfg.num_classes == want.num_classes
+
+
+# ---------------------------------------------------------------------------
+# the distributed full-graph paths (spawned gloo ranks on the CPU)
+# ---------------------------------------------------------------------------
+
+DIST = SMALL + ["--devices", "2", "--nodes", "144", "--epochs", "6"]
+MODES = ("pull", "push", "stale", "hysync")
+
+
+@pytest.fixture(scope="module")
+def dist_runs(tmp_path_factory):
+    """Every distributed launch of this file's checks as one world of 2
+    ranks: the four modes, ``--partitioner auto``, the async trainer
+    under int8 and with an update stream (40 events of the launcher's own
+    graph, 10 folded an epoch)."""
+    path = tmp_path_factory.mktemp("stream") / "u.jsonl"
+    g = train_gnn.load_graph(train_gnn.parse_args(DIST[:-2] + ["--epochs",
+                                                              "1"]))
+    synthesize_updates(g, 40, seed=1).to_jsonl(str(path))
+    jobs = {m: DIST + ["--mode", m] + (["--staleness", "2"] if m in (
+        "stale", "hysync") else []) for m in MODES}
+    jobs["auto"] = DIST + ["--partitioner", "auto"]
+    jobs["int8"] = DIST + ["--fullgraph", "--staleness", "2",
+                           "--wire-codec", "int8"]
+    jobs["stream"] = DIST + ["--fullgraph", "--update-stream", str(path),
+                             "--updates-per-epoch", "10"]
+    res = train_gnn.run_world(list(jobs.values()), world=2, device="cpu",
+                              timeout_s=240)
+    return dict(zip(jobs, res))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_train_gnn_distributed_modes(dist_runs, mode):
+    res = dist_runs[mode]
+    assert res["mode"] == mode and len(res["ranks"]) == 2
+    losses = res["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert [r["losses"] for r in res["ranks"]] == [losses, losses]
+    for r in res["ranks"]:
+        for a, b in zip(r["params"], res["params"]):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+    # every collective of every epoch is counted
+    assert all(e["bytes_received"] > 0 for e in res["epochs"])
+    if mode != "pull":
+        np.testing.assert_allclose(losses, dist_runs["pull"]["losses"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_train_gnn_auto_partitioner(dist_runs, capsys):
+    res = dist_runs["auto"]
+    assert res["partitioner"] in ("hash", "ldg")
+    assert np.isfinite(res["losses"]).all()
+
+
+def test_train_gnn_fullgraph_int8(dist_runs):
+    res = dist_runs["int8"]
+    st = res["stats"]
+    assert st["wire_codec"] == "int8" and st["staleness"] == 2
+    assert st["bytes_per_step"] < st["sync_bytes_per_step"]
+    assert np.isfinite(res["losses"]).all()
+    assert len({r["ghost_digest"] for r in res["ranks"]}) == 1
+    assert 0.0 <= res["accuracy"] <= 1.0
+
+
+def test_train_gnn_fullgraph_update_stream(dist_runs):
+    res = dist_runs["stream"]
+    assert res["update_seq"] == 40
+    assert [f["events"] for f in res["folds"]] == [10, 10, 10, 10]
+    assert all(f["touched_nodes"] > 0 and f["invalidated_rows"] > 0
+               for f in res["folds"])
+    assert np.isfinite(res["losses"]).all()
+    drop = ("seconds",)
+    assert [{k: v for k, v in f.items() if k not in drop}
+            for f in res["ranks"][1]["folds"]] == \
+        [{k: v for k, v in f.items() if k not in drop} for f in res["folds"]]
+
+
+def test_train_gnn_main_runs_a_world(capsys):
+    res = train_gnn.main(DIST + ["--mode", "push"])
+    out = capsys.readouterr().out
+    assert "backend gloo, world 2" in out and "ranks on cpu" in out
+    assert res["mode"] == "push" and res["world"] == 2
+    assert np.isfinite(res["losses"]).all()
+
+
+def test_train_gnn_command_line_distributed():
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train_gnn",
+                        *DIST, "--fullgraph", "--staleness", "1"],
+                       env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "final accuracy" in r.stdout and "KiB/step" in r.stdout
