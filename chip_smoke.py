@@ -11,9 +11,12 @@ Phases, in order; any failure makes the exit code nonzero:
    source, all in parallel) and time the build; ptxas's registers and
    spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
    SASS and in K8's (``cuobjdump -sass``: nonzero in each of the eight K7
-   kernels, bf16 and float32 at every head width, and in K8's two bf16
-   kernels, N 64 and 128, with no spills in any of them); each
-   ``launch_plan``'s shared memory equals what its kernel asks for;
+   kernels, bf16 and float32 at each tile width, 64, 96, 128 and 256, and
+   in K8's two bf16 kernels, N 64 and 128, with no spills in any of
+   them); each head width of ``HEAD_DIMS`` runs on one of those
+   instances (hd 80 on the hd-96 one, printed per width with its HGMMA
+   count); each ``launch_plan``'s shared memory equals what its kernel
+   asks for, hd 80's included;
 2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
    GAT attention) at the full-width shapes of the GraphSAGE-Reddit
    serving path plus edge cases: max abs error against its plain PyTorch
@@ -107,12 +110,16 @@ Phases, in order; any failure makes the exit code nonzero:
    TFLOP/s in bf16, 495 TFLOP/s in TF32 for float32; the
    library yardsticks are ``scaled_dot_product_attention`` and the
    reference's einsum): first hd 64, 96, 128 and 256, a non-causal call
-   and a window of 40 (untimed), then K7 at Phi-3-mini's prefill (8 x
-   1024, 32 x 96, causal) in bf16 and float32 (the TF32 split route),
+   and a window of 40, and hd 80 (Zamba2-2.7B's heads, on the hd-96
+   tiles) causal, non-causal and with a window of 40 (untimed), then K7
+   at Phi-3-mini's prefill (8 x 1024, 32 x 96, causal) in bf16 and
+   float32 (the TF32 split route),
    with G 5 at hd 128, a window of 256, Sq < Skv and Sq 1, each also in
    float32 (1e-4 of the largest value), and at phase 13's three prefill
    shapes (8 x 1024: Qwen2.5-14B 40 / 8 x 128, Gemma-7B 16 / 16 x 256,
-   GLM-4-9B 32 / 2 x 128; timed in bf16, checked in float32); K8 at Mamba2-780m's prefill (32
+   GLM-4-9B 32 / 2 x 128; timed in bf16, checked in float32), and at
+   Zamba2-2.7B's (8 x 1024, 32 / 32 x 80, timed in both dtypes, its
+   bound counting 80 columns); K8 at Mamba2-780m's prefill (32
    chunks of 256, 48 x 64, N 128) in bf16 (the tensor-core route, 1e-4
    of the largest value) with G 1 and 2 and in float32 (the CUDA-core
    route), and in bf16 at ragged chunks of 100 and 7 positions and over
@@ -127,9 +134,11 @@ Phases, in order; any failure makes the exit code nonzero:
    K7 launch; (b) ``prefill`` of 8 x 1024 tokens and 32 decode steps in
    its cache (grown by 32 slots), exactly 32 K7 launches (bf16 route;
    the float32 prefill below, 32 of the float32 route), finite logits,
-   prefill against the decode-only loop over the same prompts at full
-   depth in float32 (within 1e-3 of the largest logit; Mamba2 3e-3) and
-   in bf16 (RMS ratio bound), prefill and decode tok/s, peak memory; (c)
+   prefill against the decode-only loop at full depth over the prompts'
+   first 512 positions (``LM_CMP_PROMPT``, through a prefill of that
+   length: two SSD chunks of 256) in float32 (two prompts, within 1e-3
+   of the largest logit; Mamba2 3e-3) and in bf16 (all 8, RMS ratio
+   bound), prefill and decode tok/s, peak memory; (c)
    a ``torch.profiler`` split of one prefill and of one decode step (K7,
    matrix products, elementwise work) as the active step after a
    profiled warm-up step; (d) a 2-layer float32 cut at full width on the
@@ -142,10 +151,25 @@ Phases, in order; any failure makes the exit code nonzero:
    bf16, random weights: a prefill of 8 x 1024 with exactly one K7 launch
    (bf16 route) a layer, 32 decode steps in its grown cache, finite
    logits, tok/s and peak memory; float32 prefill against the decode-only
-   loop on a 4-layer cut at full width (1e-3 of the largest logit, K7's
-   float32 route once a layer); a 2-layer float32 cut on the card and the
-   CPU as in 9(d).  Full depth in float32 is left out: Qwen2.5-14B's
-   float32 weights (about 59 GB) do not fit beside the rest;
+   loop over 2 x 512 tokens on a 4-layer cut at full width (1e-3 of the
+   largest logit, K7's float32 route once a layer); a 2-layer float32 cut
+   on the card and the CPU as in 9(d).  Full depth in float32 is left
+   out: Qwen2.5-14B's float32 weights (about 59 GB) do not fit beside
+   the rest;
+15. (run after 13, before 14) serve Zamba2-2.7B (the hybrid family: 54
+   Mamba2 layers in 9 groups of 6, each followed by one shared attention
+   block with heads 80 wide) at its published widths: (a) float32 on a
+   12-layer cut (two groups) through ``launch/prefill_gap.py --layers
+   12``: prefill against the decode-only loop over 2 x 512 tokens within
+   3e-3 of the largest logit (Mamba2's bound; the reference's own two
+   paths at a CPU-sized cut printed beside), exactly 12 launches of K8's
+   float32 route and 2 of K7's, and its ``--flip`` control above the
+   bound; (b) bf16 at full depth, random weights: a prefill of 8 x 1024
+   with exactly 54 K8 launches (bf16 route: the N 64 tensor-core kernel)
+   and 9 K7 launches (bf16 route at hd 80), 32 decode steps in its grown
+   nested cache launching neither, finite logits, tok/s and peak memory;
+   (c) a 2-layer float32 cut with ``attn_every`` 1 (two applications of
+   the shared block) on the card and the CPU as in 9(d);
 14. (run last) distributed full-graph GCN at Reddit's widths (602 → 256
    → 41, hash partitioner) with 4 ranks sharing the card: one spawned
    world (``train_gnn.run_world``: gloo, CUDA tensors staged through
@@ -425,7 +449,7 @@ def phase_build(torch, results):
                   or "wgmma" in line.lower()):
                 print(f"   ptxas {name} {fn}: {line.strip()}")
                 ptxas.setdefault(fn, []).append(line.strip())
-    # every K7 kernel (bf16 and float32, four head widths each) and K8's
+    # every K7 kernel (bf16 and float32, four tile widths each) and K8's
     # bf16 kernels (N 64 and 128) run on the tensor cores: their SASS
     # holds HGMMA, and ptxas spills nothing in them
     hgmma = sass_counts(out_dir / "libflash_attention.so", "HGMMA")
@@ -442,17 +466,27 @@ def phase_build(torch, results):
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
     require(not spills, f"no ptxas spills in the tensor-core kernels: "
             f"{spills}")
-    # each launch_plan states the shared memory its kernel asks for
+    # each launch_plan states the shared memory its kernel asks for, and
+    # each head width runs on a built instance (hd 80 on the hd-96 one)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
-    smem = {}
+    smem, instances = {}, {}
     for hd in fa.HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, 1, 64, hd, dtype=dtype)
+            plan = fa.launch_plan(q, q, q, q)
+            inst = f"{plan['kernel']}[{plan['tile_width']}]"
+            instances[f"hd {hd}, {dtype}"] = (inst, hgmma.get(inst, 0))
             smem[f"flash_attention[{hd}, {dtype}]"] = (
-                fa.launch_plan(q, q, q, q)["smem_bytes"],
+                plan["smem_bytes"],
                 build.library("flash_attention").flash_attention_smem(
                     hd, int(dtype == torch.bfloat16)))
+    print("   K7 instance (HGMMA count) per head width: "
+          + json.dumps(instances), flush=True)
+    results["build"]["k7_instances"] = instances
+    require(all(i in tc and i not in spills for i, _ in instances.values()),
+            f"every head width runs on a built tensor-core instance with "
+            f"HGMMA and no spills: {instances}")
     for N in sc.TC_NS:
         x = torch.zeros(1, 256, 1, sc.TC_P, dtype=torch.bfloat16)
         Bm = torch.zeros(1, 256, 1, N, dtype=torch.bfloat16)
@@ -2055,7 +2089,7 @@ def phase_replica_updates(torch, g, results):
 # K8) at their published widths, bf16 as their configs state
 # ---------------------------------------------------------------------------
 
-PHI3, MAMBA2 = "phi3-mini-3.8b", "mamba2-780m"
+PHI3, MAMBA2, ZAMBA2 = "phi3-mini-3.8b", "mamba2-780m", "zamba2-2.7b"
 # phase 13's dense configs: QKV bias and G 5 (Qwen2.5-14B, 40 / 8 x 128),
 # GeGLU with tied, scaled embeddings at hd 256 (Gemma-7B, 16 / 16 x 256),
 # partial rotary and G 16 (GLM-4-9B, 32 / 2 x 128)
@@ -2065,6 +2099,13 @@ ZOO = ("qwen2.5-14b", "gemma-7b", "glm4-9b")
 # depth, about 59 GB, do not fit beside the rest)
 ZOO_FP32_LAYERS = 4
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+# phases 9, 10, 13 and 15 hold prefill against the decode-only loop over
+# the first LM_CMP_PROMPT positions of their prompts, through a prefill
+# of that length: two of Mamba2's (and Zamba2's) 256-position SSD chunks,
+# so the state passed between chunks is still checked, and four of K7's
+# 128-key tiles, at half the decode steps of the whole prompt (the loops
+# took most of phases 9 and 10)
+LM_CMP_PROMPT = 512
 # the configs phases 9 and 10 serve: empty, the published ones (32 and 48
 # layers, one K7 or K8 launch each per prefill).  A rehearsal off the card
 # puts small configs here and cuts LM_BATCH, LM_PROMPT, LM_GEN; the
@@ -2104,11 +2145,23 @@ BF16_ULP_REL, BF16_ATOL_REL, BF16_P_REL = 2.0 ** -7, 1e-5, 2.0 ** -8
 # 0.017 (Phi-3) and 0.30 (Mamba2), each about as far from the float32
 # result, where an unrelated output gives about 1.4; the bounds are 2-6x
 # the reference's.
-LM_FP32_REL = {PHI3: 1e-3, MAMBA2: 3e-3}
+LM_FP32_REL = {PHI3: 1e-3, MAMBA2: 3e-3, ZAMBA2: 3e-3}
 LM_BF16_RMS = {PHI3: 0.1, MAMBA2: 0.6}
 # the 2-layer float32 cut on the card and the CPU: (batch, tokens); Mamba2
 # takes two SSD chunks of 256
-LM_CUT = {PHI3: (2, 256), MAMBA2: (2, 512), **{a: (2, 256) for a in ZOO}}
+LM_CUT = {PHI3: (2, 256), MAMBA2: (2, 512), ZAMBA2: (2, 512),
+          **{a: (2, 256) for a in ZOO}}
+# phase 15: Zamba2-2.7B's float32 prefill against the decode-only loop on
+# a cut of this many layers at full width (two groups of 6, so two
+# applications of the shared block); Zamba2's paths hold Mamba2's bound
+ZAMBA2_FP32_LAYERS = 12
+# the reference's own two paths (prefill against its decode-only loop,
+# float32, max_abs_rel) at Zamba2-2.7B's full width, 12 layers, 2 x 512
+# tokens, measured on a CPU (tests/test_torch_reference_gap.py --arch
+# zamba2-2.7b --full-width --layers 12 --prompt-len 512; the port's own
+# two paths there: 1.580693408653665e-4), printed beside the card's: the
+# bound sits 20x above it
+ZAMBA2_REFERENCE_GAP = {"layers 12": 1.4749537658159388e-4}
 
 
 def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
@@ -2206,7 +2259,14 @@ def phase_lm_kernels(torch, results):
          {}),
         (("K7 non-causal, Sq 48 < Skv 96, hd 64", 2, 4, 4, 48, 96, 64),
          {"causal": False}),
-        (("K7 window 40, S 130", 1, 4, 2, 130, 130, 96), {"window": 40}))
+        (("K7 window 40, S 130", 1, 4, 2, 130, 130, 96), {"window": 40}),
+        # hd 80 (Zamba2-2.7B's heads) on the hd-96 tiles: TMA's zero fill
+        # past column 80 and the store's clipping, at each mask
+        (("K7 hd 80, G 2, S 200", 2, 8, 4, 200, 200, 80), {}),
+        (("K7 hd 80, non-causal, Sq 48 < Skv 96", 2, 4, 4, 48, 96, 80),
+         {"causal": False}),
+        (("K7 hd 80, window 40, S 130", 1, 4, 2, 130, 130, 80),
+         {"window": 40}))
     # the head widths first: a wgmma descriptor or swizzle that does not
     # match its TMA map shows as wrong values at one width
     for args, kw in untimed:
@@ -2232,6 +2292,18 @@ def phase_lm_kernels(torch, results):
             torch, c, label + ", bf16", *shape)
         k7_case(torch, c, label + ", float32", *shape, dtype=torch.float32,
                 timed=False)
+    # Zamba2-2.7B's prefill (32 / 32 x 80, the shared block's attention),
+    # timed in both dtypes: bf16 is its served prefill's route, float32
+    # its 12-layer cut's (phase 15); the bound counts 80 columns
+    zcfg = LM_CONFIGS.get(ZAMBA2) or get_config(ZAMBA2)
+    zshape = (Bsz, zcfg.num_heads, zcfg.num_kv_heads, S, S,
+              zcfg.resolved_head_dim)
+    zlabel = (f"K7 {zcfg.name} prefill (B {Bsz}, S {S}, {zshape[1]} / "
+              f"{zshape[2]} x {zshape[5]}, causal)")
+    results[f"flash_attention.{ZAMBA2}"] = k7_case(
+        torch, c, zlabel + ", bf16", *zshape)
+    results[f"flash_attention_fp32.{ZAMBA2}"] = k7_case(
+        torch, c, zlabel + ", float32", *zshape, dtype=torch.float32)
     # every case in both dtypes: float32 holds the CUDA-core kernel to
     # 1e-4 of the largest value at each head width and mask
     for _, args, kw in cases[1:]:
@@ -2289,12 +2361,20 @@ def phase_lm_kernels(torch, results):
 
 def _with_room(torch, cache, n):
     """prefill's cache (the prompt's S positions, as the reference's) with
-    ``n`` zero slots more for the decode steps that follow; an SSM cache
+    ``n`` zero slots more for the decode steps that follow, wherever it
+    holds keys and values (the hybrid's nested ``attn``); an SSM cache
     holds no positions."""
     if "k" not in cache:
-        return cache
+        return {k: _with_room(torch, c, n) if isinstance(c, dict) else c
+                for k, c in cache.items()}
     return {k: torch.cat([c, c.new_zeros(c.shape[:2] + (n,) + c.shape[3:])],
                          dim=2) for k, c in cache.items()}
+
+
+def cache_bytes(cache) -> int:
+    """The bytes of a cache's tensors, nested dicts walked."""
+    return sum(cache_bytes(c) if isinstance(c, dict)
+               else c.numel() * c.element_size() for c in cache.values())
 
 
 def lm_profile(torch, label, step, wall_s) -> dict:
@@ -2374,7 +2454,7 @@ def lm_cut_parity(torch, cfg, arch) -> dict:
         require(bool(torch.isfinite(a).all()) and err <= 1e-4 * scale,
                 f"2-layer float32 cut, {what}: card vs CPU {err} (max|cpu| "
                 f"{scale})")
-    print(f"   (d) 2-layer float32 cut ({B} x {S}), card vs CPU: "
+    print(f"   2-layer float32 cut ({B} x {S}), card vs CPU: "
           + json.dumps(res), flush=True)
     return res
 
@@ -2384,8 +2464,9 @@ def lm_phase(torch, arch, results):
     loop; (b) prefill of LM_BATCH x LM_PROMPT tokens and LM_GEN decode
     steps from its cache with exactly one K7 (Phi-3) or K8 (Mamba2)
     launch per layer, and prefill against the decode-only loop at full
-    depth, in float32 and in bf16; (c) a profile of one prefill; (d) a
-    2-layer float32 cut on the card and on the CPU."""
+    depth over the prompts' first LM_CMP_PROMPT positions, in float32
+    (two prompts) and in bf16 (all LM_BATCH); (c) a profile of one
+    prefill; (d) a 2-layer float32 cut on the card and on the CPU."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -2420,6 +2501,7 @@ def lm_phase(torch, arch, results):
     prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(1))
+    cmp = prompts[:, :min(LM_CMP_PROMPT, LM_PROMPT)]
     with torch.inference_mode():
         # float32 weights at full depth: prefill against the decode-only
         # loop, two of the prompts
@@ -2427,14 +2509,14 @@ def lm_phase(torch, arch, results):
         p32 = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
         ops.reset_launch_counts()
-        lg32, _ = M.prefill(cfg32, p32, {"tokens": prompts[:2]})
+        lg32, _ = M.prefill(cfg32, p32, {"tokens": cmp[:2]})
         counts32 = {k: v for k, v in ops.launch_counts().items() if v}
         results[f"launches.lm_fp32.{arch}"] = counts32
         n32 = counts32.get(LM_KERNEL_FP32[arch], 0)
-        g = gap(lg32[:, :V], decode_loop(cfg32, p32, prompts[:2])[:, :V])
-        out["fp32_prefill_vs_decode"] = g
-        print(f"   float32, 2 x {LM_PROMPT}: prefill vs the decode-only loop "
-              + json.dumps(g), flush=True)
+        g = gap(lg32[:, :V], decode_loop(cfg32, p32, cmp[:2])[:, :V])
+        out["fp32_prefill_vs_decode"] = dict(g, prompt=cmp.shape[1])
+        print(f"   float32, 2 x {cmp.shape[1]}: prefill vs the decode-only "
+              f"loop " + json.dumps(g), flush=True)
         require(counts32 == {LM_KERNEL_FP32[arch]: nl},
                 f"{LM_KERNEL_FP32[arch]} launched {n32} times (all "
                 f"launches: {counts32}) in a float32 prefill of {nl} "
@@ -2458,7 +2540,6 @@ def lm_phase(torch, arch, results):
         # the peaks leave out the copy that grows the cache
         cache = _with_room(torch, cache, LM_GEN)
         torch.cuda.reset_peak_memory_stats()
-        first = logits
         finite = bool(torch.isfinite(logits.float()).all())
         tok = torch.argmax(logits[:, :V], -1)[:, None]
         t0 = time.perf_counter()
@@ -2480,8 +2561,7 @@ def lm_phase(torch, arch, results):
             "decode_tok_s": LM_BATCH * LM_GEN / t_decode,
             "max_memory_allocated": max(peak_prefill,
                                         torch.cuda.max_memory_allocated()),
-            "cache_bytes": sum(t.numel() * t.element_size()
-                               for t in cache.values()),
+            "cache_bytes": cache_bytes(cache),
             "launches": counts}
         print(f"   (b) prefill {LM_BATCH} x {LM_PROMPT}, then {LM_GEN} "
               f"decode steps: " + json.dumps(out["prefill"]), flush=True)
@@ -2498,11 +2578,12 @@ def lm_phase(torch, arch, results):
                                      "pos": LM_PROMPT + LM_GEN - 1}),
             t_decode / LM_GEN)
         del cache
-        g = gap(first[:, :V], decode_loop(cfg, params, prompts)[:, :V])
-        out["bf16_prefill_vs_decode"] = g
+        lg_cmp, _ = M.prefill(cfg, params, {"tokens": cmp})
+        g = gap(lg_cmp[:, :V], decode_loop(cfg, params, cmp)[:, :V])
+        out["bf16_prefill_vs_decode"] = dict(g, prompt=cmp.shape[1])
         print(f"   bf16: prefill vs the decode-only loop at position "
-              f"{LM_PROMPT - 1}: " + json.dumps(g) + f" (bound: RMS ratio "
-              f"{LM_BF16_RMS[arch]})", flush=True)
+              f"{cmp.shape[1] - 1}: " + json.dumps(g) + f" (bound: RMS "
+              f"ratio {LM_BF16_RMS[arch]})", flush=True)
         require(g["rms_ratio"] <= LM_BF16_RMS[arch],
                 f"bf16 prefill agrees with the decode-only loop: {g}")
 
@@ -2525,47 +2606,16 @@ def phase_mamba2(torch, results):
     lm_phase(torch, MAMBA2, results)
 
 
-def zoo_phase(torch, arch, results):
-    """One of phase 13's dense configs: (a) float32 at full width on a
-    ZOO_FP32_LAYERS-layer cut, prefill against the decode-only loop
-    within 1e-3 of the largest logit, K7's float32 route once a layer;
-    (b) bf16 at full width and depth: a LM_BATCH x LM_PROMPT prefill
-    launching K7's bf16 route exactly once a layer, LM_GEN decode steps
-    in its grown cache, finite logits, tok/s and peak memory; (c) a
-    2-layer float32 cut on the card and on the CPU (``lm_cut_parity``)."""
-    from repro_torch.configs.base import get_config
+def serve_full_depth(torch, cfg, arch, prompts, expected, results) -> dict:
+    """bf16 at full width and depth, random weights (phases 13 and 15): a
+    prefill of ``prompts`` (LM_BATCH x LM_PROMPT) that launches exactly
+    ``expected`` (launches by counter), LM_GEN decode steps in its grown
+    cache that launch nothing, finite logits; tok/s, peak memory and the
+    cache's bytes."""
     from repro_torch.kernels import ops
-    from repro_torch.launch.prefill_gap import decode_loop, gap
     from repro_torch.models.transformer import model as M
-    dev = torch.device("cuda")
-    cfg = LM_CONFIGS.get(arch) or get_config(arch)
-    V, nl = cfg.vocab_size, cfg.num_layers
-    out: dict = {}
-    prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
-                            generator=torch.Generator(device=dev)
-                            .manual_seed(1))
+    dev, V = prompts.device, cfg.vocab_size
     with torch.inference_mode():
-        cut = cfg.replace(num_layers=min(ZOO_FP32_LAYERS, nl),
-                          param_dtype="float32", compute_dtype="float32")
-        p32 = M.init_params(cut, torch.Generator(device=dev).manual_seed(0),
-                            device=dev)
-        ops.reset_launch_counts()
-        lg32, _ = M.prefill(cut, p32, {"tokens": prompts[:2]})
-        counts32 = {k: v for k, v in ops.launch_counts().items() if v}
-        results[f"launches.lm_fp32.{arch}"] = counts32
-        g = gap(lg32[:, :V], decode_loop(cut, p32, prompts[:2])[:, :V])
-        out["fp32_cut_prefill_vs_decode"] = dict(g, layers=cut.num_layers,
-                                                 launches=counts32)
-        print(f"   (a) float32, {cut.num_layers}-layer cut, 2 x {LM_PROMPT}: "
-              f"prefill vs the decode-only loop " + json.dumps(g),
-              flush=True)
-        require(counts32 == {"flash_attention_fp32": cut.num_layers},
-                f"K7's float32 route once a layer of the cut: {counts32}")
-        require(g["max_abs"] <= 1e-3 * g["max_abs_ref"],
-                f"float32 prefill agrees with the decode-only loop: {g}")
-        del p32, lg32
-        torch.cuda.empty_cache()
-
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
         M.prefill(cfg, params, {"tokens": prompts[:, :256]})      # warm-up
@@ -2593,7 +2643,7 @@ def zoo_phase(torch, arch, results):
         t_decode = time.perf_counter() - t0
         finite = finite and bool(torch.isfinite(logits.float()).all())
         decode_counts = {k: v for k, v in ops.launch_counts().items() if v}
-        out["prefill"] = {
+        out = {
             "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
             "params": M.param_count(params),
             "prefill_ms": t_prefill * 1e3,
@@ -2602,20 +2652,132 @@ def zoo_phase(torch, arch, results):
             "decode_tok_s": LM_BATCH * LM_GEN / t_decode,
             "max_memory_allocated": max(peak_prefill,
                                         torch.cuda.max_memory_allocated()),
-            "cache_bytes": sum(t.numel() * t.element_size()
-                               for t in cache.values()),
+            "cache_bytes": cache_bytes(cache),
             "launches": counts}
-        print(f"   (b) bf16, {nl} layers: prefill {LM_BATCH} x {LM_PROMPT}, "
-              f"then {LM_GEN} decode steps: " + json.dumps(out["prefill"]),
+        print(f"   (b) bf16, {cfg.num_layers} layers: prefill {LM_BATCH} x "
+              f"{LM_PROMPT}, then {LM_GEN} decode steps: " + json.dumps(out),
               flush=True)
         require(finite, "finite prefill and decode logits")
-        require(counts == {"flash_attention": nl} and decode_counts == counts,
-                f"a prefill launches K7's bf16 route once a layer ({nl}) and "
-                f"the decode steps none: {counts}, {decode_counts}")
+        require(counts == expected and decode_counts == counts,
+                f"a prefill launches exactly {expected} and the decode "
+                f"steps nothing: {counts}, {decode_counts}")
         del params, cache, logits
     torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(torch, arch, results):
+    """One of phase 13's dense configs: (a) float32 at full width on a
+    ZOO_FP32_LAYERS-layer cut, prefill against the decode-only loop over
+    2 x LM_CMP_PROMPT tokens within 1e-3 of the largest logit, K7's
+    float32 route once a layer;
+    (b) bf16 at full width and depth (``serve_full_depth``): K7's bf16
+    route exactly once a layer in a prefill; (c) a 2-layer float32 cut on
+    the card and on the CPU (``lm_cut_parity``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.prefill_gap import decode_loop, gap
+    from repro_torch.models.transformer import model as M
+    dev = torch.device("cuda")
+    cfg = LM_CONFIGS.get(arch) or get_config(arch)
+    V, nl = cfg.vocab_size, cfg.num_layers
+    out: dict = {}
+    prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    cmp = prompts[:2, :min(LM_CMP_PROMPT, LM_PROMPT)]
+    with torch.inference_mode():
+        cut = cfg.replace(num_layers=min(ZOO_FP32_LAYERS, nl),
+                          param_dtype="float32", compute_dtype="float32")
+        p32 = M.init_params(cut, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        ops.reset_launch_counts()
+        lg32, _ = M.prefill(cut, p32, {"tokens": cmp})
+        counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+        results[f"launches.lm_fp32.{arch}"] = counts32
+        g = gap(lg32[:, :V], decode_loop(cut, p32, cmp)[:, :V])
+        out["fp32_cut_prefill_vs_decode"] = dict(
+            g, layers=cut.num_layers, prompt=cmp.shape[1], launches=counts32)
+        print(f"   (a) float32, {cut.num_layers}-layer cut, 2 x "
+              f"{cmp.shape[1]}: prefill vs the decode-only loop "
+              + json.dumps(g), flush=True)
+        require(counts32 == {"flash_attention_fp32": cut.num_layers},
+                f"K7's float32 route once a layer of the cut: {counts32}")
+        require(g["max_abs"] <= 1e-3 * g["max_abs_ref"],
+                f"float32 prefill agrees with the decode-only loop: {g}")
+        del p32, lg32
+        torch.cuda.empty_cache()
+
+    out["prefill"] = serve_full_depth(torch, cfg, arch, prompts,
+                                      {"flash_attention": nl}, results)
     out["cut"] = lm_cut_parity(torch, cfg, arch)
     results[f"lm.{arch}"] = out
+
+
+@phase("15. serve Zamba2-2.7B at full width, bf16")
+def phase_zamba2(torch, results):
+    """The hybrid family: (a) float32 at full width on a
+    ZAMBA2_FP32_LAYERS-layer cut, through ``launch/prefill_gap.py``:
+    prefill against the decode-only loop over 2 x LM_CMP_PROMPT tokens
+    within LM_FP32_REL of the largest logit (K8's float32 route once an
+    SSM layer, K7's once a group), and its ``--flip`` control, which must
+    lie above the bound; (b) bf16 at full width and depth
+    (``serve_full_depth``): a prefill launches K8's bf16 route (the N 64
+    tensor-core kernel) once an SSM layer and K7's bf16 route (hd 80)
+    once a group, the decode steps in its grown nested cache neither;
+    (c) a 2-layer float32 cut with ``attn_every`` 1 (two applications of
+    the shared block) on the card and on the CPU (``lm_cut_parity``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prefill_gap
+    dev = torch.device("cuda")
+    cfg = LM_CONFIGS.get(ZAMBA2) or get_config(ZAMBA2)
+    nl, per = cfg.num_layers, cfg.attn_every
+    out: dict = {}
+
+    # (a) the launcher at the cut, its own seeded weights and prompts
+    S_cmp = min(LM_CMP_PROMPT, LM_PROMPT)
+    flags = ["--arch", ZAMBA2, "--dtype", "float32", "--layers",
+             str(ZAMBA2_FP32_LAYERS), "--batch", "2", "--prompt-len",
+             str(S_cmp)] + (["--reduced"] if ZAMBA2 in LM_CONFIGS else [])
+    ops.reset_launch_counts()
+    g = prefill_gap.run(flags)
+    counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+    results[f"launches.lm_fp32.{ZAMBA2}"] = counts32
+    flip = prefill_gap.run(flags + ["--flip", str(S_cmp - 8)])
+    out["fp32_cut_prefill_vs_decode"] = dict(g, launches=counts32,
+                                             flip_control=flip)
+    bound = LM_FP32_REL[ZAMBA2]
+    print(f"   (a) float32, {ZAMBA2_FP32_LAYERS}-layer cut, 2 x {S_cmp}: "
+          f"prefill vs the decode-only loop " + json.dumps(g) + f" (bound "
+          f"{bound} of the largest logit; the reference's own two paths: "
+          f"{ZAMBA2_REFERENCE_GAP})", flush=True)
+    print(f"   (a) control, the decode loop reading token {S_cmp - 8} "
+          f"changed: max_abs_rel {flip['max_abs_rel']}", flush=True)
+    # the launcher's config: the published one (or its --reduced cut)
+    gap_cfg = get_config(ZAMBA2)
+    if ZAMBA2 in LM_CONFIGS:
+        gap_cfg = gap_cfg.reduced()
+    groups = ZAMBA2_FP32_LAYERS // gap_cfg.attn_every
+    require(counts32 == {"ssd_chunk_state_fp32": ZAMBA2_FP32_LAYERS,
+                         "flash_attention_fp32": groups},
+            f"K8's float32 route once a layer and K7's once a group of the "
+            f"cut: {counts32}")
+    require(g["max_abs_rel"] <= bound,
+            f"float32 prefill agrees with the decode-only loop: {g}")
+    require(flip["max_abs_rel"] > bound,
+            f"the one-token control lies above the bound: {flip}")
+    torch.cuda.empty_cache()
+
+    # (b) bf16 at full width and depth, nl // per groups
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            device=dev, generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    out["prefill"] = serve_full_depth(
+        torch, cfg, ZAMBA2, prompts,
+        {"ssd_chunk_state": nl, "flash_attention": nl // per}, results)
+    out["cut"] = lm_cut_parity(torch, cfg.replace(attn_every=1), ZAMBA2)
+    results[f"lm.{ZAMBA2}"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -3036,9 +3198,9 @@ def kernels_line(results) -> dict:
     from the phase that drives the path through it (phases 6 and 7 train
     through K1-K6 and K3's VJP, phases 9 and 10 serve through K7 and K8;
     the float32 routes of K7 and K8 run in the float32 prefills of phases
-    9 and 10).  K3's row is the served inner block, with GAT's whole graph
-    at 4 x 64 and 4 x 10 beside it; its VJP's row is 4 x 64, with 4 x 10
-    beside it.  K1's row is the served inner block, with the whole graph
+    9 and 10; K7 at hd 80 and K8's N 64 kernel in phase 15).  K3's row
+    is the served inner block, with GAT's whole graph at 4 x 64 and 4 x
+    10 beside it; its VJP's row is 4 x 64, with 4 x 10 beside it.  K1's row is the served inner block, with the whole graph
     at 602, 256 and 41 beside it; its transpose's row is GCN's 256, with
     41 and the GAT VJP's source pass (4 x 64, 4 x 10, without and with
     the column) beside it."""
@@ -3087,10 +3249,21 @@ def kernels_line(results) -> dict:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if name == "ssd_chunk_state":
+            # the N 64 kernel at Zamba2's widths, launched by phase 15
             rn = results["ssd_chunk_state.n64"]
-            rows[-1]["at_zamba2_n64"] = {
-                k: rn[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}
+            rows[-1]["at_zamba2_n64"] = dict(
+                {k: rn[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+                launches=results[f"launches.lm.{ZAMBA2}"].get(name, 0))
+        if name in ("flash_attention", "flash_attention_fp32"):
+            # hd 80 on the hd-96 tiles: phase 8's case at Zamba2's prefill
+            # and its launches in phase 15's prefill (bf16) or cut (float32)
+            r = results[f"{name}.{ZAMBA2}"]
+            lkey = "lm" if name == "flash_attention" else "lm_fp32"
+            rows[-1][f"at_{ZAMBA2}_hd80"] = dict(
+                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+                launches=results[f"launches.{lkey}.{ZAMBA2}"].get(name, 0))
         # K3 and its VJP over GAT's whole graph at its two layers' shapes
         wide = f"{GAT_HEADS}x{HIDDEN // GAT_HEADS}"
         narrow = f"{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"
@@ -3190,6 +3363,7 @@ def main() -> int:
         phase(f"13. serve {arch} at full width, bf16")(zoo_phase)(
             torch, arch, results)
         torch.cuda.empty_cache()
+    phase_zamba2(torch, results)
     phase_distributed(torch, g, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",

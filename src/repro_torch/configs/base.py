@@ -55,14 +55,13 @@ ARCH_FAMILIES = {
 
 #: the configs the port carries (``repro_torch/configs/<id>.py``)
 PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
-                  "gemma_7b", "glm4_9b")
+                  "gemma_7b", "glm4_9b", "zamba2_2_7b")
 #: the families the port's model runs
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 #: ROADMAP.md queue 1 items of what is not ported yet
 ROADMAP_ITEMS = {
     "moe": "10a (the moe family)",
-    "hybrid": "10b (the hybrid family)",
     "mla_moe": "10c (the mla_moe family)",
     "encdec": "10d (the encdec and vlm families)",
     "vlm": "10d (the encdec and vlm families)",
@@ -90,9 +89,9 @@ class ModelConfig:
 
     ``family`` selects the forward function:
       dense | moe | mla_moe | ssm | hybrid | encdec | vlm
-    (the port runs ``dense`` and ``ssm``).  The fields are the reference's
-    that the port reads; those of the other families (experts, MLA ranks,
-    Zamba2's shared block, Whisper's encoder) come with their families,
+    (the port runs ``dense``, ``ssm`` and ``hybrid``).  The fields are the
+    reference's that the port reads; those of the other families
+    (experts, MLA ranks, Whisper's encoder) come with their families,
     and the reference's lowering and survey switches (``scan_unroll``,
     ``parallelism``, ``sync_mode``, ``coordination``) have nothing to
     switch on one card.
@@ -128,6 +127,7 @@ class ModelConfig:
     ssm_ngroups: int = 1
     ssm_conv: int = 4
     ssm_chunk: int = 64
+    attn_every: int = 0                      # zamba2: shared block period
 
     # --- serving ---
     sliding_window: int = 0                  # >0: ring-buffer KV cache variant
@@ -178,6 +178,8 @@ class ModelConfig:
         )
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=16)
+        if self.attn_every:
+            kw.update(attn_every=1)
         if self.mrope_sections:
             kw.update(mrope_sections=(8, 12, 12))
         if self.sliding_window:

@@ -103,6 +103,17 @@
 // The epilogue writes float32 O / max(l, 1e-30) over Q hi and TMA-stores
 // it.  No float atomics, and the passes accumulate in a fixed order.
 //
+// hd 80 (Zamba2-2.7B) runs on both routes' hd-96 instances, with the
+// maps' head axis 80 wide (launch_*'s hd beside the tile's HD).  A
+// 160-byte bf16 row is no whole number of 64- or 128-byte swizzle chunks
+// (nor a 320-byte float32 row of 128-byte ones), but TMA fills a box's
+// columns past the tensor's edge with zeros: the third 32-column chunk of
+// Q, K and V reads columns 64-79 and 16 zeros.  Q K^T over 96 columns then
+// adds exact zeros to the 80-column sums (its last k-step of 16 is all
+// zeros), P V writes 16 zero columns, and the TMA store clips them.  The
+// softmax scale is the caller's 1/sqrt(80).  Cost: a sixth of the tile's
+// MMA work and shared-memory traffic is padding; no new instance is built.
+//
 // Sums run in a fixed order in both: bitwise repeatable.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -706,17 +717,19 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// HD is the tile's width, hd <= HD the tensors' (the maps' head axis):
+// TMA fills a box's columns past hd with zeros and the store clips them
 template <int HD>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-                int H, int K, int Sq, int Skv, int causal, int window, float scale,
+                int H, int K, int Sq, int Skv, int hd, int causal, int window, float scale,
                 cudaStream_t stream) {
   using T = TileF<HD>;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap mq, mk, mv, mo;
-  int err = make_map(&mq, F32, 4, q, HD, Sq, H, B, st, 32, F_BQ, 128);
-  if (!err) err = make_map(&mk, F32, 4, k, HD, Skv, K, B, st + 3, 32, T::BK, 128);
-  if (!err) err = make_map(&mv, F32, 4, v, HD, Skv, K, B, st + 6, 32, T::BK, 128);
-  if (!err) err = make_map(&mo, F32, 4, o, HD, Sq, H, B, st + 9, 32, F_BQ, 128);
+  int err = make_map(&mq, F32, 4, q, hd, Sq, H, B, st, 32, F_BQ, 128);
+  if (!err) err = make_map(&mk, F32, 4, k, hd, Skv, K, B, st + 3, 32, T::BK, 128);
+  if (!err) err = make_map(&mv, F32, 4, v, hd, Skv, K, B, st + 6, 32, T::BK, 128);
+  if (!err) err = make_map(&mo, F32, 4, o, hd, Sq, H, B, st + 9, 32, F_BQ, 128);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -731,25 +744,30 @@ int dispatch_tf32(const void* q, const void* k, const void* v, void* o, const lo
                   int B, int H, int K, int Sq, int Skv, int hd, int causal, int window,
                   float scale, cudaStream_t s) {
   switch (hd) {
-    case 64: return launch_tf32<64>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 96: return launch_tf32<96>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 128: return launch_tf32<128>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 256: return launch_tf32<256>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    case 64: return launch_tf32<64>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    // hd 80 on the hd-96 tiles: the third 32-column chunk holds 16 zeros
+    case 80:
+    case 96: return launch_tf32<96>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    case 128:
+      return launch_tf32<128>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    case 256:
+      return launch_tf32<256>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// HD is the tile's width, hd <= HD the tensors' (as in launch_tf32)
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, const long long* st,
-                 int B, int H, int K, int Sq, int Skv, int causal, int window, float scale,
+                 int B, int H, int K, int Sq, int Skv, int hd, int causal, int window, float scale,
                  cudaStream_t stream) {
   using T = Tile<HD>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
-  int err = make_map(&mq, BF16, 2, q, HD, Sq, H, B, st, T::CW, TC_ROWS, T::SW);
-  if (!err) err = make_map(&mk, BF16, 2, k, HD, Skv, K, B, st + 3, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mv, BF16, 2, v, HD, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mo, BF16, 2, o, HD, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
+  int err = make_map(&mq, BF16, 2, q, hd, Sq, H, B, st, T::CW, TC_ROWS, T::SW);
+  if (!err) err = make_map(&mk, BF16, 2, k, hd, Skv, K, B, st + 3, T::CW, T::BK, T::SW);
+  if (!err) err = make_map(&mv, BF16, 2, v, hd, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
+  if (!err) err = make_map(&mo, BF16, 2, o, hd, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
@@ -764,10 +782,14 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, const l
                    int B, int H, int K, int Sq, int Skv, int hd, int causal, int window,
                    float scale, cudaStream_t s) {
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 96: return launch_wgmma<96>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
-    case 256: return launch_wgmma<256>(q, k, v, o, st, B, H, K, Sq, Skv, causal, window, scale, s);
+    case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    // hd 80 on the hd-96 tiles: the third 64-byte chunk holds 16 zeros
+    case 80:
+    case 96: return launch_wgmma<96>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    case 256:
+      return launch_wgmma<256>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -797,6 +819,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 extern "C" int flash_attention_smem(int hd, int is_bf16) {
   switch (hd) {
     case 64: return is_bf16 ? Tile<64>::SMEM : TileF<64>::SMEM;
+    case 80:   // the hd-96 tiles
     case 96: return is_bf16 ? Tile<96>::SMEM : TileF<96>::SMEM;
     case 128: return is_bf16 ? Tile<128>::SMEM : TileF<128>::SMEM;
     case 256: return is_bf16 ? Tile<256>::SMEM : TileF<256>::SMEM;

@@ -35,7 +35,12 @@ from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
 #: bf16 (the served path) and float32 (the TF32 split route)
 launches = {"flash_attention": 0, "flash_attention_fp32": 0}
 
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (64, 80, 96, 128, 256)
+#: head widths that run on a wider kernel instance: hd 80 (Zamba2-2.7B)
+#: on the hd-96 tiles, whose third 32-column chunk TMA fills with 16
+#: columns of zeros past the tensor's 80 (an exact zero term in every Q·Kᵀ
+#: sum; P·V's 16 extra columns are zeros that the TMA store clips)
+TILE_WIDTH = {80: 96}
 NEG_INF = -1e30
 #: the shared memory a block may use on Hopper (227 KB), and an SM's (228
 #: KB, of which each resident block reserves 1 KB), in bytes
@@ -57,9 +62,14 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (one consumer warpgroup), one stage of K and V beside their TF32
     hi/lo splits (K hi over K, V transposed), in tiles of 32 keys (16 at
     hd 256) so that two blocks share an SM at hd 64 and 96;
-    128-byte swizzle.  ``smem_bytes`` is the dynamic shared memory a
-    block asks for, within :data:`SMEM_PER_BLOCK` at every head width."""
-    hd = q.shape[-1]
+    128-byte swizzle.  A head width outside :data:`HEAD_DIMS` raises
+    ``ValueError``; hd 80 runs on the hd-96 tiles (:data:`TILE_WIDTH`;
+    ``tile_width`` says which).  ``smem_bytes`` is the dynamic shared
+    memory a block asks for, within :data:`SMEM_PER_BLOCK` at every head
+    width."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"head width {q.shape[-1]} not in {HEAD_DIMS}")
+    hd = TILE_WIDTH.get(q.shape[-1], q.shape[-1])
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_tma(t, name, ("batch", "head", "position"))
     if q.dtype == torch.bfloat16:
@@ -69,7 +79,8 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         smem = 1024 + 128 * hd * 2 + 2 * stages * block_k * hd * 2 + \
             8 * (1 + 3 * stages)
         return {"route": "wgmma", "kernel": "flash_fwd_wgmma_kernel",
-                "counter": "flash_attention", "block_q": 128,
+                "counter": "flash_attention", "tile_width": hd,
+                "block_q": 128,
                 "block_k": block_k, "stages": stages,
                 "swizzle": 128 if hd % 64 == 0 else 64, "smem_bytes": smem}
     block_k = 32 if hd <= 128 else 16
@@ -77,7 +88,8 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # barriers
     smem = 1024 + 2 * 64 * hd * 4 + 5 * block_k * hd * 4 + 8 * 3
     return {"route": "wgmma_tf32", "kernel": "flash_fwd_tf32_kernel",
-            "counter": "flash_attention_fp32", "block_q": 64,
+            "counter": "flash_attention_fp32", "tile_width": hd,
+            "block_q": 64,
             "block_k": block_k, "stages": 1, "swizzle": 128,
             "smem_bytes": smem,
             "blocks_per_sm": 2 if 2 * (smem + 1024) <= SMEM_PER_SM else 1}

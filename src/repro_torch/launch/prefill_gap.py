@@ -6,6 +6,9 @@ feeds the prompt through ``decode_step`` one position at a time).
       --arch mamba2-780m --dtype float32 --batch 2 --prompt-len 1024 \\
       --device cpu
 
+``--layers N`` cuts the config to its first N layers at its published
+widths (Zamba2-2.7B: a multiple of its ``attn_every``, 6).
+
 The two paths compute one function by two algorithms (chunked SSD or
 flash attention over the whole prompt; the recurrent update or the
 softmax over the cache, one position at a time), so on the same prompt
@@ -60,6 +63,9 @@ def parse_args(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--dtype", default=None,
                     help="param and compute dtype (default: the config's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers, its widths "
+                         "kept (default: all)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--flip", type=int, default=None,
@@ -81,6 +87,8 @@ def run(argv=None) -> dict:
         cfg = cfg.reduced()
     if args.dtype:
         cfg = cfg.replace(param_dtype=args.dtype, compute_dtype=args.dtype)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     dev = D.resolve(args.device)
     B, S, V = args.batch, args.prompt_len, cfg.vocab_size
     if args.flip is not None and not 0 <= args.flip < S:

@@ -84,11 +84,10 @@ _REFUSED = {
         "yet; see ROADMAP.md, Queue 1, item 9 (iii)"),
     "--sampler cluster|saint": (
         lambda a: a.minibatch and a.sampler in ("cluster", "saint"),
-        "not ported to repro_torch yet; see ROADMAP.md, Queue 1, "
-        "launch/train_gnn.py: the other samplers; the reference builds no "
-        "sampler for them (train_gnn.py:412-413: sampler = None) and its "
-        "loader thread dies on sampler.sample with AttributeError "
-        "(Queue 3)"),
+        "refused: the reference builds no sampler for them "
+        "(train_gnn.py:412-413: sampler = None) and its loader thread "
+        "dies on sampler.sample with AttributeError, so its trainer hangs; "
+        "see ROADMAP.md, Queue 3"),
     "--devices > 1 with another architecture than gcn": (
         lambda a: a.devices > 1 and not a.minibatch and a.arch != "gcn",
         "distributed full-graph mode implements GCN; use --minibatch for "

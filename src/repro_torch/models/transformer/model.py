@@ -1,21 +1,25 @@
-"""The transformer zoo's serving path, ``dense`` and ``ssm`` families
-(PyTorch port of the reference's ``models/transformer/model.py``):
+"""The transformer zoo's serving path, ``dense``, ``ssm`` and ``hybrid``
+families (PyTorch port of the reference's ``models/transformer/model.py``):
 init, forward, prefill (forward + cache) and one-token decode.
 
 Params are nested dicts with the reference's keys; ``params["layers"]``
 is a list of per-layer dicts (the reference stacks a leading layer axis
-and scans it; the port loops).  Caches keep the reference's stacked
-layout, ``(num_layers, B, C, K, hd)`` for keys and values and
-``(num_layers, B, H, P, N)`` / ``(num_layers, B, kw-1, Cd)`` for the SSM,
-and :func:`decode_step` writes them in place (the reference donates
-them).
+and scans it; the port loops).  The ``hybrid`` family (Zamba2) runs
+``num_layers / attn_every`` groups of ``attn_every`` SSM layers, each
+followed by one dense block whose weights all groups share
+(``params["shared_attn"]``, unstacked).  Caches keep the reference's
+stacked layout, ``(num_layers, B, C, K, hd)`` for keys and values and
+``(num_layers, B, H, P, N)`` / ``(num_layers, B, kw-1, Cd)`` for the SSM
+(the hybrid's ``{"ssm": {...}, "attn": {"k", "v"}}`` holds one K/V slot
+per group), and :func:`decode_step` writes them in place (the reference
+donates them).
 
 Batch conventions:
   forward / prefill:  {"tokens": (B, S) int}
   decode:             {"token": (B, 1) int, "pos": int}
 
-The other families (``moe``, ``mla_moe``, ``hybrid``, ``encdec``,
-``vlm``) raise ``NotImplementedError`` naming their ROADMAP.md item.
+The other families (``moe``, ``mla_moe``, ``encdec``, ``vlm``) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -32,10 +36,23 @@ from repro_torch.models.transformer import ssm as S
 
 def _require_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in ("moe", "mla_moe", "hybrid", "encdec", "vlm"):
+        if cfg.family in ("moe", "mla_moe", "encdec", "vlm"):
             raise not_ported(f"the {cfg.family!r} family ({cfg.name})",
                              cfg.family, NotImplementedError)
         raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family == "hybrid":
+        _hybrid_groups(cfg)
+
+
+def _hybrid_groups(cfg) -> int:
+    """The hybrid family's groups of ``attn_every`` SSM layers; raises
+    ``ValueError`` where ``attn_every`` does not divide ``num_layers``
+    (the reference fails there in a reshape)."""
+    per = cfg.attn_every
+    if per <= 0 or cfg.num_layers % per:
+        raise ValueError(f"attn_every {per} does not divide num_layers "
+                         f"{cfg.num_layers} into groups")
+    return cfg.num_layers // per
 
 
 # ===========================================================================
@@ -66,6 +83,8 @@ def init_params(cfg, gen: torch.Generator, *,
     layer = _init_dense_layer if cfg.family == "dense" else _init_ssm_layer
     params["layers"] = [layer(cfg, gen, dtype, device)
                         for _ in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_dense_layer(cfg, gen, dtype, device)
     return params
 
 
@@ -105,8 +124,9 @@ def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
                       = "cuda") -> Dict[str, Any]:
     """The port's params holding the reference's: ``tree`` is the
     reference's ``init_params`` pytree mapped to numpy, with stacked
-    ``(num_layers, ...)`` layer leaves.  Keys and shapes must match the
-    port's own; each leaf takes the port's dtype for it."""
+    ``(num_layers, ...)`` leaves under ``layers`` (the hybrid's
+    ``shared_attn`` is one unstacked layer).  Keys and shapes must match
+    the port's own; each leaf takes the port's dtype for it."""
     skeleton = init_params(cfg, torch.Generator(), device="meta")
     device = torch.device(device)
 
@@ -123,10 +143,11 @@ def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
                              f"{sorted(want)}")
         return {k: convert(want[k], given[k], f"{path}/{k}") for k in want}
 
-    out = {k: convert(skeleton[k], tree[k], k) for k in ("embed", "ln_f")}
-    if set(tree) != {"embed", "ln_f", "layers"}:
+    if set(tree) != set(skeleton):
         raise ValueError(f"top-level keys {sorted(tree)} != "
-                         f"['embed', 'layers', 'ln_f']")
+                         f"{sorted(skeleton)}")
+    out = {k: convert(skeleton[k], tree[k], k)
+           for k in skeleton if k != "layers"}
     stacked = tree["layers"]
     out["layers"] = [
         convert(want, _index(stacked, i), f"layers[{i}]")
@@ -157,6 +178,24 @@ def _ssm_body(cfg, x, p):
     return x + S.ssm_forward(cfg, p["ssm"], h)
 
 
+def _dense_prefill(cfg, x, p, positions, cache, i):
+    """One dense block over the prompt, its keys and values into slot
+    ``i`` of ``cache`` ({"k", "v"} of capacity C): position p in ring slot
+    p % C, the last C positions kept (C == S without a window)."""
+    Ssz, C = x.shape[1], cache["k"].shape[2]
+    kept = torch.arange(max(0, Ssz - C), Ssz, device=x.device)
+    slots = kept % C
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, (k, v) = A.gqa_forward(cfg, p["attn"], hh, positions,
+                              window=cfg.sliding_window, return_kv=True)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    x = x + L.mlp(cfg, hh, p["mlp"])
+    cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
+    cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
+    return x
+
+
 def _positions(tokens):
     B, Ssz = tokens.shape
     return torch.arange(Ssz, device=tokens.device)[None].expand(B, Ssz)
@@ -172,13 +211,15 @@ def forward(cfg, params, batch) -> torch.Tensor:
     its default ``window=0``, sliding-window configs included)."""
     _require_family(cfg)
     x = L.embed(cfg, params["embed"], batch["tokens"])
+    positions = _positions(batch["tokens"])
     if cfg.family == "dense":
-        positions = _positions(batch["tokens"])
         for p in params["layers"]:
             x = _dense_body(cfg, x, p, positions)
     else:
-        for p in params["layers"]:
+        for i, p in enumerate(params["layers"]):
             x = _ssm_body(cfg, x, p)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = _dense_body(cfg, x, params["shared_attn"], positions)
     x = L.apply_norm(cfg, x, params["ln_f"])
     return L.unembed(cfg, params["embed"], x)
 
@@ -190,15 +231,25 @@ def forward(cfg, params, batch) -> torch.Tensor:
 def init_cache(cfg, batch_size: int, cache_len: int, *,
                device: Union[str, torch.device] = "cuda"):
     """Zero cache for decode: keys and values for ``cache_len`` positions
-    (a ring of ``sliding_window`` slots when that is smaller), or the SSM
-    state and conv window."""
+    (a ring of ``sliding_window`` slots when that is smaller), the SSM
+    state and conv window, or (hybrid) both: ``{"ssm": ..., "attn":
+    ...}`` with one K/V slot per group of ``attn_every`` layers."""
     _require_family(cfg)
     if cfg.family == "ssm":
         return _ssm_cache(cfg, cfg.num_layers, batch_size, device)
+    if cfg.family == "hybrid":
+        n_groups = _hybrid_groups(cfg)
+        return {"ssm": _ssm_cache(cfg, cfg.num_layers, batch_size, device),
+                "attn": _kv_cache(cfg, n_groups, batch_size, cache_len,
+                                  device)}
+    return _kv_cache(cfg, cfg.num_layers, batch_size, cache_len, device)
+
+
+def _kv_cache(cfg, n_layers, batch_size, cache_len, device):
     dt = L.cache_dtype_of(cfg)
     C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
          else cache_len)
-    shape = (cfg.num_layers, batch_size, C, cfg.num_kv_heads,
+    shape = (n_layers, batch_size, C, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -227,29 +278,41 @@ def decode_step(cfg, params, cache, batch):
     pos = int(batch["pos"])
     x = L.embed(cfg, params["embed"], batch["token"])
     if cfg.family == "dense":
-        W = cfg.sliding_window
         for i, p in enumerate(params["layers"]):
-            hh = L.apply_norm(cfg, x, p["ln1"])
-            o, _, _ = A.gqa_decode(cfg, p["attn"], hh, cache["k"][i],
-                                   cache["v"][i], pos, window=W)
-            x = x + o
-            hh = L.apply_norm(cfg, x, p["ln2"])
-            x = x + L.mlp(cfg, hh, p["mlp"])
+            x = _dense_decode(cfg, x, p, cache, i, pos)
+    elif cfg.family == "ssm":
+        for i, p in enumerate(params["layers"]):
+            x = _ssm_decode(cfg, x, p, cache, i)
     else:
-        x = _ssm_decode_scan(cfg, params["layers"], cache, x)
+        for i, p in enumerate(params["layers"]):
+            x = _ssm_decode(cfg, x, p, cache["ssm"], i)
+            if (i + 1) % cfg.attn_every == 0:
+                x = _dense_decode(cfg, x, params["shared_attn"],
+                                  cache["attn"], i // cfg.attn_every, pos)
     x = L.apply_norm(cfg, x, params["ln_f"])
     return L.unembed(cfg, params["embed"], x)[:, 0], cache
 
 
-def _ssm_decode_scan(cfg, layers, cache, x):
-    for i, p in enumerate(layers):
-        hh = L.apply_norm(cfg, x, p["ln"])
-        o, st, cv = S.ssm_decode(cfg, p["ssm"], hh, cache["state"][i],
-                                 cache["conv"][i])
-        cache["state"][i] = st
-        cache["conv"][i] = cv
-        x = x + o
-    return x
+def _dense_decode(cfg, x, p, cache, i, pos):
+    """One dense block on one token, its key and value into slot ``i`` of
+    ``cache`` ({"k", "v"}) in place."""
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, _, _ = A.gqa_decode(cfg, p["attn"], hh, cache["k"][i], cache["v"][i],
+                           pos, window=cfg.sliding_window)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, hh, p["mlp"])
+
+
+def _ssm_decode(cfg, x, p, cache, i):
+    """One SSM layer on one token, its state and conv window into slot
+    ``i`` of ``cache`` ({"state", "conv"}) in place."""
+    hh = L.apply_norm(cfg, x, p["ln"])
+    o, st, cv = S.ssm_decode(cfg, p["ssm"], hh, cache["state"][i],
+                             cache["conv"][i])
+    cache["state"][i] = st
+    cache["conv"][i] = cv
+    return x + o
 
 
 # ===========================================================================
@@ -266,32 +329,28 @@ def prefill(cfg, params, batch):
     B, Ssz = tokens.shape
     x = L.embed(cfg, params["embed"], tokens)
 
-    if cfg.family == "ssm":
+    positions = _positions(tokens)
+    if cfg.family == "dense":
+        cache = init_cache(cfg, B, Ssz, device=tokens.device)
+        for i, p in enumerate(params["layers"]):
+            x = _dense_prefill(cfg, x, p, positions, cache, i)
+    else:
         states, convs = [], []
-        for p in params["layers"]:
+        if cfg.family == "hybrid":
+            n_groups = _hybrid_groups(cfg)
+            kv = _kv_cache(cfg, n_groups, B, Ssz, tokens.device)
+        for i, p in enumerate(params["layers"]):
             hh = L.apply_norm(cfg, x, p["ln"])
             o, (st, cv) = S.ssm_forward(cfg, p["ssm"], hh, return_cache=True)
             x = x + o
             states.append(st)
             convs.append(cv)
+            if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+                x = _dense_prefill(cfg, x, params["shared_attn"], positions,
+                                   kv, i // cfg.attn_every)
         cache = {"state": torch.stack(states), "conv": torch.stack(convs)}
-    else:
-        W = cfg.sliding_window
-        cache = init_cache(cfg, B, Ssz, device=tokens.device)
-        C = cache["k"].shape[2]
-        # ring slot of position p is p % C; without a window C == S
-        kept = torch.arange(max(0, Ssz - C), Ssz, device=tokens.device)
-        slots = kept % C
-        positions = _positions(tokens)
-        for i, p in enumerate(params["layers"]):
-            hh = L.apply_norm(cfg, x, p["ln1"])
-            o, (k, v) = A.gqa_forward(cfg, p["attn"], hh, positions,
-                                      window=W, return_kv=True)
-            x = x + o
-            hh = L.apply_norm(cfg, x, p["ln2"])
-            x = x + L.mlp(cfg, hh, p["mlp"])
-            cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
-            cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
+        if cfg.family == "hybrid":
+            cache = {"ssm": cache, "attn": kv}
 
     x = L.apply_norm(cfg, x, params["ln_f"])
     logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]

@@ -11,6 +11,9 @@ port's.  The test holds both gaps to roundoff at the reduced configs
 
   PYTHONPATH=src python tests/test_torch_reference_gap.py \\
       --arch mamba2-780m --full-width --layers 2 --prompt-len 1024
+
+(Zamba2-2.7B's cut keeps ``attn_every`` 6, so ``--layers`` is a multiple
+of 6 at full width.)
 """
 import argparse
 import json
@@ -80,7 +83,8 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("arch", ("phi3-mini-3.8b", "mamba2-780m"))
+@pytest.mark.parametrize("arch", ("phi3-mini-3.8b", "mamba2-780m",
+                                  "zamba2-2.7b"))
 def test_both_gaps_are_roundoff_at_the_reduced_configs(arch,
                                                        _two_torch_threads):
     r = reference_and_port_gaps(arch)

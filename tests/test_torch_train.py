@@ -255,8 +255,8 @@ def test_train_gnn_minibatch_runs_on_cpu(codec):
     (["--devices", "2", "--minibatch"], "item 9 (iii)"),
     (["--devices", "2", "--arch", "sage"], "implements GCN"),
     (["--update-stream", "u.jsonl"], "requires --fullgraph"),
-    (["--minibatch", "--sampler", "cluster"], "ROADMAP"),
-    (["--minibatch", "--sampler", "saint"], "ROADMAP"),
+    (["--minibatch", "--sampler", "cluster"], "ROADMAP.md, Queue 3"),
+    (["--minibatch", "--sampler", "saint"], "ROADMAP.md, Queue 3"),
     (["--wire-codec", "int8"], "--minibatch"),   # the reference's own
     (["--partitioner", "ldg"], "read only by the distributed"),
     (["--mode", "push"], "read only by the synchronous distributed"),

@@ -74,6 +74,7 @@ def _np(x) -> np.ndarray:
     (1, 2, 2, 32, 32, 16),
     (2, 4, 2, 64, 64, 32),     # GQA G=2
     (1, 8, 1, 48, 96, 64),     # MQA, decode-ish Sq<Skv, non-multiple of 32
+    (2, 4, 2, 64, 64, 80),     # Zamba2-2.7B's head width, G 2
 ])
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("bf16", [False, True])
@@ -203,7 +204,7 @@ def _split3(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ah @ bh + ah @ bl + al @ bh
 
 
-def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv):
+def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv, tile=0):
     """The tensor-core K7 routes' arithmetic in numpy float32: blocks of
     ``bq`` query rows; the kv tiles of ``bk`` keys from the first any row
     of the block sees to the last (the others skipped); scores ``qk(q,
@@ -211,12 +212,17 @@ def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv):
     with exp2 from a running max of -1e30; ``pv(p, v)`` for the PV
     product while the row sums take P as it is; O / max(l, 1e-30).  Keys
     past Skv, which TMA fills with zeros and the kernel masks, are left
-    out."""
+    out.  A ``tile`` wider than hd (hd 80 on the hd-96 tiles) pads q, k
+    and v with the zero columns TMA fills in and cuts the output back to
+    hd, as the TMA store clips it; the scale stays 1/sqrt(hd)."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
     G, off = H // K, Skv - Sq
     scale_log2 = np.float32(np.log2(np.e) / np.sqrt(hd))
-    out = np.zeros((B, H, Sq, hd), np.float32)
+    if tile > hd:
+        pad = [(0, 0)] * 3 + [(0, tile - hd)]
+        q, k, v = (np.pad(a, pad) for a in (q, k, v))
+    out = np.zeros(q.shape, np.float32)
     for b in range(B):
         for h in range(H):
             kb, vb = k[b, h // G], v[b, h // G]
@@ -227,7 +233,7 @@ def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv):
                 kv_begin = max(0, q0 + off - window + 1) if window else 0
                 m = np.full(len(rows), -1e30, np.float32)
                 l = np.zeros(len(rows), np.float32)
-                acc = np.zeros((len(rows), hd), np.float32)
+                acc = np.zeros((len(rows), q.shape[-1]), np.float32)
                 for t in range(kv_begin // bk, -(-kv_end // bk)):
                     keys = np.arange(t * bk, min((t + 1) * bk, Skv))
                     s = qk(q[b, h, rows], kb[keys]) * scale_log2
@@ -244,26 +250,29 @@ def _emulate_route(q, k, v, *, causal, window, bq, bk, qk, pv):
                     m = mx
                     acc = acc * alpha[:, None] + pv(p, vb[keys])
                 out[b, h, rows] = acc / np.maximum(l, 1e-30)[:, None]
-    return out
+    return out[..., :hd]
 
 
-def _emulate_wgmma_route(q, k, v, *, causal, window, bk, p_bf16=True):
+def _emulate_wgmma_route(q, k, v, *, causal, window, bk, tile=0,
+                         p_bf16=True):
     """``flash_fwd_wgmma_kernel``: blocks of 128 query rows, Q·Kᵀ of bf16
     values exact in float32, P rounded to bf16 (``p_bf16``) for the PV
     product."""
     return _emulate_route(
-        q, k, v, causal=causal, window=window, bq=128, bk=bk,
+        q, k, v, causal=causal, window=window, bq=128, bk=bk, tile=tile,
         qk=lambda a, b: a @ b.T,
         pv=lambda p, vv: (_bf16(p) if p_bf16 else p) @ vv)
 
 
-def _emulate_tf32_route(q, k, v, *, causal, window, bk, split=True):
+def _emulate_tf32_route(q, k, v, *, causal, window, bk, tile=0,
+                        split=True):
     """``flash_fwd_tf32_kernel``: blocks of 64 query rows, both products
     as three TF32 products of split operands, or (``split=False``) as one
     product of the operands rounded to TF32."""
     prod = _split3 if split else (lambda a, b: _tf32(a) @ _tf32(b))
     return _emulate_route(q, k, v, causal=causal, window=window, bq=64,
-                          bk=bk, qk=lambda a, b: prod(a, b.T), pv=prod)
+                          bk=bk, tile=tile, qk=lambda a, b: prod(a, b.T),
+                          pv=prod)
 
 
 def _excess(got, want, want_abs_v=None):
@@ -282,7 +291,7 @@ EMULATED = [  # (B, H, K, Sq, Skv, window): ragged tiles throughout
 ]
 
 
-@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("B,H,K,Sq,Skv,window", EMULATED)
 def test_wgmma_route_arithmetic_meets_the_bf16_bound(B, H, K, Sq, Skv,
                                                      window, hd):
@@ -293,9 +302,10 @@ def test_wgmma_route_arithmetic_meets_the_bf16_bound(B, H, K, Sq, Skv,
     qj, qt = _pair(rng.normal(size=(B, H, Sq, hd)), True)
     kj, kt = _pair(rng.normal(size=(B, K, Skv, hd)), True)
     vj, vt = _pair(rng.normal(size=(B, K, Skv, hd)), True)
-    bk = fa.launch_plan(qt, kt, vt, qt)["block_k"]
+    plan = fa.launch_plan(qt, kt, vt, qt)
     got = _bf16(_emulate_wgmma_route(_np(qt), _np(kt), _np(vt), causal=True,
-                                     window=window, bk=bk))
+                                     window=window, bk=plan["block_k"],
+                                     tile=plan["tile_width"]))
     abs_v = _np(ref.flash_attention(qj.astype(jnp.float32),
                                     kj.astype(jnp.float32),
                                     jnp.abs(vj.astype(jnp.float32)),
@@ -305,7 +315,7 @@ def test_wgmma_route_arithmetic_meets_the_bf16_bound(B, H, K, Sq, Skv,
         assert _excess(got, _np(want), abs_v) <= 0.0
 
 
-@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 def test_wgmma_route_with_float32_p_meets_the_old_bound(hd):
     """The same tiles and online softmax with P kept in float32 meet the
     bound without the P term, 2**-7 |ref| + 1e-5 max|ref|: the P term is
@@ -315,9 +325,10 @@ def test_wgmma_route_with_float32_p_meets_the_old_bound(hd):
     qj, qt = _pair(rng.normal(size=(B, H, Sq, hd)), True)
     kj, kt = _pair(rng.normal(size=(B, K, Skv, hd)), True)
     vj, vt = _pair(rng.normal(size=(B, K, Skv, hd)), True)
+    plan = fa.launch_plan(qt, kt, vt, qt)
     got = _bf16(_emulate_wgmma_route(
         _np(qt), _np(kt), _np(vt), causal=True, window=window,
-        bk=fa.launch_plan(qt, kt, vt, qt)["block_k"], p_bf16=False))
+        bk=plan["block_k"], tile=plan["tile_width"], p_bf16=False))
     want = _np(ref.flash_attention(qj, kj, vj, window=window))
     assert _excess(got, want) <= 0.0
 
@@ -327,7 +338,7 @@ def _rel_err(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("B,H,K,Sq,Skv,window", EMULATED)
 def test_tf32_route_arithmetic_meets_the_float32_bound(B, H, K, Sq, Skv,
                                                        window, hd):
@@ -339,9 +350,10 @@ def test_tf32_route_arithmetic_meets_the_float32_bound(B, H, K, Sq, Skv,
     qj, qt = _pair(rng.normal(size=(B, H, Sq, hd)), False)
     kj, kt = _pair(rng.normal(size=(B, K, Skv, hd)), False)
     vj, vt = _pair(rng.normal(size=(B, K, Skv, hd)), False)
-    bk = fa.launch_plan(qt, kt, vt, qt)["block_k"]
+    plan = fa.launch_plan(qt, kt, vt, qt)
     got = _emulate_tf32_route(_np(qt), _np(kt), _np(vt), causal=True,
-                              window=window, bk=bk)
+                              window=window, bk=plan["block_k"],
+                              tile=plan["tile_width"])
     for want in (ref.flash_attention(qj, kj, vj, window=window),
                  flash_attention_pallas(qj, kj, vj, window=window)):
         assert _rel_err(got, _np(want)) <= 1e-4
@@ -441,6 +453,7 @@ def _model_views(B, S, H, hd, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("hd,block_k,swizzle", [(64, 128, 128),
+                                                (80, 128, 64),
                                                 (96, 128, 64),
                                                 (128, 128, 128),
                                                 (256, 64, 128)])
@@ -464,13 +477,38 @@ def test_launch_plan_routes_by_dtype_and_tiles_by_head_width(hd, block_k,
     assert plan["counter"] == "flash_attention_fp32"
     assert (plan["block_q"], plan["block_k"], plan["stages"],
             plan["swizzle"]) == (64, 16 if hd == 256 else 32, 1, 128)
-    # Q hi and lo, K (hi in place) and K lo, raw V, V^T hi and lo: two
-    # blocks share an SM at hd 64 and 96, the heads the served models use
-    assert plan["smem_bytes"] == (1024 + 2 * 64 * hd * 4
-                                  + 5 * plan["block_k"] * hd * 4 + 24)
+    # Q hi and lo, K (hi in place) and K lo, raw V, V^T hi and lo, at the
+    # tile's width (96 at hd 80): two blocks share an SM at hd 64, 80 and
+    # 96, the heads the served models use
+    tile = plan["tile_width"]
+    assert tile == (96 if hd == 80 else hd)
+    assert plan["smem_bytes"] == (1024 + 2 * 64 * tile * 4
+                                  + 5 * plan["block_k"] * tile * 4 + 24)
     assert plan["smem_bytes"] <= fa.SMEM_PER_BLOCK
     assert plan["blocks_per_sm"] == (2 if hd <= 96 else 1)
     assert set(fa.launches) == {"flash_attention", "flash_attention_fp32"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launch_plan_runs_hd_80_on_the_hd_96_tiles_and_refuses_72(dtype):
+    """Zamba2-2.7B's (8, 1024, 32, 80) views: rows of 160 bytes in bf16
+    and 320 in float32 pass TMA's checks, and the plan is the hd-96 one
+    (same tiles, swizzle and shared memory); a width no kernel instance
+    takes raises before anything is launched."""
+    views = [_model_views(8, 1024, 32, 80, dtype) for _ in range(4)]
+    assert views[0].stride(1) * views[0].element_size() == \
+        80 * views[0].element_size()
+    plan = fa.launch_plan(*views)
+    wide = fa.launch_plan(*[_model_views(8, 1024, 32, 96, dtype)
+                            for _ in range(4)])
+    assert plan == wide and plan["tile_width"] == 96
+    if dtype == torch.bfloat16:
+        assert plan["smem_bytes"] == 1024 + 128 * 96 * 2 + 4 * 128 * 96 * 2 \
+            + 8 * 7
+    for hd in (72, 48):
+        bad = [_model_views(2, 16, 4, hd, dtype) for _ in range(4)]
+        with pytest.raises(ValueError, match=f"head width {hd} not in"):
+            fa.launch_plan(*bad)
 
 
 def test_launch_plan_checks_tma_alignment_and_names_the_tensor():
