@@ -11,9 +11,10 @@ Phases, in order; any failure makes the exit code nonzero:
    source, all in parallel) and time the build; ptxas's registers and
    spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
    SASS and in K8's (``cuobjdump -sass``: nonzero in each of the eight K7
-   kernels, bf16 and float32 at each tile width, 64, 96, 128 and 256, and
-   in K8's two bf16 kernels, N 64 and 128, with no spills in any of
-   them); each head width of ``HEAD_DIMS`` runs on one of those
+   kernels, bf16 and float32 at each tile width, 64, 96, 128 and 256, in
+   K8's two bf16 kernels, N 64 and 128, and in its float32 kernel, which
+   takes both, with no spills in any of them); each head width of
+   ``HEAD_DIMS`` and each K8 width in each dtype runs on one of those
    instances (hd 80 on the hd-96 one, printed per width with its HGMMA
    count); each ``launch_plan``'s shared memory equals what its kernel
    asks for, hd 80's included;
@@ -46,7 +47,11 @@ Phases, in order; any failure makes the exit code nonzero:
    VJP), K2 (602, 256; either layout), K5 (602 wide over the src layout,
    as GIN's Scatter walks it, and over the dst layout; 256 wide), K3 (4 x
    64, 4 x 10) and K6 (1 x 256, the single-head dcoef; 4 x 64 and 4 x
-   10) on GAT's 40-class graph, K4 on the int8 rows of a batch-1024
+   10) on GAT's 40-class graph, each K6 case with a gather bound beside
+   its byte bound; the dcoef path of the reference's ``_fused_bwd``: K1's
+   Function over the whole graph with a coefficient that requires grad,
+   exactly one K1 and one K6 launch, dcoef against the CPU within 1e-4;
+   K4 on the int8 rows of a batch-1024
    block, K3's VJP (its destination pass, then K1 over the src layout)
    at both layers; and each autograd Function's gradients (K1, K2, the
    Scatter gather, K3) against autograd through the plain versions;
@@ -121,13 +126,15 @@ Phases, in order; any failure makes the exit code nonzero:
    Zamba2-2.7B's (8 x 1024, 32 / 32 x 80, timed in both dtypes, its
    bound counting 80 columns); K8 at Mamba2-780m's prefill (32
    chunks of 256, 48 x 64, N 128) in bf16 (the tensor-core route, 1e-4
-   of the largest value) with G 1 and 2 and in float32 (the CUDA-core
-   route), and in bf16 at ragged chunks of 100 and 7 positions and over
-   160 chunks; K8 at Zamba2-2.7B's widths (80 x 64, N 64: the
-   tensor-core route's N 64 kernel), and bf16 off the tensor-core tile
-   (the reduced configs' 8 x 32, N 16, chunk 16, timed; a chunk of 300)
-   on the CUDA-core route; the calls K7 does not compute raise on the
-   card;
+   of the largest value) with G 1 and 2 and in float32 (the TF32
+   tensor-core route), and in both dtypes at ragged chunks of 100 and 7
+   positions and over 160 chunks; K8 at Zamba2-2.7B's widths (80 x 64, N
+   64: the bf16 route's N 64 kernel; the float32 route), timed in both
+   dtypes; float32 (8 x 32, N 24, timed) and bf16 (the reduced configs'
+   8 x 32, N 16, chunk 16, timed; a chunk of 300) off the tensor-core
+   tile on the CUDA-core route, each case's route printed and every
+   launch counted under its route's counter; the calls K7 does not
+   compute raise on the card;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
@@ -449,19 +456,20 @@ def phase_build(torch, results):
                   or "wgmma" in line.lower()):
                 print(f"   ptxas {name} {fn}: {line.strip()}")
                 ptxas.setdefault(fn, []).append(line.strip())
-    # every K7 kernel (bf16 and float32, four tile widths each) and K8's
-    # bf16 kernels (N 64 and 128) run on the tensor cores: their SASS
-    # holds HGMMA, and ptxas spills nothing in them
+    # every K7 kernel (bf16 and float32, four tile widths each), K8's
+    # bf16 kernels (N 64 and 128) and its float32 kernel (both widths, 64
+    # state columns a block) run on the tensor cores: their SASS holds
+    # HGMMA, and ptxas spills nothing in them
     hgmma = sass_counts(out_dir / "libflash_attention.so", "HGMMA")
     hgmma.update(sass_counts(out_dir / "libssd_chunk.so", "HGMMA"))
     print("   HGMMA instructions per K7 and K8 kernel (cuobjdump -sass): "
           + json.dumps(hgmma), flush=True)
     results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
     tc = {k: n for k, n in hgmma.items()
-          if k.startswith(("flash_fwd", "ssd_state_wgmma"))}
-    require(len(tc) == 10 and all(tc.values()),
-            f"HGMMA in each of the eight K7 kernels and K8's two bf16 "
-            f"kernels: {tc}")
+          if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32"))}
+    require(len(tc) == 11 and all(tc.values()),
+            f"HGMMA in each of the eight K7 kernels, K8's two bf16 kernels "
+            f"and its float32 kernel: {tc}")
     spills = {k: v for k, v in ptxas.items() if k in tc and any(
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
     require(not spills, f"no ptxas spills in the tensor-core kernels: "
@@ -487,12 +495,25 @@ def phase_build(torch, results):
     require(all(i in tc and i not in spills for i, _ in instances.values()),
             f"every head width runs on a built tensor-core instance with "
             f"HGMMA and no spills: {instances}")
+    k8 = {}
     for N in sc.TC_NS:
-        x = torch.zeros(1, 256, 1, sc.TC_P, dtype=torch.bfloat16)
-        Bm = torch.zeros(1, 256, 1, N, dtype=torch.bfloat16)
-        smem[f"ssd_chunk_state[{N}]"] = (
-            sc.launch_plan(x, Bm)["smem_bytes"],
-            build.library("ssd_chunk").ssd_chunk_state_smem(N))
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.zeros(1, 256, 1, sc.TC_P, dtype=dtype)
+            Bm = torch.zeros(1, 256, 1, N, dtype=dtype)
+            plan = sc.launch_plan(x, Bm)
+            inst = plan["kernel"] + (f"[{N}]" if dtype == torch.bfloat16
+                                     else "")
+            k8[f"N {N}, {dtype}"] = (inst, hgmma.get(inst, 0))
+            smem[f"ssd_chunk_state[{N}, {dtype}]"] = (
+                plan["smem_bytes"],
+                build.library("ssd_chunk").ssd_chunk_state_smem(
+                    N, int(dtype == torch.bfloat16)))
+    print("   K8 instance (HGMMA count) per state width and dtype: "
+          + json.dumps(k8), flush=True)
+    results["build"]["k8_instances"] = k8
+    require(all(i in tc and i not in spills for i, _ in k8.values()),
+            f"every K8 width runs on a built tensor-core instance with "
+            f"HGMMA and no spills: {k8}")
     results["build"]["smem_plan_vs_library"] = smem
     require(all(a == b for a, b in smem.values()),
             f"launch_plan's shared memory is the kernel's: {smem}")
@@ -1122,33 +1143,65 @@ def phase_train_kernels(torch, g, g_gat, results):
                       (GAT_HEADS, GAT_CLASSES // GAT_HEADS)):
         results[f"gat_attention.full.{heads}x{hd}"] = c.k3(
             f"K3 GAT's full graph, {heads} x {hd}", dga, heads, hd)
-    # K6: the reference's single-head edge dot (K1's dcoef), and per head
-    # at GAT's two widths (its multi-head path, which no trainer launches)
+    # K6 over the dst layout: the reference's single-head edge dot (K1's
+    # dcoef), and per head at GAT's two widths (its multi-head path, which
+    # no trainer launches); its gather bound counts every listed edge's a
+    # row and each destination's b row once
     for heads, hd, gr in ((1, HIDDEN, dg), (GAT_HEADS, HIDDEN // GAT_HEADS,
                                             dga),
                           (GAT_HEADS, GAT_CLASSES // GAT_HEADS, dga)):
         F = heads * hd
         a, b = randn(N, F), randn(N, F)
-        o, gs, gd = gr.order, gr.edge_src, gr.edge_dst
+        o, gs, rp = gr.order, gr.edge_src, gr.row_ptr
         n_l = int(o.numel())
         us = int(gs[o.long()].unique().numel())
-        ud = int(gd[o.long()].unique().numel())
+        ud = int((rp[1:] > rp[:-1]).sum())
+        idx_bytes = 8 * n_l + 4 * (N + 1)
         lib = None
         if heads == 1:
             S_csr = torch.sparse_csr_tensor(
-                gr.row_ptr.long(), gs[o.long()].long(),
+                rp.long(), gs[o.long()].long(),
                 torch.ones(n_l, device=dev), size=(N, N))
             lib = lambda: torch.sparse.sampled_addmm(S_csr, b, a.t(),
                                                      beta=0.0)
+        plan = ss.edge_dot_plan(heads, hd, 16)
+        print(f"   K6 {heads} x {hd}: plan {json.dumps(plan)}")
         results[f"edge_dot.{heads}x{hd}"] = check_case(
             torch, f"K6 edge dot, {heads} x {hd} ({gs.numel()} edges)",
             ss.edge_dot_cuda, ss.edge_dot_plain,
-            (a, b, gs, gd, o, heads), timed=True, library=lib,
-            bytes_=4 * (us * F + ud * F + n_l * heads) + 12 * n_l,
-            flops=2 * n_l * F, flush=flush)
-    # the row of the kernels line: the single-head dcoef (no trainer
-    # launches K6; GAT's VJP takes its dalpha in its own pass)
+            (a, b, gs, o, rp, heads), timed=True, library=lib,
+            bytes_=4 * (us * F + ud * F + n_l * heads) + idx_bytes,
+            flops=2 * n_l * F, flush=flush,
+            gather_bytes=4 * (n_l * F + ud * F + n_l * heads) + idx_bytes)
     results["edge_dot"] = results[f"edge_dot.1x{HIDDEN}"]
+    # the reference's _fused_bwd dcoef: K1's Function over the whole graph
+    # with a coefficient that requires grad (h does not: the backward runs
+    # K6 alone), exactly one K6 launch, dcoef against the CPU's
+    h_in, cf = randn(N, HIDDEN), coef.clone().requires_grad_()
+    g_out = randn(N, HIDDEN)
+
+    def dcoef(dev_):
+        c_ = cf.detach().to(dev_).requires_grad_()
+        out = ops.GatherScaleSegmentSum.apply(
+            h_in.to(dev_), src.to(dev_), dst.to(dev_), c_, order.to(dev_),
+            row_ptr.to(dev_), None, N)
+        return torch.autograd.grad(out, c_, g_out.to(dev_))[0]
+    ops.reset_launch_counts()
+    dc = dcoef(dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    results["launches.k6_dcoef"] = counts
+    dc_cpu = dcoef("cpu")
+    err = (dc.cpu() - dc_cpu).abs().max().item()
+    top = dc_cpu.abs().max().item()
+    res = {"case": "K1 Function's dcoef (K6 over the whole graph)",
+           "launches": counts, "max_abs_err_vs_cpu": err,
+           "max_abs_cpu": top, "ok": err <= 1e-4 * top and counts == {
+               "gather_scale_segment_sum": 1, "edge_dot": 1}}
+    print("   " + json.dumps(res), flush=True)
+    results["k6_dcoef"] = res
+    require(res["ok"], f"the dcoef path launches K1 and K6 once each and "
+            f"agrees with the CPU within 1e-4: {res}")
 
     blk, q, mn, scale = minibatch_block(torch, g, dev)
     bnnz = int(blk.order.numel())
@@ -1313,7 +1366,7 @@ def _repeat_and_cpu_step(torch, arch, classes, res, results):
 
 # the port's kernels by name, as the profiler lists them
 PORT_KERNELS = ("gss_lanes_kernel", "segmented_rows", "gather_rows_kernel",
-                "edge_dot_kernel", "gat_forward_kernel",
+                "edge_dot_lanes_kernel", "gat_forward_kernel",
                 "gat_backward_dst_kernel")
 
 
@@ -2204,14 +2257,19 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
         peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
 
 
-def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
+def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True,
+            route=None):
     """K8 on the views the model passes (x and Bm slices of one (C, L,
     conv_dim) tensor; dt and A in float32) against its plain version
     (1e-4 of the largest value in every route); the library call is the
     reference's einsum on its precomputed operands.  float32's bound
-    takes its flops at the TF32 tensor-core rate, as K7's does."""
+    takes its flops at the TF32 tensor-core rate, as K7's does.  The
+    case's launches must all count under its route's counter, and the
+    route must be ``route`` (by default the tensor-core one of its
+    dtype)."""
     from repro_torch.kernels import ssd_chunk as sc
     dtype = dtype or torch.bfloat16
+    route = route or ("wgmma" if dtype == torch.bfloat16 else "wgmma_tf32")
     xBC = c.randn(C, L, H * P + 2 * G * N).to(dtype)
     x = xBC[..., :H * P].reshape(C, L, H, P)
     Bm = xBC[..., H * P:H * P + G * N].reshape(C, L, G, N)
@@ -2221,8 +2279,12 @@ def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
     cum = torch.cumsum(dt * A, dim=1)
     decay = torch.exp(cum[:, -1:, :] - cum)
     xdt = x.float() * dt[..., None]
-    print(f"   {label}: route {sc.launch_plan(x, Bm)['counter']}")
-    return check_case(
+    plan = sc.launch_plan(x, Bm)
+    print(f"   {label}: route {plan['route']}, {plan['kernel']}, counter "
+          f"{plan['counter']}")
+    require(plan["route"] == route, f"{label} takes the {route} route")
+    before = dict(sc.launches)
+    res = check_case(
         torch, label, sc.ssd_chunk_state_cuda, sc.ssd_chunk_state_plain,
         (x, dt, A, Bm), timed=timed,
         library=lambda: torch.einsum("blhn,blh,blhp->bhpn", Bh, decay, xdt),
@@ -2231,6 +2293,12 @@ def k8_case(torch, c, label, C, L, H, P, G, N, *, dtype=None, timed=True):
         flops=2.0 * C * H * L * P * N + 4.0 * C * L * H, flush=c.flush,
         peak=BF16_FLOPS_PER_S if dtype == torch.bfloat16
         else TF32_FLOPS_PER_S)
+    moved = {k: n - before[k] for k, n in sc.launches.items()
+             if n != before[k]}
+    require(list(moved) == [plan["counter"]],
+            f"{label}: every launch counted under {plan['counter']}: {moved}")
+    res["route"] = plan["route"]
+    return res
 
 
 @phase("8. K7 flash attention and K8 SSD chunk state vs plain versions")
@@ -2315,11 +2383,32 @@ def phase_lm_kernels(torch, results):
         f"128, G 1, bf16)", C, 256, 48, 64, 1, 128)
     results["ssd_chunk_state.g2"] = k8_case(
         torch, c, "K8 Mamba2 prefill shape, G 2", C, 256, 48, 64, 2, 128)
+    # float32 at the tile on the TF32 tensor-core route: Mamba2's and
+    # Zamba2-2.7B's widths timed (phase 10's and phase 15's float32
+    # prefills), then ragged chunks, G 2 and more chunks than SMs
+    f32 = torch.float32
     results["ssd_chunk_state_fp32"] = k8_case(
         torch, c, "K8 Mamba2 prefill shape, G 1, float32", C, 256, 48, 64, 1,
-        128, dtype=torch.float32)
-    k8_case(torch, c, "K8 float32, L 100, 8 x 32, N 24, G 2", 6, 100, 8, 32,
-            2, 24, dtype=torch.float32, timed=False)
+        128, dtype=f32)
+    results["ssd_chunk_state_fp32.n64"] = k8_case(
+        torch, c, f"K8 Zamba2-2.7B widths ({C} chunks x 256, 80 x 64, N 64, "
+        f"G 1, float32)", C, 256, 80, 64, 1, 64, dtype=f32)
+    for G in (1, 2):
+        k8_case(torch, c, f"K8 float32, L 100, 48 x 64, N 128, G {G}", 6,
+                100, 48, 64, G, 128, dtype=f32, timed=False)
+    k8_case(torch, c, "K8 float32, L 7", 3, 7, 48, 64, 1, 128, dtype=f32,
+            timed=False)
+    k8_case(torch, c, "K8 float32, 160 chunks x 256 (a block walks 24 "
+            "heads)", 160, 256, 48, 64, 1, 128, dtype=f32, timed=False)
+    k8_case(torch, c, "K8 float32, L 100, 8 x 64, N 64, G 2", 6, 100, 8, 64,
+            2, 64, dtype=f32, timed=False)
+    k8_case(torch, c, "K8 float32, N 64, 160 chunks x 256, 64 x 64 (a block "
+            "walks 32 heads, the most it takes)", 160, 256, 64, 64, 1, 64,
+            dtype=f32, timed=False)
+    # float32 off the tile stays on the CUDA-core kernel, counted apart
+    results["ssd_chunk_state_fp32_cuda_core"] = k8_case(
+        torch, c, "K8 float32, L 100, 8 x 32, N 24, G 2", 6, 100, 8, 32, 2,
+        24, dtype=f32, route="cuda_core")
     # ragged chunks in bf16 (positions past L arrive as zeros), and more
     # chunks than SMs (a block then walks 16 heads, the most it takes)
     for G in (1, 2):
@@ -2342,9 +2431,10 @@ def phase_lm_kernels(torch, results):
     # reduced configs' widths (8 x 32, N 16, chunk 16; timed) and a chunk
     # of 300
     results["ssd_chunk_state_bf16_cuda_core"] = k8_case(
-        torch, c, "K8 bf16, L 16, 8 x 32, N 16, G 2", 6, 16, 8, 32, 2, 16)
+        torch, c, "K8 bf16, L 16, 8 x 32, N 16, G 2", 6, 16, 8, 32, 2, 16,
+        route="cuda_core")
     k8_case(torch, c, "K8 bf16, L 300, 8 x 64, N 128, G 1", 3, 300, 8, 64,
-            1, 128, timed=False)
+            1, 128, timed=False, route="cuda_core")
     # the calls K7 does not compute raise on the card, naming the ROADMAP
     # item, and never run the plain version
     q, kv = c.randn(1, 4, 2, 64), c.randn(1, 8, 2, 64)
@@ -2385,7 +2475,8 @@ def lm_profile(torch, label, step, wall_s) -> dict:
         k = key.lower()
         if any(n in k for n in ("flash_fwd_wgmma_kernel",
                                 "flash_fwd_tf32_kernel", "ssd_state_kernel",
-                                "ssd_state_wgmma_kernel")):
+                                "ssd_state_wgmma_kernel",
+                                "ssd_state_tf32_kernel")):
             return "port kernel"
         if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
                                 "sm80_", "ampere_", "matmul", "nvjet",
@@ -3196,9 +3287,11 @@ def phase_distributed(torch, g, results):
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
-    through K1-K6 and K3's VJP, phases 9 and 10 serve through K7 and K8;
+    through K1-K5 and K3's VJP, K6 runs in phase 5's dcoef case, the
+    reference's _fused_bwd; phases 9 and 10 serve through K7 and K8;
     the float32 routes of K7 and K8 run in the float32 prefills of phases
-    9 and 10; K7 at hd 80 and K8's N 64 kernel in phase 15).  K3's row
+    9 and 10; K7 at hd 80 and K8 at N 64 in phase 15).  K6's row is the
+    single-head dcoef, with GAT's 4 x 64 and 4 x 10 beside it.  K3's row
     is the served inner block, with GAT's whole graph at 4 x 64 and 4 x
     10 beside it; its VJP's row is 4 x 64, with 4 x 10 beside it.  K1's row is the served inner block, with the whole graph
     at 602, 256 and 41 beside it; its transpose's row is GCN's 256, with
@@ -3223,7 +3316,7 @@ def kernels_line(results) -> dict:
             ("gather_rows", "gather_rows", "segment_sum.cu",
              "src/repro/kernels/segment_sum.py:221", "launches.train.gin"),
             ("edge_dot", "edge_dot", "segment_sum.cu",
-             "src/repro/kernels/segment_sum.py:411", "launches.train.gat"),
+             "src/repro/kernels/segment_sum.py:411", "launches.k6_dcoef"),
             ("flash_attention", "flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:90",
              f"launches.lm.{PHI3}"),
@@ -3234,6 +3327,9 @@ def kernels_line(results) -> dict:
              "src/repro/kernels/ssd_chunk.py:55", f"launches.lm.{MAMBA2}"),
             ("ssd_chunk_state_fp32", "ssd_chunk_state_fp32", "ssd_chunk.cu",
              "src/repro/kernels/ssd_chunk.py:55",
+             f"launches.lm_fp32.{MAMBA2}"),
+            ("ssd_chunk_state_fp32_cuda_core", "ssd_chunk_state_fp32_cuda_core",
+             "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:55",
              f"launches.lm_fp32.{MAMBA2}"),
             ("ssd_chunk_state_bf16_cuda_core",
              "ssd_chunk_state_bf16_cuda_core", "ssd_chunk.cu",
@@ -3247,14 +3343,17 @@ def kernels_line(results) -> dict:
             "launches": results[path].get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if name == "ssd_chunk_state":
-            # the N 64 kernel at Zamba2's widths, launched by phase 15
-            rn = results["ssd_chunk_state.n64"]
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("gather_bound_ms",) if k in r}})
+        if name in ("ssd_chunk_state", "ssd_chunk_state_fp32"):
+            # at Zamba2's widths (N 64), launched by phase 15's bf16
+            # prefill or its float32 cut
+            rn = results[f"{name}.n64"]
+            lkey = "lm" if name == "ssd_chunk_state" else "lm_fp32"
             rows[-1]["at_zamba2_n64"] = dict(
                 {k: rn[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
-                launches=results[f"launches.lm.{ZAMBA2}"].get(name, 0))
+                launches=results[f"launches.{lkey}.{ZAMBA2}"].get(name, 0))
         if name in ("flash_attention", "flash_attention_fp32"):
             # hd 80 on the hd-96 tiles: phase 8's case at Zamba2's prefill
             # and its launches in phase 15's prefill (bf16) or cut (float32)
@@ -3276,6 +3375,9 @@ def kernels_line(results) -> dict:
                  "gather_scale_segment_sum": {
                      f"at_full_{F}": f"k1.full.{F}"
                      for F in (FEAT, HIDDEN, CLASSES)},
+                 # K6 per head at GAT's two widths
+                 "edge_dot": {f"at_{w}": f"edge_dot.{w}"
+                              for w in (wide, narrow)},
                  "gather_scale_segment_sum_t": {
                      "at_41": f"k1_transpose.{CLASSES}",
                      **{f"at_{w}": f"k1_transpose.{w}"
@@ -3285,7 +3387,7 @@ def kernels_line(results) -> dict:
         for label, key_ in extra.get(name, {}).items():
             rows[-1][label] = {k: results[key_][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms") if k in results[key_]}
+                "gather_bound_ms", "library_ms") if k in results[key_]}
         # phase 14: K1 and its transpose at the distributed shapes (rank
         # 0 of 4), with rank 1's launches at that width in the 10 pull
         # (push) epochs, as the wrapper counted them

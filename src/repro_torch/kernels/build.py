@@ -44,7 +44,9 @@ SIGNATURES = {
         "gssq_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P],
         "gather_rows": [_P, _P, _P, _P, _I, _I, _P],
-        "edge_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # K6 ends in its lane plan (segment_sum.edge_dot_plan)
+        "edge_dot": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _P],
     },
     "gat_fused": {
         "gat_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -61,7 +63,7 @@ SIGNATURES = {
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
-        "ssd_chunk_state_smem": [_I],
+        "ssd_chunk_state_smem": [_I, _I],
     },
 }
 

@@ -18,7 +18,8 @@
 //     replaces src/repro/kernels/segment_sum.py:196 (gather_rows_pallas,
 //     whose pallas_call is at :221; kernel body _gather_kernel :171), the
 //     VJP of K2 (_segment_sum_bwd :250).
-// K6  edge_dot      out[order[k], hh] = <a[src_e, hh-th slice], b[dst_e, hh-th slice]>
+// K6  edge_dot      out[order[k], hh] = <a[src[order[k]], hh-th slice], b[d, hh-th slice]>
+//                   for k in [row_ptr[d], row_ptr[d+1]) of the dst-grouped layout
 //     replaces src/repro/kernels/segment_sum.py:390 (_edge_dot, whose
 //     pallas_call is at :411; kernel body _edge_dot_kernel :362), the dcoef
 //     of K1 (the GAT VJP takes its per-head dalpha in gat_fused.cu).
@@ -40,11 +41,12 @@
 //       and 4*heads*(nnz + D) for a column)
 //   K2: 4*(nnz*F + D*F) + 8*nnz
 //   K5: 4*(U*F + nnz*F) + 8*nnz
-//   K6: 4*(Ua*F + Ub*F + nnz*heads) + 12*nnz
+//   K6: 4*(Ua*F + Ud*F + nnz*heads) + 8*nnz + 4*(D + 1)   (Ud of D
+//       destinations have edges)
 //   K4: U*F + 8*U + 4*D*F + 12*nnz   (one byte per element read)
 // What a scattered graph allows is less: when a destination's sources lie
 // anywhere in h (the SBM gives classes to random node ids), each listed
-// edge reads its whole row from device memory, so K1 and K4 move nnz
+// edge reads its whole row from device memory, so K1, K4 and K6 move nnz
 // rows, not U, and that gather of nnz rows (plus the output and the
 // indices) over 3.35 TB/s is the rate they can reach.
 //
@@ -85,9 +87,13 @@
 // listed edges and strides its lanes over their rows, 4 loads a lane in
 // flight before the streaming stores; it reads each row once, in turn,
 // when the caller passes the listed edges grouped by seg (GatherRows
-// does when it has that layout).  K6 gives every (edge, head) one warp,
-// lanes across the head's columns, summed by a fixed shuffle tree
-// (no atomics: bitwise repeatable).  Loads are the widest vector (float4
+// does when it has that layout).  K6 (edge_dot_lanes_kernel) walks lane
+// groups over the dst-grouped layout as K1 does, under its own plan
+// (segment_sum.edge_dot_plan): a group holds its destination's b row in
+// registers, loaded once, and takes each edge's dot per head as a lane's
+// fma chain over its vectors, then a butterfly of shuffles over the
+// head's lanes (no atomics: bitwise repeatable), so each listed edge
+// reads only its a row.  Loads are the widest vector (float4
 // / float2 / float; 4, 2 or 1 bytes for K4) that divides the row
 // width, the head width and the pointers' alignment, checked at launch:
 // rows of 602 floats take float2, rows of 602 bytes two bytes a load.
@@ -342,26 +348,91 @@ __global__ void gather_rows_kernel(const float* __restrict__ g, const int* __res
   }
 }
 
-// K6: one warp per (listed edge, head); w is uniform across the warp, so
-// every lane takes part in each shuffle
-__global__ void edge_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                const int* __restrict__ src, const int* __restrict__ dst,
-                                const int* __restrict__ order, float* __restrict__ out,
-                                long long nwarps, int F, int heads) {
-  const int lane = threadIdx.x & 31;
-  const int hd = F / heads;
-  const long long wstride = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < nwarps;
-       w += wstride) {
-    const long long k = w / heads;
-    const int hh = (int)(w - k * heads);
-    const int e = __ldg(order + k);
-    const float* ar = a + (size_t)__ldg(src + e) * F + (size_t)hh * hd;
-    const float* br = b + (size_t)__ldg(dst + e) * F + (size_t)hh * hd;
-    float acc = 0.f;
-    for (int j = lane; j < hd; j += 32) acc = fmaf(__ldg(ar + j), __ldg(br + j), acc);
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) out[(size_t)e * heads + hh] = acc;
+// K6 over lane groups on the dst-grouped layout: a group owns HPG heads
+// of destination d, holds b[d]'s vectors of them in registers (loaded
+// once) and walks d's edges in chunks of G, lane j loading order and
+// idx of edge j of the chunk and the group sharing them by shuffles;
+// each lane issues the loads of NE edges' vectors of a before their
+// FMAs.  A lane's partial dot runs over its slices, then its vectors
+// (vector LPH * u + lih of the slice), then their elements, as one fma
+// each from zero; the head's LPH lanes then add their partials by a
+// butterfly of shuffles (offsets LPH / 2 .. 1: every lane ends with the
+// same sum) and the head's first lane writes out[e, h] once.  A head
+// wider than a warp of ED_MAX_VPL vectors is cut into NSL slices that
+// the same lanes walk in turn, b's slice reloaded (from L1) for each.
+template <int VEC, int VPL, int NE>
+__global__ void __launch_bounds__(GSS_THREADS)
+    edge_dot_lanes_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                          const int* __restrict__ idx, const int* __restrict__ order,
+                          const int* __restrict__ row_ptr, float* __restrict__ out, int num_dst,
+                          int heads, int hd, int nsl, int hpg, int lph, int G) {
+  using lanes::FULL;
+  const lanes::Lane ln(row_ptr, num_dst, heads, hpg, lph, VPL, G);
+  const int F = heads * hd;
+  const int nvh = hd / VEC;
+  const int sw = lph * VPL;   // vectors a slice
+  const size_t col0 = (size_t)ln.h * hd;
+  const bool has_edges = ln.live && ln.k1 > ln.k0;   // b[d] is read only then
+  float bv[VPL][VEC];
+  auto load_b = [&](int sl) {
+#pragma unroll
+    for (int u = 0; u < VPL; ++u) {
+      const int v = sl * sw + ln.lih + u * lph;
+      if (has_edges && v < nvh)
+        lanes::load_vec<VEC>(b + (size_t)ln.d * F + col0 + (size_t)v * VEC, bv[u]);
+      else
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) bv[u][t] = 0.f;
+    }
+  };
+  load_b(0);
+
+  // chunks of G edges; the loop runs while any group of the warp has some
+  for (int kc = ln.k0; __any_sync(FULL, kc < ln.k1); kc += G) {
+    const int n = max(0, min(G, ln.k1 - kc));
+    int my_e, my_s;
+    ln.chunk(order, idx, kc, G, my_e, my_s);
+    const int nmax = __reduce_max_sync(FULL, n);
+    for (int i0 = 0; i0 < nmax; i0 += NE) {
+      int e[NE], s[NE];
+#pragma unroll
+      for (int j = 0; j < NE; ++j) {
+        s[j] = __shfl_sync(FULL, my_s, i0 + j, G);
+        e[j] = __shfl_sync(FULL, my_e, i0 + j, G);
+      }
+      float dot[NE];
+#pragma unroll
+      for (int j = 0; j < NE; ++j) dot[j] = 0.f;
+      for (int sl = 0; sl < nsl; ++sl) {
+        if (nsl > 1) load_b(sl);
+        // the vectors of NE edges in flight, then their FMAs in order
+        float x[NE][VPL][VEC];
+#pragma unroll
+        for (int j = 0; j < NE; ++j)
+#pragma unroll
+          for (int u = 0; u < VPL; ++u) {
+            const int v = sl * sw + ln.lih + u * lph;
+            if (ln.live && i0 + j < n && v < nvh)
+              lanes::load_vec<VEC>(a + (size_t)s[j] * F + col0 + (size_t)v * VEC, x[j][u]);
+            else
+#pragma unroll
+              for (int t = 0; t < VEC; ++t) x[j][u][t] = 0.f;
+          }
+#pragma unroll
+        for (int j = 0; j < NE; ++j)
+#pragma unroll
+          for (int u = 0; u < VPL; ++u)
+#pragma unroll
+            for (int t = 0; t < VEC; ++t) dot[j] = fmaf(x[j][u][t], bv[u][t], dot[j]);
+      }
+      // the head's lanes add their partials; its first lane writes
+      for (int o = lph >> 1; o > 0; o >>= 1)
+#pragma unroll
+        for (int j = 0; j < NE; ++j) dot[j] += __shfl_xor_sync(FULL, dot[j], o);
+#pragma unroll
+      for (int j = 0; j < NE; ++j)
+        if (ln.live && ln.lih == 0 && i0 + j < n) out[(size_t)e[j] * heads + ln.h] = dot[j];
+    }
   }
 }
 
@@ -378,13 +449,6 @@ static int block_threads(int nvec) {
   if (threads > 1024) threads = 1024;
   if (threads < 32) threads = 32;
   return threads;
-}
-
-static int grid_stride_blocks(long long threads_needed) {
-  long long blocks = (threads_needed + 255) / 256;
-  const long long cap = 132LL * 64;  // enough to fill every SM many times
-  if (blocks > cap) blocks = cap;
-  return (int)(blocks < 1 ? 1 : blocks);
 }
 
 // The K1 / K4 plan's limits, as segment_sum.gss_plan sets them: VPL
@@ -467,6 +531,30 @@ static int gss_dispatch(const GssArgs& a, uintptr_t byte_bits) {
   return gss_by_vpl<1, Q>(a);
 }
 
+// K6's plan limits, as segment_sum.edge_dot_plan sets them: VPL vectors a
+// lane (1..ED_MAX_VPL) and NE edges in flight, the most of 4, 2 and 1
+// whose NE * VPL * VEC elements of a a lane fit ED_WORDS (b's vectors
+// take registers of their own)
+constexpr int ED_MAX_VPL = 8;
+constexpr int ED_WORDS = 32;
+
+template <int VEC, int VPL = 1>
+static int edge_dot_by_vpl(const float* a, const float* b, const int* idx, const int* order,
+                           const int* row_ptr, float* out, int num_dst, int heads, int hd,
+                           int vpl, int nsl, int hpg, int lph, int G, cudaStream_t st) {
+  if (vpl == VPL) {
+    constexpr int NE = gss_ne(VPL * VEC, ED_WORDS);
+    const int blocks = lanes::grid_blocks(num_dst, heads, hpg, G, GSS_THREADS);
+    edge_dot_lanes_kernel<VEC, VPL, NE><<<blocks, GSS_THREADS, 0, st>>>(
+        a, b, idx, order, row_ptr, out, num_dst, heads, hd, nsl, hpg, lph, G);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (VPL < ED_MAX_VPL)
+    return edge_dot_by_vpl<VEC, VPL + 1>(a, b, idx, order, row_ptr, out, num_dst, heads, hd,
+                                         vpl, nsl, hpg, lph, G, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 // K1, under the lane plan (vec, hpg, lph, vpl, nsl, G) with NE edges in
 // flight; with col (E, heads) and col_out (num_dst, heads) given, also
 // the column's segment sum
@@ -530,10 +618,27 @@ extern "C" int gather_rows(const float* g, const int* seg, const int* order, flo
   return (int)cudaGetLastError();
 }
 
-extern "C" int edge_dot(const float* a, const float* b, const int* src, const int* dst,
-                        const int* order, float* out, int nnz, int F, int heads, void* stream) {
-  const long long nwarps = (long long)nnz * heads;
-  edge_dot_kernel<<<grid_stride_blocks(nwarps * 32), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, src, dst, order, out, nwarps, F, heads);
-  return (int)cudaGetLastError();
+// K6 over the dst-grouped layout under the lane plan (vec, hpg, lph,
+// vpl, nsl, G) of segment_sum.edge_dot_plan: out[e, h] for the listed
+// edges (out is (E, heads); unlisted edges are not written)
+extern "C" int edge_dot(const float* a, const float* b, const int* src, const int* order,
+                        const int* row_ptr, float* out, int num_dst, int F, int heads, int vec,
+                        int hpg, int lph, int vpl, int nsl, int G, void* stream) {
+  if (heads < 1 || F % heads != 0) return (int)cudaErrorInvalidValue;
+  const int hd = F / heads;
+  const bool pow2 = G > 0 && G <= 32 && (G & (G - 1)) == 0 && lph > 0 && (lph & (lph - 1)) == 0;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b);
+  if (!pow2 || !(vec == 1 || vec == 2 || vec == 4) || hd % vec != 0 || hpg < 1 ||
+      hpg * lph > G || nsl < 1 || vpl < 1 || vpl > ED_MAX_VPL ||
+      (long long)nsl * lph * vpl * vec < hd || bits % (uintptr_t)(4 * vec) != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4)
+    return edge_dot_by_vpl<4>(a, b, src, order, row_ptr, out, num_dst, heads, hd, vpl, nsl, hpg,
+                              lph, G, st);
+  if (vec == 2)
+    return edge_dot_by_vpl<2>(a, b, src, order, row_ptr, out, num_dst, heads, hd, vpl, nsl, hpg,
+                              lph, G, st);
+  return edge_dot_by_vpl<1>(a, b, src, order, row_ptr, out, num_dst, heads, hd, vpl, nsl, hpg,
+                            lph, G, st);
 }

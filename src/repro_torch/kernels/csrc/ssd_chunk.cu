@@ -26,49 +26,72 @@
 // memory rate bounds it (0.031 ms at 3.35 TB/s; 6.5 us of bf16
 // tensor-core time).  In float32 the inputs double (about 157 MB, 0.047
 // ms); the flops at the card's TF32 tensor-core rate (495 TFLOP/s) take
-// 0.013 ms, so bytes bound it too (the CUDA-core kernel below runs them
-// at the 67 TFLOP/s float32 rate, 0.096 ms, and cannot reach it).
+// 0.013 ms a pass, 0.039 ms for the three passes below, so bytes bound it
+// too (on the CUDA cores at the 67 TFLOP/s float32 rate they alone take
+// 0.096 ms: no CUDA-core design reaches it).
 //
-// Two routes, chosen by dtype and shape (the wrapper's launch_plan says
-// which):
+// Three routes, chosen by dtype and shape (the wrapper's launch_plan
+// says which):
 //
 // bf16 at P 64, N 64 or 128 and L <= 256 (Mamba2-780m's widths, and
 // Zamba2-2.7B's N 64), the served path: ssd_state_wgmma_kernel<N>, on the
 // tensor cores.  One product per (chunk, head), out (P x N) = A (P x L) B
 // (L x N) with A = (w * x)^T and B = Bm, as one warpgroup's m64nN tile,
 // the reduction over the chunk's L <= 256 positions in 16 k-steps of
-// 16.  At Mamba2's widths the 3.2 G multiply-adds alone take about 0.1
-// ms on the CUDA cores, three times the byte bound, so no CUDA-core
-// design reaches it; the tensor cores take them in bf16.  The decay weight w_l runs along the reduction axis
+// 16.  The decay weight w_l runs along the reduction axis
 // and has to be folded into x before the product, and rounding w*x once
 // to bf16 misses the float32 bound of phase 8 (1e-4 of the largest
 // output): 2.2e-3 of it in a CPU emulation at 4 chunks x 256, 8 heads x
 // 64, N 128, G 1.  So w*x is split into hi = bf16(w*x) and lo = bf16(w*x
 // - hi) (packed conversions, two values each), Bm is exact in bf16, and
 // each k-step issues two wgmmas on the same B (1.1e-5 in the emulation).
-// A block of 160 threads (a consumer warpgroup and a producer warp) owns
-// one (chunk, group) and a run of its heads (at most 16, 32 at N 64, as
-// many as shared memory holds the weights of, so that the grid (C, G,
-// runs) fits in one wave wherever it can): the producer's one thread
-// TMA-loads the chunk's whole Bm tile once (256 x N bf16, 64 KB at N
-// 128: read once per block, not once per head) and each head's x tile
-// (256 x 64 bf16, 32 KB) into a ring of 2 stages, through 4-d maps over
-// the model's strided views, x as (P, H, L, C) and Bm as (N, G, L, C)
-// (positions past L arrive as zeros).  Meanwhile the consumers take the
-// weights of all the run's heads at once, a warp per head, so no head
-// waits on dt's loads or on a barrier of its own.  Per head they split
-// w*x in place (hi over the raw tile, lo beside: 128-byte rows, so a
-// 16-byte unit's row is its position whatever the swizzle); both A parts
-// and B are read MN-major (transposed: p and n contiguous), which bf16
-// wgmma takes.  The output, half the traffic, leaves through shared
-// memory (swizzled as the map expects) and one TMA store per 32 columns,
-// not as scattered 8-byte stores, and the store's read overlaps the next
-// head.  209 KB of shared memory at N 128 (177 KB at N 64): one block an
-// SM, the grid (C, G, runs) about one block per SM.
+// float32 at the same widths (phase 10's float32 prefill, phase 15's
+// cut): ssd_state_tf32_kernel, on the tensor cores in TF32.  One TF32
+// pass misses the float32 bound (4.1e-4 of the largest output in a CPU
+// emulation at 4 chunks x 256, 8 heads x 64, N 128, G 1), so A = (w*x)^T,
+// formed in float32, and B = Bm are each split into hi = tf32(v) and lo =
+// tf32(v - hi) (hopper::split_tf32, as K7's float32 route does) and each
+// k-step of 8 positions issues three products, Ah Bh + Ah Bl + Al Bh
+// (1.4e-5 of it in the emulation; 1.2e-7 against the exact product of
+// the same float32 w*x: the float32 prefix sums of dt*A set the floor,
+// not the split).  What the design does about TF32 wgmma's three
+// constraints:
+//   - shared-memory operands are K-major only, and both arrive MN-major
+//     (x as (L, P), p contiguous; Bm as (L, N), n contiguous).  A comes
+//     from registers instead (wgmma_tf32_rs_n64): each consumer thread
+//     reads the elements of its fragment out of the TMA-landed raw x slab,
+//     scales them by w_l and splits them in registers, so x is never
+//     copied.  B is Bm^T hi and lo, written K-major (positions
+//     contiguous) once per block by the consumers' split pass and shared
+//     by the block's run of heads, as the bf16 kernel shares its Bm tile;
+//   - the fragment's k-slots: a thread holds k-slots t and t + 4 of each
+//     k-step of 8; k-slot k holds position 2 k for k < 4 and 2 (k - 4) + 1
+//     after (Bm^T's rows are written in that order), so a thread reads
+//     positions 2 t and 2 t + 1 of its two rows, and with TMA's 128-byte
+//     swizzle (the 16-byte unit XORed with the position mod 8) a warp's
+//     32 reads of one register hit 32 different banks;
+//   - shared memory: Bm^T hi + lo at N 128 and L 256 alone would be 256
+//     KB.  A block takes 64 state columns (N / 64 blocks a chunk, side by
+//     side in the grid, so the chunk's x slabs come from L2 for the
+//     second), so Bm^T hi + lo is 128 KB; x arrives in a ring of four
+//     64-position slabs (64 KB, one chunk of a head: the stage is free as
+//     soon as its fragments are in registers); the weights of up to 32
+//     heads, 32 KB; barriers.  230464 bytes (TF_SMEM).  The output leaves
+//     from the accumulator registers as 8-byte stores, each 32-byte
+//     sector whole.
+// A block of 160 threads (a consumer warpgroup and a producer warp whose
+// one thread issues the TMA loads) owns one (chunk, column block, group)
+// and a run of the group's heads; per head, the fragments of a slab are
+// split into one of two register buffers while the previous slab's 24
+// wgmmas run (wgmma.wait_group 1 before a buffer is reused), and a
+// head's slab 0 while the previous head's last slab's do.  Every head
+// takes all four slabs, zeros past L included: the consumers' path has
+// no branch (fragments defined on a divergent path made ptxas serialize
+// all 96 wgmmas of a head, 0.18 ms at Mamba2's widths on an H100).
 //
-// float32, and bf16 at any other width (P % 4 == 0, N % 8 == 0, any L:
-// the reduced configs): ssd_state_kernel<T>, on the CUDA cores (no served
-// cell runs float32, and both its operands would need splitting).  One
+// float32, and bf16, at any other width (P % 4 == 0, N % 8 == 0, any L:
+// the reduced configs): ssd_state_kernel<T>, on the CUDA cores, each
+// dtype counted apart.  One
 // block per (head, chunk), 256 threads.  Warp 0 takes the prefix sum and the block
 // forms w in shared memory; then the (P x L) * (L x N) product streams L
 // in tiles of 32 positions, staged in shared memory with x already scaled
@@ -239,6 +262,61 @@ template <int N>
 constexpr int TC_SMEM = 1024 + (N / 64) * BM_CHUNK + X_STAGES * X_BYTES + X_BYTES +
                         (N / 32) * O_CHUNK + 4 * W_HEADS<N> * TC_L + 8 * (1 + 2 * X_STAGES);
 
+// the decay weights of heads h0 .. h0 + nh - 1 (nh <= 4 * RUN_HEADS) of
+// one chunk (dtc: the chunk's dt) into w, TC_L floats a head, w_l =
+// exp(cum_{L-1} - cum_l) * dt_l and 0 past L, by a consumer warpgroup:
+// warp v takes heads v, v + 4, ...  The prefix sum is prefix_sum's, in
+// the same order, but each lane keeps its run of dt in registers, and a
+// warp issues the loads of all its heads' runs before any sum, so that
+// they are in flight together and dt is read once (through shared
+// memory, as prefix_sum takes it, the kernel was slower on an H100)
+constexpr int RUN_HEADS = 8;   // heads a warp takes, at most
+__device__ __forceinline__ void run_weights(float* w, const float* __restrict__ dtc,
+                                            const float* __restrict__ A, int L, int H, int h0,
+                                            int nh, int tid) {
+  const int lane = tid & 31;
+  const int run = (L + 31) / 32;   // at most 8 positions a lane
+  const int lo = min(L, lane * run), hi = min(L, lo + run);
+  const int owner = (L - 1) / run;
+  float d[RUN_HEADS][8], a[RUN_HEADS];
+#pragma unroll
+  for (int jj = 0; jj < RUN_HEADS; ++jj) {
+    const int j = (tid >> 5) + 4 * jj;
+    a[jj] = j < nh ? A[h0 + j] : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      d[jj][k] = j < nh && lo + k < hi ? dtc[(long long)(lo + k) * H + h0 + j] : 0.f;
+  }
+#pragma unroll
+  for (int jj = 0; jj < RUN_HEADS; ++jj) {
+    const int j = (tid >> 5) + 4 * jj;
+    if (j >= nh) break;   // warp-uniform
+    float cum[8];
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (lo + k < hi) tot += d[jj][k] * a[jj];
+      cum[k] = tot;
+    }
+    float incl = tot;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, incl, s);
+      if (lane >= s) incl += up;
+    }
+    const float before = incl - tot;
+    const float last = __shfl_sync(0xffffffffu, tot + before, owner);
+    float* wj = w + j * TC_L;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (lo + k < hi) wj[lo + k] = expf(last - (cum[k] + before)) * d[jj][k];
+    for (int l = L + lane; l < TC_L; l += 32) wj[l] = 0.f;
+  }
+}
+
+static_assert(W_HEADS<64> <= 4 * RUN_HEADS && W_HEADS<128> <= 4 * RUN_HEADS,
+              "run_weights takes every head of a block");
+
 // maps: x over (P, H, L, C) and Bm over (N, G, L, C) in bf16, boxes of 64
 // x 1 x 256 x 1; out over (N, P, H, C) in float32, boxes of 32 x 64 x 1 x
 // 1; all with 128-byte swizzle.  Block (c, g, run): heads g * rep + run *
@@ -302,42 +380,9 @@ ssd_state_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t b_addr = hopper::smem_u32(sB), xl_addr = hopper::smem_u32(sXl);
   float acc[N / 2];
 
-  // the weights of every head of the run at once, w_l = exp(cum_{L-1} -
-  // cum_l) * dt_l (0 past L), while Bm and the first x tiles load: warp v
-  // takes heads v, v + 4, ...  The prefix sum is prefix_sum's, in the same
-  // order, but each lane keeps its run of dt in registers, so that its
-  // loads are in flight together and dt is read once (through shared
-  // memory, as prefix_sum takes it, the kernel was slower on an H100)
-  {
-    const int run = (L + 31) / 32;   // at most 8 positions a lane
-    const int lo = min(L, lane * run), hi = min(L, lo + run);
-    const int owner = (L - 1) / run;
-    for (int j = tid >> 5; j < nh; j += 4) {
-      const int h = h0 + j;
-      const float a = A[h];
-      float d[8], cum[8];
-      float tot = 0.f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        d[k] = lo + k < hi ? dtc[(long long)(lo + k) * H + h] : 0.f;
-        if (lo + k < hi) tot += d[k] * a;
-        cum[k] = tot;
-      }
-      float incl = tot;
-#pragma unroll
-      for (int s = 1; s < 32; s <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, s);
-        if (lane >= s) incl += up;
-      }
-      const float before = incl - tot;
-      const float last = __shfl_sync(0xffffffffu, tot + before, owner);
-      float* wj = w + j * TC_L;
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        if (lo + k < hi) wj[lo + k] = expf(last - (cum[k] + before)) * d[k];
-      for (int l = L + lane; l < TC_L; l += 32) wj[l] = 0.f;
-    }
-  }
+  // the weights of every head of the run, while Bm and the first x tiles
+  // load
+  run_weights(w, dtc, A, L, H, h0, nh, tid);
   hopper::named_barrier(1, 128);
 
   for (int i = 0; i < nh; ++i) {
@@ -451,13 +496,279 @@ int launch_wgmma(const void* x, const float* dt, const float* A, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32: the TF32 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+constexpr int TF_NB = 64;                      // state columns (n) a block takes
+constexpr int TF_SLAB = 64;                    // positions a slab of x
+constexpr int TF_STAGES = TC_L / TF_SLAB;      // slabs in flight: a whole chunk of x
+constexpr int TF_XCHUNK = TF_SLAB * 128;       // 32 columns (p) of a slab, 128-byte rows
+constexpr int TF_SLAB_BYTES = 2 * TF_XCHUNK;   // 64 x 64 float32
+constexpr int TF_BT_CHUNK = TF_NB * 128;       // 32 positions of Bm^T's TF_NB rows
+constexpr int TF_BT_BYTES = TC_L * TF_NB * 4;  // Bm^T hi (or lo): TF_NB x TC_L
+constexpr int TF_HEADS = 32;                   // heads a block walks, at most
+static_assert(TF_HEADS <= 4 * RUN_HEADS, "run_weights takes every head of a block");
+// slack to align the base to 1024; Bm^T hi and lo; the x ring; the
+// weights of the block's heads; barriers.  1024 + 131072 + 65536 + 32768
+// + 64 = 230464 bytes of the 232448 a block may have
+constexpr int TF_SMEM = 1024 + 2 * TF_BT_BYTES + TF_STAGES * TF_SLAB_BYTES +
+                        4 * TF_HEADS * TC_L + 8 * 2 * TF_STAGES;
+
+// A = (w x)^T of one x slab as the TF32 A fragments of its 8 k-steps,
+// hi and lo: the fragment's (row, k-slot) pairs (r, t), (r + 8, t), (r,
+// t + 4), (r + 8, t + 4) of k-step kk hold positions l, l, l + 1, l + 1,
+// l = 8 kk + 2 t; xo holds the four reads' swizzled offsets at kk = 0 and
+// wt points at w_{2 t} of the slab.  A warp's 32 reads of one register hit
+// 32 banks (the swizzle XORs the 16-byte unit with l % 8 = 2 t or 2 t + 1)
+__device__ __forceinline__ void split_slab(const uint8_t* xs, const float* wt,
+                                           const uint32_t (&xo)[4], uint32_t (&ah)[8][4],
+                                           uint32_t (&al)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const float2 wl = *reinterpret_cast<const float2*>(wt + 8 * kk);
+    const uint8_t* row = xs + kk * 1024;
+    hopper::split_tf32(wl.x * *reinterpret_cast<const float*>(row + xo[0]), ah[kk][0], al[kk][0]);
+    hopper::split_tf32(wl.x * *reinterpret_cast<const float*>(row + xo[1]), ah[kk][1], al[kk][1]);
+    hopper::split_tf32(wl.y * *reinterpret_cast<const float*>(row + xo[2]), ah[kk][2], al[kk][2]);
+    hopper::split_tf32(wl.y * *reinterpret_cast<const float*>(row + xo[3]), ah[kk][3], al[kk][3]);
+  }
+}
+
+// map: x over (P, H, L, C) in float32, boxes of 32 x 1 x 64 x 1, 128-byte
+// swizzle.  Bm is read through its strides (bc, bl, bg) with plain loads.
+// Block (c * nb + k, g, run) takes state columns 64 k .. 64 k + 63 of
+// heads g * rep + run * hpc + i, i < hpc, that lie in group g; the nb
+// blocks of one chunk run side by side and read its x tiles from L2.
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_state_tf32_kernel(const __grid_constant__ CUtensorMap tx, const float* __restrict__ Bm,
+                      const float* __restrict__ dt, const float* __restrict__ A,
+                      float* __restrict__ out, int L, int H, int N, int rep, int hpc, int nb,
+                      long long bc, long long bl, long long bg) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sBh = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sBl = sBh + TF_BT_BYTES;
+  uint8_t* sX = sBl + TF_BT_BYTES;                   // TF_STAGES raw x slabs
+  float* w = reinterpret_cast<float*>(sX + TF_STAGES * TF_SLAB_BYTES);   // TF_HEADS x TC_L
+  uint64_t* full = reinterpret_cast<uint64_t*>(w + TF_HEADS * TC_L);
+  uint64_t* empty = full + TF_STAGES;
+
+  const int c = blockIdx.x / nb;
+  const int n0 = (blockIdx.x % nb) * TF_NB;
+  const int g = blockIdx.y;
+  const int h0 = g * rep + blockIdx.z * hpc;
+  const int nh = min(hpc, rep - (int)blockIdx.z * hpc);
+  if (nh <= 0) return;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 4);   // one arrival per consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer warp: one thread issues every copy, the slabs of the
+    // block's heads in turn through the ring; every head takes all
+    // TF_STAGES slabs (a slab past L arrives as zeros), so that the
+    // consumers' path has no branch on L
+    if (threadIdx.x == 128) {
+      for (int i = 0, q = 0; i < nh; ++i)
+        for (int s = 0; s < TF_STAGES; ++s, ++q) {
+          const int st = s;   // q % TF_STAGES
+          uint8_t* xs = sX + st * TF_SLAB_BYTES;
+          hopper::mbar_wait(empty + st, ((q / TF_STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(full + st, TF_SLAB_BYTES);
+          hopper::tma_load_4d(xs, &tx, full + st, 0, h0 + i, s * TF_SLAB, c);
+          hopper::tma_load_4d(xs + TF_XCHUNK, &tx, full + st, 32, h0 + i, s * TF_SLAB, c);
+        }
+      // the consumers split a next head's slab 0 after each head, the
+      // last one's too (unused): a copy of the last head's
+      hopper::mbar_wait(empty, (nh & 1) ^ 1);
+      hopper::mbar_expect_tx(full, TF_SLAB_BYTES);
+      hopper::tma_load_4d(sX, &tx, full, 0, h0 + nh - 1, 0, c);
+      hopper::tma_load_4d(sX + TF_XCHUNK, &tx, full, 32, h0 + nh - 1, 0, c);
+    }
+    return;
+  }
+
+  // the consumer warpgroup; a thread holds output rows (p) r and r + 8 of
+  // its warp's 16, columns (n) 8 j + cq, + 1, and takes k-slots t and t + 4
+  // of each k-step of A
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r = (tid >> 5) * 16 + (lane >> 2);
+  const int t = lane & 3;
+  const int cq = 2 * t;
+
+  run_weights(w, dt + (long long)c * L * H, A, L, H, h0, nh, tid);
+
+  // Bm^T hi and lo, K-major (positions contiguous, 128-byte swizzle), for
+  // the block's 64 columns, once for all its heads.  Item (n, u) takes
+  // positions p0 + {0, 2, 4, 6}, p0 = 8 (u / 2) + u % 2, to k-slots 4 u ..
+  // 4 u + 3 of row n: k-slot k of each 8 holds position 2 k for k < 4 and
+  // 2 (k - 4) + 1 after, the order in which A's fragments take them
+  {
+    const float* bb = Bm + c * bc + g * bg + n0;
+    constexpr int ITEMS = TF_NB * TC_L / 4 / 128;   // 32 a thread
+    constexpr int BATCH = 16;                       // their loads in flight
+#pragma unroll 1
+    for (int k0 = 0; k0 < ITEMS; k0 += BATCH) {
+      float4 v[BATCH];
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int it = tid + 128 * (k0 + k);
+        const int n = it % TF_NB, u = it / TF_NB;
+        const int p0 = 8 * (u >> 1) + (u & 1);
+        float e[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int l = p0 + 2 * m;
+          e[m] = l < L ? bb[l * bl + n] : 0.f;
+        }
+        v[k] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const int it = tid + 128 * (k0 + k);
+        const int n = it % TF_NB, u = it / TF_NB;
+        uint4 hi, lo;
+        hopper::split_tf32(v[k].x, hi.x, lo.x);
+        hopper::split_tf32(v[k].y, hi.y, lo.y);
+        hopper::split_tf32(v[k].z, hi.z, lo.z);
+        hopper::split_tf32(v[k].w, hi.w, lo.w);
+        const uint32_t at = hopper::swz<128>((4 * u / 32) * TF_BT_CHUNK + n * 128 + (4 * u % 32) * 4);
+        *reinterpret_cast<uint4*>(sBh + at) = hi;
+        *reinterpret_cast<uint4*>(sBl + at) = lo;
+      }
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1, 128);   // Bm^T and the weights are written
+
+  const uint32_t bh_addr = hopper::smem_u32(sBh), bl_addr = hopper::smem_u32(sBl);
+  // this thread's four reads of a slab at k-step 0 (positions 2 t and 2 t
+  // + 1, columns r and r + 8), swizzled; k-step kk lies 8 rows (1024
+  // bytes) on, which the swizzle leaves alone (it XORs the 16-byte unit
+  // with the row mod 8)
+  const uint32_t c0 = (r / 32) * TF_XCHUNK + (r % 32) * 4;
+  const uint32_t c1 = ((r + 8) / 32) * TF_XCHUNK + ((r + 8) % 32) * 4;
+  const uint32_t xo[4] = {hopper::swz<128>(c0 + 2 * t * 128), hopper::swz<128>(c1 + 2 * t * 128),
+                          hopper::swz<128>(c0 + (2 * t + 1) * 128),
+                          hopper::swz<128>(c1 + (2 * t + 1) * 128)};
+  float acc[TF_NB / 2];
+  // the A fragments of a slab's 8 k-steps, hi and lo, in two buffers:
+  // a slab's splits run while the previous slab's products do
+  uint32_t ah[2][8][4], al[2][8][4];
+
+  // the first head's slab 0; each later head's is split while the
+  // previous head's last products run
+  hopper::mbar_wait(full, 0);
+  split_slab(sX, w + 2 * t, xo, ah[0], al[0]);
+
+  for (int i = 0; i < nh; ++i) {
+    const int h = h0 + i;
+    const float* wi = w + i * TC_L + 2 * t;
+#pragma unroll
+    for (int x = 0; x < TF_NB / 2; ++x) acc[x] = 0.f;
+
+    // all TF_STAGES slabs, unrolled and without a branch: a loop bound
+    // known only at run time, or fragments defined on a divergent path,
+    // make ptxas serialize the wgmmas.  Head i's slab s lands in stage s.
+#pragma unroll
+    for (int s = 0; s < TF_STAGES; ++s) {
+      const int b = s & 1;
+      if (s > 0) {
+        // the products of slab s - 2 are done with buffer b
+        if (s >= 2) hopper::wgmma_wait<1>();
+        hopper::mbar_wait(full + s, i & 1);
+        split_slab(sX + s * TF_SLAB_BYTES, wi + s * TF_SLAB, xo, ah[b], al[b]);
+      }
+
+      // out += Ah Bh + Ah Bl + Al Bh over the slab's 8 k-steps (acc is
+      // not fenced here: the previous slab's products are still writing
+      // it, and a copy of it would make ptxas serialize the wgmmas)
+      hopper::fence_regs(ah[b]);
+      hopper::fence_regs(al[b]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int ks = 8 * s + kk;   // k-step of the chunk
+        const uint32_t at = (ks / 4) * TF_BT_CHUNK + (ks % 4) * 32;
+        const uint64_t bh = hopper::make_desc(bh_addr + at, 16, 1024, 128);
+        const uint64_t bl = hopper::make_desc(bl_addr + at, 16, 1024, 128);
+        hopper::wgmma_tf32_rs_n64(acc, ah[b][kk], bh);
+        hopper::wgmma_tf32_rs_n64(acc, ah[b][kk], bl);
+        hopper::wgmma_tf32_rs_n64(acc, al[b][kk], bh);
+      }
+      hopper::wgmma_commit();
+      // this warp's reads of the slab are done (its fragments are in
+      // registers): once every warp says so, the stage takes the next
+      // head's slab
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty + s);
+    }
+    // the next head's slab 0 into buffer 0 once slab 2's products are
+    // done, while slab 3's run (after the last head, the producer's copy,
+    // never multiplied)
+    hopper::wgmma_wait<1>();
+    hopper::mbar_wait(full, (i + 1) & 1);
+    split_slab(sX, w + min(i + 1, nh - 1) * TC_L + 2 * t, xo, ah[0], al[0]);
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(acc);
+
+    // epilogue: straight to device memory, each row's 8 bytes a thread
+    // filling 32-byte sectors
+    float* ob = out + ((long long)c * H + h) * TC_P * N + n0;
+#pragma unroll
+    for (int jn = 0; jn < TF_NB / 8; ++jn) {
+      const int n = 8 * jn + cq;
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2)
+        *reinterpret_cast<float2*>(ob + (long long)(r + 8 * i2) * N + n) =
+            make_float2(acc[4 * jn + 2 * i2], acc[4 * jn + 2 * i2 + 1]);
+    }
+  }
+}
+
+int launch_tf32(const void* x, const float* dt, const float* A, const void* Bm, float* out,
+                const long long* st, int C, int L, int H, int P, int G, int N,
+                cudaStream_t stream) {
+  if (P != TC_P || L > TC_L || N % TF_NB) return (int)cudaErrorInvalidValue;
+  CUtensorMap mx;
+  const long long xd[4] = {P, H, L, C}, xs[3] = {st[2], st[1], st[0]};
+  const int box[4] = {32, 1, TF_SLAB, 1};
+  const int err =
+      hopper::make_map_4d(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, xd, xs, box, 128);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(ssd_state_tf32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TF_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // about one block per SM: each (chunk, column block, group) splits its
+  // heads into runs of at most TF_HEADS
+  const int rep = H / G, nb = N / TF_NB;
+  int runs = max(1, min(rep, sms / max(1, C * nb * G)));
+  runs = max(runs, (rep + TF_HEADS - 1) / TF_HEADS);
+  const int hpc = (rep + runs - 1) / runs;
+  const dim3 grid(C * nb, G, (rep + hpc - 1) / hpc);
+  ssd_state_tf32_kernel<<<grid, TC_THREADS, TF_SMEM, stream>>>(
+      mx, static_cast<const float*>(Bm), dt, A, out, L, H, N, rep, hpc, nb, st[3], st[4], st[5]);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // strides: 6 element strides, (chunk, position, head) of x then (chunk,
 // position, group) of Bm.  is_bf16 selects bf16 x and Bm (else float32);
-// tensor_cores the wgmma kernel (bf16 only: P 64, N 64 or 128, L <= 256,
-// and TMA's alignment), else the CUDA-core kernel (P % 4 == 0, N % 8 ==
-// 0).  The wrapper's launch_plan picks the route and checks its shapes.
+// tensor_cores the tensor-core kernel of that dtype (P 64, N 64 or 128, L
+// <= 256, and TMA's alignment of x, and in bf16 of Bm), else the
+// CUDA-core kernel (P % 4 == 0, N % 8 == 0).  The wrapper's launch_plan picks the route and checks its shapes.
 // Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for
 // a route that does not take the shape, or hopper::TENSOR_MAP_ERROR + a
 // CUresult if a TMA map was refused.
@@ -468,7 +779,7 @@ extern "C" int ssd_chunk_state_fwd(const void* x, const float* dt, const float* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 0 || H == 0 || L == 0) return 0;
   if (tensor_cores) {
-    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    if (!is_bf16) return launch_tf32(x, dt, A, Bm, out, strides, C, L, H, P, G, N, s);
     if (N == 128) return launch_wgmma<128>(x, dt, A, Bm, out, strides, C, L, H, P, G, s);
     if (N == 64) return launch_wgmma<64>(x, dt, A, Bm, out, strides, C, L, H, P, G, s);
     return (int)cudaErrorInvalidValue;
@@ -479,8 +790,9 @@ extern "C" int ssd_chunk_state_fwd(const void* x, const float* dt, const float* 
 }
 
 // the dynamic shared memory a tensor-core block asks for at state width N
-// (0 for a width it does not take): launch_plan states the same number,
-// and chip_smoke.py holds the two together
-extern "C" int ssd_chunk_state_smem(int N) {
+// in bf16 or float32 (0 for a width the route does not take): launch_plan
+// states the same number, and chip_smoke.py holds the two together
+extern "C" int ssd_chunk_state_smem(int N, int is_bf16) {
+  if (!is_bf16) return N == 64 || N == 128 ? TF_SMEM : 0;
   return N == 128 ? TC_SMEM<128> : N == 64 ? TC_SMEM<64> : 0;
 }

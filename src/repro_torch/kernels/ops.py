@@ -81,11 +81,12 @@ def gather_rows(g, seg, order, num_edges: int):
     return fn(g, seg, order, num_edges)
 
 
-def edge_dot(a, b, edge_src, edge_dst, order, heads: int = 1):
-    """K6: ``out[e, h] = <a[src_e], b[dst_e]>`` over head ``h``'s columns,
-    on the listed edges, zero elsewhere; (E, heads)."""
+def edge_dot(a, b, edge_src, order, row_ptr, heads: int = 1):
+    """K6: ``out[e, h] = <a[src_e], b[d]>`` over head ``h``'s columns for
+    each edge listed in destination ``d``'s range of the dst-grouped
+    layout ``(order, row_ptr)``, zero elsewhere; (E, heads)."""
     fn = _ss.pick(_ss.edge_dot_cuda, _ss.edge_dot_plain, a)
-    return fn(a, b, edge_src, edge_dst, order, heads)
+    return fn(a, b, edge_src, order, row_ptr, heads)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

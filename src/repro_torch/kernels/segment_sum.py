@@ -16,7 +16,8 @@ Five kernels, each with its plain PyTorch version beside it:
 * :func:`gather_rows_cuda` (K5) — ``out[e] = g[seg_e]``, the transpose of
   K2 (``gather_rows_pallas`` ``:196``).
 * :func:`edge_dot_cuda` (K6) — ``out[e, h] = <a[src_e], b[dst_e]>`` per
-  head; the coefficient cotangent of K1 (``_edge_dot`` ``:390``).
+  head over the dst-grouped layout; the coefficient cotangent of K1
+  (``_edge_dot`` ``:390``).
 * :func:`gather_scale_segment_sum_q_cuda` (K4) — K1 on uint8 rows
   dequantized in registers (``gather_scale_segment_sum_q_pallas``
   ``:531``), forward only.
@@ -25,8 +26,8 @@ The TPU kernels tile the reductions as one-hot matmuls because a TPU has
 no efficient scatter.  These walk a grouped layout instead: ``order``
 lists the edges stably sorted by the grouping index and
 ``row_ptr[d]:row_ptr[d+1]`` is group ``d``'s range (:func:`dst_layout`).
-Each output row is owned by the lanes that write it once (K1 and K4: a
-group of lanes under a :func:`lane_plan`, shared with GAT's kernels;
+Each output row is owned by the lanes that write it once (K1, K4 and K6:
+a group of lanes under a :func:`lane_plan`, shared with GAT's kernels;
 K2: one CUDA block), so there are no atomics and every sum is bitwise
 repeatable.  See ``csrc/segment_sum.cu`` for the bounds.
 
@@ -478,48 +479,89 @@ def gather_rows_cuda(g: torch.Tensor, seg: torch.Tensor,
 # K6: per-edge, per-head dot product (the coefficient cotangent of K1)
 # ---------------------------------------------------------------------------
 
+#: K6's range of vectors a lane and the elements of ``a`` a lane may hold
+#: in flight (``csrc/segment_sum.cu``: ED_MAX_VPL, ED_WORDS); b's vectors
+#: take registers of their own.  A lane takes ED_FLOATS floats of a head:
+#: over the whole graph at 1 x 256 and 4 x 64, 8 floats a lane with 4
+#: edges in flight ran faster than 16 with one or two, and 4 x 10 did not
+#: move (``scripts/k6_lane_plans.py``; PERF.md, PR 22)
+ED_MAX_VPL = 8
+ED_WORDS = 32
+ED_FLOATS = 8
+
+
+def edge_dot_plan(heads: int, hd: int, align: int = 16) -> dict:
+    """K6's lane plan: :func:`lane_plan` with up to :data:`ED_MAX_VPL`
+    vectors a lane, nearest :data:`ED_FLOATS` floats a lane (over a whole
+    graph and a block alike), plus ``nsl``, the slices a head wider than
+    a warp of :data:`ED_MAX_VPL` vectors is cut into (the same lanes walk
+    them in turn), and ``ne``, the edges whose ``a`` vectors a lane has in
+    flight: the most of :data:`GSS_NES` within :data:`ED_WORDS` elements.
+    More heads than a warp has lanes, or a sliced head, take a group
+    each."""
+    return dict(_edge_dot_plan(heads, hd, align))
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_dot_plan(heads: int, hd: int, align: int) -> tuple:
+    vec = next(v for v in (4, 2, 1) if hd % v == 0 and align % (4 * v) == 0)
+    nvh = hd // vec
+    nsl = max(1, -(-nvh // (WARP * ED_MAX_VPL)))
+    one = nsl > 1 or heads > WARP
+    plan = lane_plan(1 if one else heads, -(-nvh // nsl) * vec, 4 * vec,
+                     ED_FLOATS, max_vpl=ED_MAX_VPL)
+    plan.update(nsl=nsl, ne=gss_ne(plan["vpl"] * vec, ED_WORDS))
+    return tuple(plan.items())
+
+
 def edge_dot_plain(a: torch.Tensor, b: torch.Tensor, edge_src: torch.Tensor,
-                   edge_dst: torch.Tensor, order: torch.Tensor,
+                   order: torch.Tensor, row_ptr: torch.Tensor,
                    heads: int = 1) -> torch.Tensor:
-    """Plain PyTorch K6: ``out[e, h] = <a[src_e, h-th slice],
-    b[dst_e, h-th slice]>`` (slices of ``F / heads`` columns) for the
-    listed edges, zero for the others.  Returns (E, heads)."""
+    """Plain PyTorch K6 over the dst-grouped layout ``(order, row_ptr)``:
+    ``out[e, h] = <a[src_e, h-th slice], b[d, h-th slice]>`` (slices of
+    ``F / heads`` columns) for each edge ``e`` listed in destination
+    ``d``'s range, zero for the unlisted edges.  Returns (E, heads)."""
     e = order.long()
     hd = a.shape[1] // heads
+    seg = _segments(row_ptr, b.shape[0])
     ra = a[edge_src.long()[e]].reshape(len(e), heads, hd)
-    rb = b[edge_dst.long()[e]].reshape(len(e), heads, hd)
+    rb = b[seg].reshape(len(e), heads, hd)
     out = torch.zeros((edge_src.shape[0], heads), dtype=a.dtype,
                       device=a.device)
     return out.index_copy(0, e, (ra * rb).sum(-1))
 
 
 def edge_dot_cuda(a: torch.Tensor, b: torch.Tensor, edge_src: torch.Tensor,
-                  edge_dst: torch.Tensor, order: torch.Tensor,
+                  order: torch.Tensor, row_ptr: torch.Tensor,
                   heads: int = 1) -> torch.Tensor:
-    """K6 on the card (``csrc/segment_sum.cu``, ``edge_dot``)."""
+    """K6 on the card (``csrc/segment_sum.cu``, ``edge_dot``), under
+    :func:`edge_dot_plan`; ``b`` has a row per destination of the
+    layout."""
     dev = _require_cuda(a, "edge_dot_cuda")
     _check(a, "a", torch.float32, 2, dev)
     _check(b, "b", torch.float32, 2, dev)
     _check(edge_src, "edge_src", torch.int32, 1, dev)
-    _check(edge_dst, "edge_dst", torch.int32, 1, dev)
-    _check(order, "order", torch.int32, 1, dev)
+    num_dst = b.shape[0]
+    _check_layout(order, row_ptr, num_dst, dev)
     F, E = a.shape[1], edge_src.shape[0]
     if b.shape[1] != F or heads < 1 or F % heads:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must "
                          f"share a width that splits into {heads} heads")
-    if edge_dst.shape[0] != E or order.shape[0] > E:
-        raise ValueError("edge_src, edge_dst and order do not match")
+    if order.shape[0] > E:
+        raise ValueError("order lists more edges than edge_src has")
     nnz = order.shape[0]
     out = _edge_output(nnz, (E, heads), dev)
     if nnz == 0:
         return out
     if F == 0:
         return out.zero_()
+    plan = edge_dot_plan(heads, F // heads, _align(a, b))
     lib = build.library("segment_sum")
     build.check(lib.edge_dot(
-        a.data_ptr(), b.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(),
-        order.data_ptr(), out.data_ptr(), nnz, F, heads, _stream()),
-        "edge_dot")
+        a.data_ptr(), b.data_ptr(), edge_src.data_ptr(), order.data_ptr(),
+        row_ptr.data_ptr(), out.data_ptr(), num_dst, F, heads,
+        *(plan[k] for k in ("vec", "hpg", "lph", "vpl", "nsl", "group")),
+        _stream()), "edge_dot")
     launches["edge_dot"] += 1
     return out
 
@@ -594,7 +636,8 @@ def _need_layout(layout: Optional[Layout], what: str) -> None:
 class GatherScaleSegmentSum(torch.autograd.Function):
     """K1 with its VJP: ``dh`` is K1 over the src-grouped layout with
     source and destination swapped (``dh[s] = sum_{e: src_e=s} coef_e *
-    g[dst_e]``), ``dcoef`` is K6.  Each is computed only when asked for."""
+    g[dst_e]``), ``dcoef`` is K6 over the same dst-grouped layout as the
+    forward.  Each is computed only when asked for."""
 
     @staticmethod
     def forward(ctx, h, edge_src, edge_dst, coef, order, row_ptr,
@@ -603,14 +646,14 @@ class GatherScaleSegmentSum(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             _need_layout(src_layout, "gather_scale_segment_sum")
         ctx.src_layout = src_layout
-        ctx.save_for_backward(h, edge_src, edge_dst, coef, order)
+        ctx.save_for_backward(h, edge_src, edge_dst, coef, order, row_ptr)
         return ops.gather_scale_segment_sum(h, edge_src, coef, order,
                                             row_ptr, num_dst)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.kernels import ops
-        h, edge_src, edge_dst, coef, order = ctx.saved_tensors
+        h, edge_src, edge_dst, coef, order, row_ptr = ctx.saved_tensors
         g = g.contiguous()
         dh = dcoef = None
         if ctx.needs_input_grad[0]:
@@ -619,7 +662,7 @@ class GatherScaleSegmentSum(torch.autograd.Function):
                                               row_ptr_s, h.shape[0],
                                               transpose=True)
         if ctx.needs_input_grad[3]:
-            dcoef = ops.edge_dot(h, g, edge_src, edge_dst, order)[:, 0]
+            dcoef = ops.edge_dot(h, g, edge_src, order, row_ptr)[:, 0]
         return dh, None, None, dcoef, None, None, None, None
 
 

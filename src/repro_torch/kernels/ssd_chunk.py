@@ -7,16 +7,19 @@ the chunk's positions.
 :func:`ssd_chunk_state_cuda` launches the hand-written Hopper kernel
 (``csrc/ssd_chunk.cu``), the counterpart of the reference's Pallas kernel
 ``src/repro/kernels/ssd_chunk.py:42`` (``ssd_chunk_state_pallas``;
-``pallas_call`` at ``:55``).  Two routes, by dtype and shape
-(:func:`launch_plan`): bf16 x and Bm at P 64, N 64 or 128 and chunks of
-at most 256 positions (Mamba2-780m's widths, the served path, and
-Zamba2-2.7B's N 64) go to ``ssd_state_wgmma_kernel`` on the tensor
-cores, which folds the decay weight into x, splits w·x into bf16 hi and
-lo parts (rounding it once misses the float32 bound of 1e-4 of the
-largest output) and takes both products on the same Bm; float32, and
-bf16 at any other width (the reduced configs), go to ``ssd_state_kernel``
-on the CUDA cores.  The routes count apart (``ssd_chunk_state``,
-``ssd_chunk_state_fp32``, ``ssd_chunk_state_bf16_cuda_core``).
+``pallas_call`` at ``:55``).  Three routes, by dtype and shape
+(:func:`launch_plan`), at P 64, N 64 or 128 and chunks of at most 256
+positions (Mamba2-780m's widths and Zamba2-2.7B's N 64) on the tensor
+cores: bf16 x and Bm go to ``ssd_state_wgmma_kernel``, which folds the
+decay weight into x, splits w·x into bf16 hi and lo parts (rounding it
+once misses the float32 bound of 1e-4 of the largest output) and takes
+both products on the same Bm; float32 goes to ``ssd_state_tf32_kernel``,
+which splits w·x and Bm into TF32 hi and lo parts and takes three
+products (one TF32 pass misses the same bound).  Every other width, in
+either dtype (the reduced configs), goes to ``ssd_state_kernel`` on the
+CUDA cores.  The routes count apart (``ssd_chunk_state``,
+``ssd_chunk_state_fp32``, ``ssd_chunk_state_fp32_cuda_core``,
+``ssd_chunk_state_bf16_cuda_core``).
 :func:`ssd_chunk_state_plain` is the reference's oracle
 (``src/repro/kernels/ref.py:40``) in PyTorch.  Both take x (C, L, H, P),
 dt (C, L, H), A (H,), Bm (C, L, G, N) and return (C, H, P, N) float32.
@@ -32,9 +35,10 @@ from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
                                              _require_cuda, _stream)
 
 #: launches of the kernel wrapper (a run resets and reads it), by route:
-#: the tensor cores (bf16 at the tile's widths, the served path), the CUDA
-#: cores in float32, the CUDA cores in bf16 (other widths)
+#: the tensor cores at the tile's widths in bf16 (the served path) and in
+#: float32, the CUDA cores (other widths) in float32 and in bf16
 launches = {"ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
+            "ssd_chunk_state_fp32_cuda_core": 0,
             "ssd_chunk_state_bf16_cuda_core": 0}
 
 #: the tensor-core route's tile: one warpgroup's m64nN product, N one of
@@ -44,6 +48,10 @@ TC_NS = (64, 128)
 #: heads a tensor-core block walks, at most, by N (their decay weights
 #: fill the shared memory that N leaves)
 W_HEADS = {64: 32, 128: 16}
+#: the float32 route: a block takes TF32_NB state columns (N / TF32_NB
+#: blocks a chunk), x arrives in TF32_STAGES slabs of TC_L / TF32_STAGES
+#: positions, and a block walks at most TF32_HEADS heads
+TF32_NB, TF32_STAGES, TF32_HEADS = 64, 4, 32
 
 
 def tc_smem(N: int) -> int:
@@ -55,19 +63,34 @@ def tc_smem(N: int) -> int:
             + 4 * W_HEADS[N] * TC_L + 8 * 5)
 
 
+def tf32_smem() -> int:
+    """Dynamic shared memory of a float32 tensor-core block (any N it
+    takes): the 1024-byte alignment slack, Bm^T hi and lo for its
+    TF32_NB columns, the ring of x slabs, the weights of its heads, 8
+    barriers (``TF_SMEM`` in ``csrc/ssd_chunk.cu``)."""
+    return (1024 + 2 * TC_L * TF32_NB * 4 + TC_L * TC_P * 4
+            + 4 * TF32_HEADS * TC_L + 8 * 2 * TF32_STAGES)
+
+
 def launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
     """How :func:`ssd_chunk_state_cuda` launches K8 on these tensors, on
-    any device (pure Python: the CPU tests rehearse it).  bf16 at P 64, N
-    64 or 128 and L <= 256 takes the tensor-core route, which reads x and
-    Bm through TMA maps: a 16-byte-aligned base and byte strides in
-    multiples of 16 along every dim longer than 1; a call that breaks
-    either raises ``ValueError`` naming the tensor.  Every other call
-    takes the CUDA-core route (P % 4 == 0, N % 8 == 0, any L)."""
+    any device (pure Python: the CPU tests rehearse it).  At P 64, N 64 or
+    128 and L <= 256 both dtypes take a tensor-core route, which reads x
+    (and in bf16 Bm) through TMA maps: a 16-byte-aligned base and byte
+    strides in multiples of 16 along every dim longer than 1; a call that
+    breaks either raises ``ValueError`` naming the tensor (float32's Bm
+    is read with plain loads).  Every other call takes the CUDA-core
+    route (P % 4 == 0, N % 8 == 0, any L)."""
     C, L, H, P = x.shape
     N = Bm.shape[3]
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and P == TC_P and N in TC_NS and L <= TC_L:
+    if P == TC_P and N in TC_NS and L <= TC_L:
         _check_tma(x, "x", ("chunk", "position", "head"))
+        if not bf16:
+            return {"route": "wgmma_tf32", "kernel": "ssd_state_tf32_kernel",
+                    "counter": "ssd_chunk_state_fp32",
+                    "tile": (TC_P, TF32_NB, TC_L), "stages": TF32_STAGES,
+                    "smem_bytes": tf32_smem()}
         _check_tma(Bm, "Bm", ("chunk", "position", "group"))
         return {"route": "wgmma", "kernel": "ssd_state_wgmma_kernel",
                 "counter": "ssd_chunk_state", "tile": (TC_P, N, TC_L),
@@ -76,7 +99,7 @@ def launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
         raise ValueError(f"P {P} must be a multiple of 4 and N {N} of 8")
     return {"route": "cuda_core", "kernel": "ssd_state_kernel",
             "counter": ("ssd_chunk_state_bf16_cuda_core" if bf16
-                        else "ssd_chunk_state_fp32")}
+                        else "ssd_chunk_state_fp32_cuda_core")}
 
 
 def ssd_chunk_state_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -126,7 +149,7 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     build.check(lib.ssd_chunk_state_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         out.data_ptr(), strides, C, L, H, P, G, N,
-        int(x.dtype == torch.bfloat16), int(plan["route"] == "wgmma"),
+        int(x.dtype == torch.bfloat16), int(plan["route"] != "cuda_core"),
         _stream()), "ssd_chunk_state_fwd")
     launches[plan["counter"]] += 1
     return out

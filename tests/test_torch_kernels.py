@@ -254,7 +254,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
                         row_ptr, 15)
     for fn, args in [
             (segment_sum.gather_rows_cuda, (h, _t(dst), order, len(src))),
-            (segment_sum.edge_dot_cuda, (h, h, _t(src), _t(src), order)),
+            (segment_sum.edge_dot_cuda, (h, torch.randn(15, 4), _t(src), order,
+                                         row_ptr)),
             (segment_sum.gather_scale_segment_sum_q_cuda,
              (torch.zeros(20, 4, dtype=torch.uint8), torch.zeros(20, 1),
               torch.ones(20, 1), _t(src), coef, order, row_ptr, 15))]:
@@ -269,6 +270,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
         "gat_attention_backward": 0, "flash_attention": 0, "flash_attention_fp32": 0,
         "ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
+        "ssd_chunk_state_fp32_cuda_core": 0,
         "ssd_chunk_state_bf16_cuda_core": 0}
 
 
@@ -315,10 +317,10 @@ def test_k6_plain_matches_pallas_on_listed_edges(S, D, E, n_pad, F):
     pallas = np.asarray(ref_ss._edge_dot(
         jnp.asarray(h), jnp.asarray(gout), jnp.asarray(src), jnp.asarray(dst),
         ref_ss.DEFAULT_BE, ref_ss._pick_bf(F), True))
-    order, _ = _layout(dst, D, mask)
-    plain = segment_sum.edge_dot_plain(_t(h), _t(gout), _t(src), _t(dst),
-                                       order)
-    via_ops = ops.edge_dot(_t(h), _t(gout), _t(src), _t(dst), order)
+    order, row_ptr = _layout(dst, D, mask)
+    plain = segment_sum.edge_dot_plain(_t(h), _t(gout), _t(src), order,
+                                       row_ptr)
+    via_ops = ops.edge_dot(_t(h), _t(gout), _t(src), order, row_ptr)
     assert plain.shape == (len(src), 1)
     np.testing.assert_allclose(plain.numpy()[mask, 0], pallas[mask], **TOL)
     assert (plain.numpy()[~mask] == 0).all()
@@ -337,10 +339,10 @@ def test_multi_head_k1_and_k6_are_per_head_reference_calls(heads, hd):
     hs = rng.standard_normal((S, F)).astype(np.float32)
     alpha = (rng.random((len(src), heads)) * mask[:, None]).astype(np.float32)
     order_s, row_ptr_s = _layout(src, S, mask)
-    order, _ = _layout(dst, D, mask)
+    order, row_ptr = _layout(dst, D, mask)
     dhs = segment_sum.gather_scale_segment_sum_plain(
         _t(g), _t(dst), _t(alpha), order_s, row_ptr_s, S).numpy()
-    dal = segment_sum.edge_dot_plain(_t(hs), _t(g), _t(src), _t(dst), order,
+    dal = segment_sum.edge_dot_plain(_t(hs), _t(g), _t(src), order, row_ptr,
                                      heads).numpy()
     bf = ref_ss._pick_bf(hd)
     for k in range(heads):

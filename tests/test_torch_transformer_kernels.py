@@ -447,6 +447,83 @@ def test_one_bf16_rounding_of_wx_misses_the_float32_bound():
     assert _rel_err(_emulate_k8_route(x, dt, A, Bm), want) <= 2e-5
 
 
+def _emulate_k8_tf32_route(x, dt, A, Bm, *, split=True):
+    """``ssd_state_tf32_kernel``'s arithmetic in numpy: the weights as
+    the bf16 route forms them, A = (w·x)ᵀ formed in float32, A and Bm each
+    split into TF32 hi and lo = tf32(value - hi) (or, ``split=False``,
+    rounded once to TF32), and the three products Ah·Bh + Ah·Bl + Al·Bh
+    summed over the chunk's positions in k-steps of 8, each k-step's
+    products (exact in float64) added to the float32 sum in turn."""
+    C, L, H, P = x.shape
+    rep = H // Bm.shape[2]
+    cum = np.cumsum(dt * A, axis=1, dtype=np.float32)
+    w = np.exp(cum[:, -1:, :] - cum) * dt
+    wx = (w[..., None] * x).astype(np.float32)
+    Bh = np.repeat(Bm, rep, axis=2)
+    ah, bh = _tf32(wx), _tf32(Bh)
+    pairs = ([(ah, bh), (ah, _tf32(Bh - bh)), (_tf32(wx - ah), bh)]
+             if split else [(ah, bh)])
+    out = np.zeros((C, H, P, Bm.shape[3]), np.float32)
+    for l0 in range(0, L, 8):
+        for a, b in pairs:
+            step = np.einsum("clhp,clhn->chpn", a[:, l0:l0 + 8].astype(
+                np.float64), b[:, l0:l0 + 8].astype(np.float64))
+            out = (out + step).astype(np.float32)
+    return out
+
+
+def _k8_f32_inputs(rng, C, L, H, P, G, N):
+    """float32 x and Bm, dt = softplus(normal) and A = -(1 .. H), as
+    phase 8 makes them."""
+    x = rng.normal(size=(C, L, H, P)).astype(np.float32)
+    Bm = rng.normal(size=(C, L, G, N)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(C, L, H)))).astype(np.float32)
+    A = -np.arange(1, H + 1, dtype=np.float32)
+    return x, dt, A, Bm
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("N", [64, 128])
+def test_k8_tf32_route_arithmetic_meets_the_float32_bound(G, N):
+    """K8's float32 route (TF32 hi/lo splits of w·x and Bm, three
+    products, P 64, 2 chunks of 256, 4 heads) against the reference's
+    Pallas kernel (interpret mode) and its oracle, within phase 8's bound
+    of 1e-4 of the largest value, at N 64 and 128 and G 1 and 2."""
+    rng = np.random.default_rng(32 * N + G)
+    x, dt, A, Bm = _k8_f32_inputs(rng, 2, 256, 4, 64, G, N)
+    got = _emulate_k8_tf32_route(x, dt, A, Bm)
+    args = tuple(map(jnp.asarray, (x, dt, A, Bm)))
+    for want in (ref.ssd_chunk_state(*args),
+                 ssd_chunk_state_pallas(*args, bh=4)):
+        assert _rel_err(got, _np(want)) <= 1e-4
+
+
+def test_k8_tf32_route_on_a_ragged_chunk():
+    """A chunk of 100 positions: the kernel's k-steps past L add zeros."""
+    rng = np.random.default_rng(100)
+    x, dt, A, Bm = _k8_f32_inputs(rng, 3, 100, 8, 64, 2, 64)
+    want = _np(ssd_chunk_state_pallas(*map(jnp.asarray, (x, dt, A, Bm)),
+                                      bh=4))
+    assert _rel_err(_emulate_k8_tf32_route(x, dt, A, Bm), want) <= 1e-4
+
+
+def test_one_tf32_pass_misses_k8s_float32_bound():
+    """Why K8's float32 route splits: at Mamba2's P 64 and N 128 (4
+    chunks of 256, 8 heads, G 1), one TF32 product misses 1e-4 of the
+    largest value (4.1e-4 of it); the three products of the splits keep
+    to it (1.4e-5, as the bf16 route's split does; against the exact
+    product of the same float32 w·x they err by 1.2e-7: the float32
+    prefix sums of dt·A, not the split, set the floor)."""
+    rng = np.random.default_rng(781)
+    x, dt, A, Bm = _k8_f32_inputs(rng, 4, 256, 8, 64, 1, 128)
+    want = _np(ssd_chunk_state_pallas(*map(jnp.asarray, (x, dt, A, Bm)),
+                                      bh=4))
+    one = _rel_err(_emulate_k8_tf32_route(x, dt, A, Bm, split=False), want)
+    three = _rel_err(_emulate_k8_tf32_route(x, dt, A, Bm), want)
+    assert one > 1e-4
+    assert three <= 2e-5
+
+
 def _model_views(B, S, H, hd, dtype=torch.bfloat16):
     """A (B, S, H, hd) tensor as the (B, H, S, hd) view the model passes."""
     return torch.zeros((B, S, H, hd), dtype=dtype).transpose(1, 2)
@@ -570,7 +647,8 @@ def _conv_views(C, L, H, P, G, N, dtype=torch.bfloat16, pad=0):
 def test_k8_launch_plan_routes_by_dtype(G):
     """bf16 takes the tensor-core route at Mamba2's views (a conv row of
     3 328 or 3 584 bf16, a multiple of 16 bytes) and at Zamba2-2.7B's N
-    64, float32 the CUDA-core route; the routes count apart."""
+    64; float32 at the same widths its TF32 route, off them the CUDA-core
+    route; the four routes count apart."""
     x, Bm = _conv_views(32, 256, 48, 64, G, 128)
     plan = ssd.launch_plan(x, Bm)
     assert (plan["route"], plan["kernel"], plan["counter"]) == (
@@ -580,12 +658,70 @@ def test_k8_launch_plan_routes_by_dtype(G):
     plan64 = ssd.launch_plan(*_conv_views(32, 256, 80, 64, G, 64))
     assert (plan64["route"], plan64["tile"]) == ("wgmma", (64, 64, 256))
     assert plan64["smem_bytes"] == ssd.tc_smem(64) < plan["smem_bytes"]
+    for H, N in ((48, 128), (80, 64)):
+        plan32 = ssd.launch_plan(*_conv_views(32, 256, H, 64, G, N,
+                                              torch.float32))
+        assert plan32 == {
+            "route": "wgmma_tf32", "kernel": "ssd_state_tf32_kernel",
+            "counter": "ssd_chunk_state_fp32", "tile": (64, 64, 256),
+            "stages": 4, "smem_bytes": ssd.tf32_smem()}
     x32, B32 = _conv_views(6, 100, 8, 32, G, 24, torch.float32)
     assert ssd.launch_plan(x32, B32) == {
         "route": "cuda_core", "kernel": "ssd_state_kernel",
-        "counter": "ssd_chunk_state_fp32"}
+        "counter": "ssd_chunk_state_fp32_cuda_core"}
     assert set(ssd.launches) == {"ssd_chunk_state", "ssd_chunk_state_fp32",
+                                 "ssd_chunk_state_fp32_cuda_core",
                                  "ssd_chunk_state_bf16_cuda_core"}
+
+
+def test_k8_tf32_route_states_its_shared_memory():
+    """The float32 route's block: Bm^T hi and lo for 64 columns (128 KB),
+    a ring of four 64-position x slabs (64 KB), the weights of 32 heads,
+    the alignment slack and 8 barriers: 230 464 bytes, within a block's
+    232 448, the number the source states beside ``TF_SMEM``."""
+    assert ssd.tf32_smem() == 1024 + 131072 + 65536 + 32768 + 64 == 230464
+    assert ssd.tf32_smem() <= fa.SMEM_PER_BLOCK
+    from repro_torch.kernels import build
+    text = (build.CSRC / "ssd_chunk.cu").read_text()
+    assert "+ 64 = 230464 bytes" in text
+    for name, value in (("TF_NB", ssd.TF32_NB), ("TF_HEADS", ssd.TF32_HEADS)):
+        assert f"constexpr int {name} = {value};" in text
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 4, 64, 1, 128),
+                                   (2, 100, 8, 64, 2, 64),
+                                   (3, 7, 48, 64, 1, 128)])
+def test_k8_tf32_route_takes_ragged_chunks_and_groups(shape):
+    plan = ssd.launch_plan(*_conv_views(*shape, torch.float32))
+    assert plan["route"] == "wgmma_tf32"
+
+
+def test_k8_float32_off_the_tile_takes_the_cuda_core_route():
+    """P 32, N 24, N 96 and a chunk of 300 in float32: the CUDA-core
+    kernel, counted under its own name."""
+    for shape in ((6, 100, 8, 32, 2, 24), (2, 64, 4, 64, 1, 96),
+                  (2, 300, 4, 64, 1, 128), (2, 16, 8, 32, 2, 16)):
+        assert ssd.launch_plan(*_conv_views(*shape, torch.float32)) == {
+            "route": "cuda_core", "kernel": "ssd_state_kernel",
+            "counter": "ssd_chunk_state_fp32_cuda_core"}
+
+
+def test_k8_tf32_route_checks_x_for_tma_and_names_it():
+    # a conv row of 4 * 64 + 2 * 128 + 1 floats: a position stride of
+    # 2 052 bytes
+    x, Bm = _conv_views(2, 64, 4, 64, 1, 128, torch.float32, pad=1)
+    with pytest.raises(ValueError, match="^x's position stride of 2052"):
+        ssd.launch_plan(x, Bm)
+    # x 4 bytes past an aligned base
+    flat = torch.zeros(2 * 64 * 256 + 8)
+    shifted = flat[1:1 + 2 * 64 * 256].view(2, 64, 4, 64)
+    _, Bm = _conv_views(2, 64, 4, 64, 1, 128, torch.float32)
+    with pytest.raises(ValueError, match="^x's base address"):
+        ssd.launch_plan(shifted, Bm)
+    # float32's Bm is read with plain loads: a Bm 4 bytes off still runs
+    x, _ = _conv_views(2, 64, 4, 64, 1, 128, torch.float32)
+    Bm_off = flat[1:1 + 2 * 64 * 128].view(2, 64, 1, 128)
+    assert ssd.launch_plan(x, Bm_off)["route"] == "wgmma_tf32"
 
 
 def test_k8_launch_plan_checks_shapes_and_tma_alignment():
@@ -610,6 +746,7 @@ def test_k8_launch_plan_checks_shapes_and_tma_alignment():
     shifted = flat[1:1 + 2 * 64 * 128].view(2, 64, 1, 128)
     with pytest.raises(ValueError, match="^Bm's base address"):
         ssd.launch_plan(x, shifted)
-    # float32 off the bf16 tile goes to the CUDA-core route's own checks
+    # float32 off the tensor-core tile goes to the CUDA-core route's own
+    # checks
     with pytest.raises(ValueError, match="P 30 must be a multiple of 4"):
         ssd.launch_plan(*_conv_views(2, 64, 4, 30, 1, 128, torch.float32))
