@@ -2872,7 +2872,7 @@ def phase_zamba2(torch, results):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: distributed full-graph GCN, 4 ranks on the one card
+# phase 14: distributed GNN training, 4 ranks on the one card
 # ---------------------------------------------------------------------------
 
 DIST_WORLD = 4
@@ -2905,6 +2905,28 @@ DIST_SGD_MODES = ("pull", "push", "stale", "hysync", "async_s0")
 # to bf16 (straight-through), or the last rank's gradient left out of
 # the sum
 DIST_FAULTS = ("bf16_gather", "rank_gradient_dropped")
+# (f) the distributed mini-batch launcher: SAGE at batch 1024 (a global
+# batch, about 256 seeds a rank), fp32 and int8, a fixed number of steps
+# each (reduced from the epoch's 227, as phase 7's int8 run)
+DIST_MB_STEPS = 40
+# (g) each arch, 10 SGD steps on the same global seed batches on 4 ranks
+# and on the single card (GAT on its 40-class graph); SAGE also under
+# AdamW, and two wrong paths: the last rank's gradient left out (judged
+# under AdamW) and each rank dividing by its own seed count (under SGD,
+# where the ~4x scale shows; Adam's scale invariance would hide it)
+DIST_MB_ARCHS = ("gcn", "sage", "gin", "gat")
+# GIN's unnormalized sums at Reddit's widths oscillate under SGD at 0.1
+# (loss 14.2 -> 89.7 -> ... -> 114.6 -> 21.3 over 10 steps of the single
+# card, where float64 gradients end 0.21 away: chaos, not a parity test;
+# scripts/minibatch_sgd_check.py on a CPU); 0.01 gives a falling loss
+# (14.2 -> 2.40) with float64 gradients 7.5e-7 away
+DIST_MB_SGD_LR = {"gin": 0.01}
+DIST_MB_RUNS = tuple((a, "sgd", None) for a in DIST_MB_ARCHS) + (
+    ("sage", "adamw", None), ("sage", "adamw", "rank_gradient_dropped"),
+    ("sage", "sgd", "local_count"))
+# (h) P3 splits the features over the ranks: 602 zero-padded to 604
+# (602 % 4 != 0); W1 gets two zero rows, whose gradients are zero
+P3_FEAT = 604
 
 
 def dist_args(mode_flags, epochs=TRAIN_EPOCHS):
@@ -3017,6 +3039,183 @@ def dist_fault_job(rank, world, dev, *, argv, fault):
     return {"params": _params_np(model)}
 
 
+def mb_args(codec, arch="sage", classes=CLASSES):
+    return train_args(arch, classes, [
+        "--devices", str(DIST_WORLD), "--minibatch", "--batch",
+        str(MB_BATCH), "--cache", "degree", "--epochs", "1",
+        "--wire-codec", codec])
+
+
+def dist_mb_job(rank, world, dev, *, argv, steps):
+    """(f) the launcher's distributed mini-batch path, ``steps`` steps
+    (``train_gnn._distributed_job``, as ``run_world`` runs an argv job,
+    with the epoch cut short)."""
+    from repro_torch.launch import train_gnn
+    return train_gnn._distributed_job(train_gnn.parse_args(argv), rank,
+                                      world, dev, steps_per_epoch=steps)
+
+
+def _mb_batches(g, parts, world):
+    """The sampler of phase 14(g) over ``world`` partitions (``parts``:
+    the stores built), and the ``TRAIN_EPOCHS`` global seed batches of
+    ``--seed 0``."""
+    from repro_torch.distributed import DistributedMinibatchSampler
+    ds = DistributedMinibatchSampler(
+        g, world, [5, 5], MB_BATCH, cache_policy="degree" if world > 1
+        else "none", cache_capacity=g.num_nodes // 10, seed=0, parts=parts)
+    rng = np.random.default_rng(0)
+    return ds, [rng.choice(g.num_nodes, MB_BATCH, replace=False)
+                for _ in range(TRAIN_EPOCHS)]
+
+
+def _mb_model(torch, arch, classes, optimizer, dev, dtype=None):
+    from repro_torch.models.gnn import model as GM
+    from repro_torch.optim import AdamW, Sgd
+    cfg = GM.GNNConfig(arch=arch, feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=classes)
+    model = GM.init_gnn(cfg, torch.Generator().manual_seed(0), device=dev)
+    if dtype is not None:
+        model = model.to(dtype)
+    opt = (AdamW(model.parameters(), lr=1e-2, weight_decay=0.0)
+           if optimizer == "adamw" else Sgd(
+               model.parameters(), lr=DIST_MB_SGD_LR.get(arch, DIST_SGD_LR)))
+    return cfg, model, opt
+
+
+def dist_mb_parity_job(rank, world, dev, *, argv, argv_gat):
+    """(g) every ``DIST_MB_RUNS`` run, ``TRAIN_EPOCHS`` distributed
+    mini-batch steps of this rank from phase 6's initial parameters, on
+    the rank's batches of the same global seed batches: the final
+    parameters and the launches of each run (numpy, dicts)."""
+    import torch
+    from repro_torch.core import propagation as PR
+    from repro_torch.distributed import make_distributed_minibatch_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_gnn
+    out = {}
+    for gat, a in ((False, argv), (True, argv_gat)):
+        g, _ = train_gnn._rank_graph(train_gnn.parse_args(a),
+                                     lambda *x: None)
+        ds, seeds = _mb_batches(g, (rank,), world)
+        batches = [ds.sample_partition(rank, ds.owned_seeds(rank, s))
+                   for s in seeds]
+        for arch, optimizer, fault in DIST_MB_RUNS:
+            if (arch == "gat") != gat:
+                continue
+            cfg, model, opt = _mb_model(torch, arch, g.num_classes,
+                                        optimizer, dev)
+            step = make_distributed_minibatch_step(cfg, opt)
+            saved = PR.sum_grads_and_loss
+
+            def dropped(params, loss, **kw):
+                if rank == world - 1:
+                    for p in params.parameters():
+                        p.grad = None
+                return saved(params, loss, **kw)
+
+            if fault == "rank_gradient_dropped":
+                PR.sum_grads_and_loss = dropped
+            ops.reset_launch_counts()
+            try:
+                for b, s in zip(batches, seeds):
+                    count = (int(b.label_mask.sum()) if fault ==
+                             "local_count" else len(s))
+                    step(model, b, ds.out_deg, count)
+            finally:
+                PR.sum_grads_and_loss = saved
+            out["/".join(x for x in (arch, optimizer, fault) if x)] = {
+                "params": _params_np(model),
+                "launches": {k: v for k, v in ops.launch_counts().items()
+                             if v}}
+    return out
+
+
+def _mb_single_card(torch, g, runs, *, float64=False) -> dict:
+    """(g) the single card: a one-partition sampler without a cache over
+    the same global seed batches, ``make_minibatch_train_step`` over
+    ``device_blocks``: each run's final parameters (numpy).  Under
+    ``float64`` through the kernels' plain versions (the kernels take
+    float32): the exact answer float32's own error is read against."""
+    from repro_torch.distributed import device_blocks
+    from repro_torch.kernels import segment_sum
+    from repro_torch.models.gnn import model as GM
+    dev = torch.device("cuda")
+    dtype = torch.float64 if float64 else torch.float32
+    ds, seeds = _mb_batches(g, None, 1)
+    batches = [ds.sample_global(s)[0] for s in seeds]
+    out = {}
+    pick = segment_sum.pick
+    if float64:
+        segment_sum.pick = lambda cuda_fn, plain_fn, t: plain_fn
+    try:
+        for arch, optimizer in runs:
+            cfg, model, opt = _mb_model(torch, arch, g.num_classes,
+                                        optimizer, dev, dtype)
+            step = GM.make_minibatch_train_step(cfg, opt)
+            for b in batches:
+                blocks = device_blocks(b, ds.out_deg, dev)
+                for bl in blocks:
+                    bl.in_deg, bl.out_deg = (bl.in_deg.to(dtype),
+                                             bl.out_deg.to(dtype))
+                step(model, blocks, torch.from_numpy(b.x_in).to(dev, dtype),
+                     torch.from_numpy(b.labels).to(dev),
+                     torch.from_numpy(b.label_mask).to(dev, dtype))
+            out[f"{arch}/{optimizer}"] = _params_np(model)
+    finally:
+        segment_sum.pick = pick
+    return out
+
+
+def _p3_inputs(g, sg):
+    """The P3 run's cut (features zero-padded to ``P3_FEAT``) and phase
+    6's initial GCN parameters with W1 zero-padded alike (numpy)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.gnn import model as GM
+    cfg = GM.GNNConfig(arch="gcn", feat_dim=FEAT, hidden=HIDDEN,
+                       num_classes=g.num_classes)
+    p0 = _params_np(GM.init_gnn(cfg, torch.Generator().manual_seed(0),
+                                device="cpu"))
+    p0[0]["w"] = np.pad(p0[0]["w"], ((0, P3_FEAT - FEAT), (0, 0)))
+    sg = dataclasses.replace(sg, x=np.pad(sg.x, ((0, 0),
+                                                 (0, P3_FEAT - FEAT))))
+    return dataclasses.replace(cfg, feat_dim=P3_FEAT), p0, sg
+
+
+def dist_p3_job(rank, world, dev, *, argv):
+    """(h) GCN under P3 (``core/parallel.py``), 10 epochs under SGD and
+    10 under AdamW from phase 6's initial parameters, features padded to
+    ``P3_FEAT``: each run's parameters (W1 the rank's slice), losses,
+    ``StepClock`` rows and launches (by width)."""
+    from repro_torch.core import collectives as C
+    from repro_torch.core import parallel as PL
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW, Sgd
+    g, _, sg = _dist_setup(world, dev, argv)
+    cfg, p0, sg = _p3_inputs(g, sg)
+    shard = PL.p3_shard(sg, g, rank, dev)
+    out = {}
+    for optimizer in ("sgd", "adamw"):
+        model = PL.p3_params(cfg, p0, rank, world, device=dev)
+        opt = (AdamW(model.parameters(), lr=1e-2, weight_decay=0.0)
+               if optimizer == "adamw" else Sgd(model.parameters(),
+                                                lr=DIST_SGD_LR))
+        step = PL.make_p3_train_step(opt)
+        clock = C.StepClock(dev)
+        C.release_buffers()
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(TRAIN_EPOCHS):
+            with clock.step():
+                losses.append(float(step(model, shard)))
+        out[optimizer] = {
+            "params": _params_np(model), "losses": losses,
+            "epochs": clock.rows,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "launches_by_width": ops.launch_counts_by_width()}
+    return out
+
+
 def _single_card(torch, g, optimizer, *, float64=False, device="cuda"):
     """Phase 6's GCN trained 10 steps from its initial parameters by
     ``optimizer`` (``"adamw"``: the launcher's, or ``"sgd"``: lr
@@ -3111,14 +3310,230 @@ def _dist_k1_cases(torch, g, results):
                 coef, *dg.src_layout, dg.num_src, transpose=True)
 
 
-@phase("14. distributed full-graph GCN, 4 ranks on the card")
-def phase_distributed(torch, g, results):
+def _dist_mb_k1_cases(torch, g, results):
+    """K1 and K1ᵀ at the distributed mini-batch shapes, rank 0's padded
+    blocks of the first global batch (SAGE's mask as the coefficient),
+    and P3's whole-graph K1 at its column slice."""
+    from repro_torch.core import parallel as PL
+    from repro_torch.core import propagation as PR
+    from repro_torch.distributed import device_blocks
+    c = Checker(torch, seed=15)
+    ds, seeds = _mb_batches(g, (0,), DIST_WORLD)
+    inner, outer = device_blocks(ds.sample_partition(
+        0, ds.owned_seeds(0, seeds[0])), ds.out_deg, c.dev)
+    for name, dg, F in (("mb_inner", inner, FEAT), ("mb_outer", outer,
+                                                    HIDDEN)):
+        coef = dg.edge_mask.to(torch.float32)
+        print(f"   {name} block, rank 0: {dg.num_src} sources -> "
+              f"{dg.num_dst} destinations, {int(dg.order.numel())} of "
+              f"{dg.edge_src.numel()} edge slots", flush=True)
+        results[f"k1.dist.{name}.{F}"] = c.k1(
+            f"K1 {name} block, F {F}", c.randn(dg.num_src, F), dg.edge_src,
+            coef, dg.order, dg.row_ptr, dg.num_dst)
+        if name == "mb_outer":
+            results[f"k1_transpose.dist.{name}.{F}"] = c.k1(
+                f"K1 over the src layout, {name} block, F {F}",
+                c.randn(dg.num_dst, F), dg.edge_dst, coef, *dg.src_layout,
+                dg.num_src, transpose=True)
+    _, _, sg = _p3_inputs(g, PR.shard_graph(g, DIST_WORLD))
+    sh = PL.p3_shard(sg, g, 0, c.dev)
+    F = P3_FEAT // DIST_WORLD
+    results[f"k1.dist.p3.{F}"] = c.k1(
+        f"K1 P3 layer 1, whole graph, F {F}", sh.x_f, sh.graph.edge_src,
+        sh.coef, sh.graph.order, sh.graph.row_ptr, sh.graph.num_dst)
+
+
+def _mb_steps_summary(res) -> dict:
+    """(f) a distributed mini-batch run's steps: the median over steps
+    2.. and the ranks of ms a step, the collectives' share, and the
+    prefetch overlap and traffic of the run."""
+    rows = [e for r in res["ranks"] for e in r["steps"][1:]]
+    med = lambda k: float(np.median([e[k] for e in rows]))  # noqa: E731
+    return {"median_step_ms": med("wall_s") * 1e3,
+            "comm_ms": med("comm_s") * 1e3,
+            "comm_share": med("comm_s") / med("wall_s"),
+            "bytes_received_per_step": med("bytes_received"),
+            "prefetch_overlap": [r["prefetch_overlap"]
+                                 for r in res["ranks"]],
+            "sampled": [r["sampled"] for r in res["ranks"]],
+            "trained": res["trained"], "traffic": res["traffic"],
+            "halo_hit_ratio": res["stats"]["halo_hit_ratio"],
+            "setup_s": max(r["setup_s"] for r in res["ranks"]),
+            "loss_first10": float(np.mean(res["losses"][:10])),
+            "loss_last10": float(np.mean(res["losses"][-10:]))}
+
+
+def _dist_minibatch_checks(torch, g, g_gat, out, results):
+    """(f) the launcher's runs, (g) parity with the single card."""
+    mb = {}
+    for codec in ("fp32", "int8"):
+        res = out[f"mb_{codec}"]
+        summary = _mb_steps_summary(res)
+        steps = res["trained"]
+        summary["launches_per_rank"] = [r["launches"] for r in res["ranks"]]
+        summary["ranks_bitwise_equal"] = _dist_ranks_bitwise(res)
+        print(f"   minibatch {codec}, {DIST_WORLD} ranks: "
+              + json.dumps(summary), flush=True)
+        results[f"dist.mb_{codec}"] = summary
+        mb[codec] = summary
+        require(bool(np.isfinite(res["losses"]).all())
+                and summary["loss_last10"] < summary["loss_first10"],
+                f"minibatch {codec}: finite, falling loss")
+        require(summary["ranks_bitwise_equal"],
+                f"minibatch {codec}: every rank's parameters bitwise equal")
+        want = {"gather_scale_segment_sum": 2 * steps,
+                "gather_scale_segment_sum_t": steps}
+        want_w = {"gather_scale_segment_sum": {FEAT: steps, HIDDEN: steps},
+                  "gather_scale_segment_sum_t": {HIDDEN: steps}}
+        for r, rr in enumerate(res["ranks"]):
+            require(rr["launches"] == want and rr["launches_by_width"]
+                    == want_w, f"minibatch {codec} rank {r}: launches "
+                    f"{rr['launches']} {rr['launches_by_width']}, by "
+                    f"design {want} {want_w} (no K4, no K6)")
+        require(summary["traffic"]["cross_partition_bytes"] > 0
+                and 0.0 < summary["halo_hit_ratio"] < 1.0,
+                f"minibatch {codec}: cross-partition bytes and a halo hit "
+                f"ratio strictly between 0 and 1")
+    results["launches.dist.mb"] = out["mb_fp32"]["ranks"][0][
+        "launches_by_width"]
+    ratio = (mb["int8"]["traffic"]["cross_partition_bytes"]
+             / mb["fp32"]["traffic"]["cross_partition_bytes"])
+    one = results.get("minibatch.fp32", {}).get("median_step_ms")
+    results["dist.mb_vs_single"] = {
+        "int8_bytes_ratio": ratio, "single_card_step_ms": one,
+        "fp32_step_ms": mb["fp32"]["median_step_ms"],
+        "int8_step_ms": mb["int8"]["median_step_ms"]}
+    print("   minibatch, 4 ranks vs phase 7's single card: "
+          + json.dumps(results["dist.mb_vs_single"]), flush=True)
+    require(ratio <= 0.35, f"int8 moves {ratio:.3f} of fp32's bytes "
+            f"(<= 0.35)")
+    # (g) parity: each arch under SGD within DIST_SGD_TOL of the single
+    # card, SAGE under AdamW within DIST_ADAMW_PARAM_TOL, both faults over
+    parity = out["mb_parity"]["ranks"]
+    single = _mb_single_card(torch, g, [("gcn", "sgd"), ("sage", "sgd"),
+                                        ("gin", "sgd"), ("sage", "adamw")])
+    single.update(_mb_single_card(torch, g_gat, [("gat", "sgd")]))
+    diffs = {}
+    for arch, optimizer, fault in DIST_MB_RUNS:
+        name = "/".join(x for x in (arch, optimizer, fault) if x)
+        per_rank = [r[name]["params"] for r in parity]
+        diffs[name] = _dist_params_diff(per_rank[0],
+                                        single[f"{arch}/{optimizer}"])
+        if fault is None:
+            require(all(_dist_params_diff(p, per_rank[0]) == 0.0
+                        for p in per_rank), f"{name}: ranks bitwise equal")
+            want = {k: v * TRAIN_EPOCHS
+                    for k, v in STEP_LAUNCHES[arch].items()}
+            for r, rr in enumerate(parity):
+                require(rr[name]["launches"] == want, f"{name} rank {r}: "
+                        f"launches {rr[name]['launches']}, by design {want}")
+    results["dist.mb_parity"] = diffs
+    print("   minibatch, 10 steps, parameters vs the single card: "
+          + json.dumps(diffs), flush=True)
+    for arch in DIST_MB_ARCHS:
+        d = diffs[f"{arch}/sgd"]
+        if d > DIST_SGD_TOL:
+            # the single card's own float32 error can exceed the bound:
+            # GIN's one-batch run on the card lies 1.41e-5 from its run
+            # with float64 gradients, the ranks' 7.5e-7 (PERF.md section
+            # 6).  Both runs are then read against the float64 one, and
+            # the ranks' held to the bound there.
+            gg = g_gat if arch == "gat" else g
+            exact = _mb_single_card(torch, gg, [(arch, "sgd")],
+                                    float64=True)[f"{arch}/sgd"]
+            floor = {"dist_vs_float64": _dist_params_diff(
+                parity[0][f"{arch}/sgd"]["params"], exact),
+                "single_vs_float64": _dist_params_diff(
+                    single[f"{arch}/sgd"], exact)}
+            results[f"dist.mb_parity_float64.{arch}"] = floor
+            print(f"   {arch}: the float32 runs {d:.3e} apart; against "
+                  f"the single card's float64 gradients: "
+                  + json.dumps(floor), flush=True)
+            d = floor["dist_vs_float64"]
+        require(d <= DIST_SGD_TOL, f"{arch} SGD within {DIST_SGD_TOL} of "
+                f"the single card ({d:.3e})")
+    d = diffs["sage/adamw"]
+    require(d <= DIST_ADAMW_PARAM_TOL, f"SAGE AdamW within "
+            f"{DIST_ADAMW_PARAM_TOL} ({d:.3e})")
+    d = diffs["sage/adamw/rank_gradient_dropped"]
+    require(d > DIST_ADAMW_PARAM_TOL, f"the AdamW bound catches a dropped "
+            f"rank gradient ({d:.3e})")
+    d = diffs["sage/sgd/local_count"]
+    require(d >= 10 * DIST_SGD_TOL, f"the SGD bound catches each rank's "
+            f"own seed count, 10x over ({d:.3e})")
+
+
+def _p3_checks(out, sgd_ref, results):
+    """(h) P3 against phase 6's single-card GCN (the first 602 rows of
+    W1; the padded rows stay zero), bitwise equal replicated parameters,
+    launches by design, times and bytes beside pull's."""
+    res = out["p3"]["ranks"]
+    E = TRAIN_EPOCHS
+    F = P3_FEAT // DIST_WORLD
+    report = {}
+    for optimizer in ("sgd", "adamw"):
+        runs = [r[optimizer] for r in res]
+        full = [dict(p) for p in runs[0]["params"]]
+        w1 = np.concatenate([r["params"][0]["w"] for r in runs])
+        require(not w1[FEAT:].any(), f"P3 {optimizer}: W1's padded rows "
+                f"stay zero")
+        full[0]["w"] = w1[:FEAT]
+        require(all(np.array_equal(r["params"][i][k], runs[0]["params"][i][
+            k]) for r in runs for i in range(2) for k in ("w", "b")
+            if (i, k) != (0, "w")), f"P3 {optimizer}: replicated "
+            f"parameters bitwise equal")
+        for q, r in enumerate(runs):
+            want = {"gather_scale_segment_sum": 2 * E,
+                    "gather_scale_segment_sum_t": E}
+            want_w = {"gather_scale_segment_sum": {F: E, CLASSES: E},
+                      "gather_scale_segment_sum_t": {CLASSES: E}}
+            require(r["launches"] == want and r["launches_by_width"]
+                    == want_w, f"P3 {optimizer} rank {q}: launches "
+                    f"{r['launches']} {r['launches_by_width']}, by design "
+                    f"{want} {want_w}")
+        summary = _dist_summary({"ranks": [dict(epochs=r["epochs"],
+                                                setup_s=0.0) for r in runs],
+                                 "losses": runs[0]["losses"]})
+        if optimizer == "sgd":
+            summary["vs_single_card"] = _dist_params_diff(full, sgd_ref)
+        elif "gcn" in TRAINED:
+            summary["vs_single_card"] = _dist_params_diff(
+                full, _params_np(TRAINED["gcn"][0]))
+            summary["pull_vs_single_card"] = results.get(
+                "dist.pull", {}).get("vs_single_card_params")
+        report[optimizer] = summary
+        results[f"dist.p3_{optimizer}"] = summary
+        print(f"   P3 {optimizer}: " + json.dumps(summary), flush=True)
+        require(bool(np.isfinite(runs[0]["losses"]).all()),
+                f"P3 {optimizer}: finite losses")
+    results["launches.dist.p3"] = res[0]["sgd"]["launches_by_width"]
+    pull = results.get("dist.pull", {})
+    print(f"   P3 vs pull, ms an epoch (collectives), bytes received a "
+          f"rank: {report['sgd']['epoch_ms']:.1f} "
+          f"({report['sgd']['comm_ms']:.1f}), "
+          f"{report['sgd']['bytes_received_per_epoch']:.0f} vs "
+          f"{pull.get('epoch_ms', float('nan')):.1f} "
+          f"({pull.get('comm_ms', float('nan')):.1f}), "
+          f"{pull.get('bytes_received_per_epoch', float('nan')):.0f}",
+          flush=True)
+    d = report["sgd"]["vs_single_card"]
+    require(d <= DIST_SGD_TOL, f"P3 SGD within {DIST_SGD_TOL} of phase "
+            f"6's GCN ({d:.3e})")
+    d = report["adamw"].get("vs_single_card")
+    require(d is not None and d <= DIST_ADAMW_PARAM_TOL, f"P3 AdamW "
+            f"within {DIST_ADAMW_PARAM_TOL} of phase 6's GCN ({d})")
+
+
+@phase("14. distributed GNN training, 4 ranks on the card")
+def phase_distributed(torch, g, g_gat, results):
     """(a) pull, push, stale (S 3), hysync, 10 epochs each, and (d) the
     asynchronous trainer at S 0, 1, 4 (fp32) and S 1 (int8), then one run
-    folding phase 11(d)'s stream, all in one spawned world of 4 ranks on
-    the card through ``train_gnn.run_world``; (c) the coordinators inside
-    the same world; (b) exact launch counts; (e) times, bytes, and K1 /
-    K1ᵀ at the distributed shapes."""
+    folding phase 11(d)'s stream, (f) the distributed mini-batch launcher
+    (SAGE, fp32 and int8), (g) its parity runs and (h) GCN under P3, all
+    in one spawned world of 4 ranks on the card through
+    ``train_gnn.run_world``; (c) the coordinators inside the same world;
+    (b) exact launch counts; (e) times, bytes, and (e, i) K1 / K1ᵀ at the
+    distributed shapes."""
     from repro_torch.core.updates import synthesize_updates
     from repro_torch.launch import train_gnn
     torch.cuda.empty_cache()
@@ -3137,6 +3552,13 @@ def phase_distributed(torch, g, results):
         ["--fullgraph", "--staleness", "1", "--update-stream", stream,
          "--updates-per-epoch", str(DIST_STREAM_PER_EPOCH)],
         epochs=DIST_STREAM_EPOCHS)
+    jobs.update({f"mb_{codec}": functools.partial(
+        dist_mb_job, argv=mb_args(codec), steps=DIST_MB_STEPS)
+        for codec in ("fp32", "int8")})
+    jobs["mb_parity"] = functools.partial(
+        dist_mb_parity_job, argv=mb_args("fp32"),
+        argv_gat=mb_args("fp32", "gat", GAT_CLASSES))
+    jobs["p3"] = functools.partial(dist_p3_job, argv=dist_args([]))
     t0 = time.perf_counter()
     out = dict(zip(jobs, train_gnn.run_world(
         list(jobs.values()), world=DIST_WORLD, device="cuda",
@@ -3147,7 +3569,8 @@ def phase_distributed(torch, g, results):
     want_k1_fwd = "gather_scale_segment_sum"
     want_k1 = {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 2}
     for name, res in out.items():
-        if name in ("coordination", "sgd") or name.startswith("fault_"):
+        if name in ("coordination", "sgd", "mb_parity", "p3") or \
+                name.startswith(("fault_", "mb_")):
             continue
         summary = _dist_summary(res)
         epochs = len(res["losses"])
@@ -3282,6 +3705,13 @@ def phase_distributed(torch, g, results):
         "the stream folded in full, ghost rows invalidated at each fold")
     # (e) K1 / K1ᵀ at the distributed shapes
     _dist_k1_cases(torch, g, results)
+    # (f), (g) the distributed mini-batch path, (h) P3, (i) their K1 / K1ᵀ
+    t0 = time.perf_counter()
+    _dist_minibatch_checks(torch, g, g_gat, out, results)
+    _p3_checks(out, sgd_ref, results)
+    _dist_mb_k1_cases(torch, g, results)
+    print(f"   (f)-(i) in the main process: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def kernels_line(results) -> dict:
@@ -3390,7 +3820,8 @@ def kernels_line(results) -> dict:
                 "gather_bound_ms", "library_ms") if k in results[key_]}
         # phase 14: K1 and its transpose at the distributed shapes (rank
         # 0 of 4), with rank 1's launches at that width in the 10 pull
-        # (push) epochs, as the wrapper counted them
+        # (push) epochs, as the wrapper counted them; then the
+        # distributed mini-batch and P3 shapes
         if name in ("gather_scale_segment_sum", "gather_scale_segment_sum_t"):
             pre = "k1" if name == "gather_scale_segment_sum" else \
                 "k1_transpose"
@@ -3406,6 +3837,22 @@ def kernels_line(results) -> dict:
                         launches_per_rank=results.get(
                             f"launches.dist.{layout}", {}).get(
                                 name, {}).get(F, 0))
+            # the distributed mini-batch blocks (rank 0, launches a rank
+            # over phase 14(f)'s fp32 run) and P3's layer 1 (launches a
+            # rank over its 10 SGD epochs)
+            for layout, F in (("mb_inner", FEAT), ("mb_outer", HIDDEN),
+                              ("p3", P3_FEAT // DIST_WORLD)):
+                r = results.get(f"{pre}.dist.{layout}.{F}")
+                if r is None:
+                    continue
+                lkey = "mb" if layout.startswith("mb") else "p3"
+                rows[-1][f"at_dist_{layout}_{F}"] = dict(
+                    {k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")},
+                    launches_per_rank=results.get(
+                        f"launches.dist.{lkey}", {}).get(
+                            name, {}).get(F, 0))
         if name == "flash_attention":
             # phase 13's configs: the case at each prefill shape (phase 8)
             # and its launches in that config's prefill (phase 13)
@@ -3448,7 +3895,6 @@ def main() -> int:
     phase_fullbatch(torch, results)
     phase_minibatch(torch, results)
     phase_reorder_kernels(torch, g, g_gat, results)
-    del g_gat
     phase_reorder_train(torch, results)
     phase_reorder_serve(torch, results)
     phase_update_stream(torch, g, results)
@@ -3466,7 +3912,7 @@ def main() -> int:
             torch, arch, results)
         torch.cuda.empty_cache()
     phase_zamba2(torch, results)
-    phase_distributed(torch, g, results)
+    phase_distributed(torch, g, g_gat, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as f:

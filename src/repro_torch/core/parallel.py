@@ -1,0 +1,183 @@
+"""Parallelism strategies (survey §3.2.5 / §2.3.1, Tables 2 & 7).
+
+* :func:`p3_layer1` + :func:`make_p3_train_step` — P³'s push-pull hybrid
+  [Gandhi & Iyer, OSDI'21]: layer 1 runs *model-parallel over the feature
+  dimension* (features never cross the network; only the (N, hidden)
+  partial activations are reduce-scattered), deeper layers run
+  data-parallel pull.  The survey singles this out (§3.2.5, §4.2).
+
+One process a rank over :mod:`repro_torch.core.collectives`, as the
+distributed full-graph modes of :mod:`repro_torch.core.propagation`: rank
+``r`` holds columns ``[r·F/n, (r+1)·F/n)`` of every vertex's features and
+the matching rows of W1 (:func:`p3_params`), the other parameters
+replicated.  Every aggregation is K1 over the whole graph
+(:func:`~repro_torch.core.propagation.aggregate`).
+
+The reference's ``moe_expert_parallel`` (transformer expert parallelism)
+comes with the ``moe`` family (ROADMAP.md queue 1, item 10a).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import collectives as C
+from repro_torch.core import propagation as PR
+from repro_torch.core.abstraction import DeviceGraph
+from repro_torch.graph.structure import Graph
+
+
+def feature_slice(feat_dim: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s columns of ``feat_dim`` features; raises
+    ``ValueError`` unless ``world`` divides ``feat_dim`` (the reference's
+    ``shard_map`` cannot split such a dimension either)."""
+    if feat_dim % world:
+        raise ValueError(f"P3 splits the {feat_dim} features over {world} "
+                         f"ranks: {feat_dim} % {world} != 0")
+    k = feat_dim // world
+    return slice(rank * k, (rank + 1) * k)
+
+
+@dataclasses.dataclass
+class P3Shard:
+    """One rank's inputs of the P3 step on its device: the whole graph
+    (``N_pad`` sources onto ``N_pad`` destinations, in the
+    :class:`~repro_torch.core.propagation.ShardedGraph`'s relabelled ids,
+    both grouped layouts) with GCN's per-edge ``coef`` from the global
+    degrees, the rank's feature columns ``x_f`` ``(N_pad, F/n)`` of every
+    vertex, the labels of its ``n_local`` owned rows and the global label
+    count (known on every rank's host)."""
+    rank: int
+    n_dev: int
+    n_local: int
+    graph: DeviceGraph
+    coef: torch.Tensor
+    x_f: torch.Tensor
+    labels: torch.Tensor
+    label_mask: torch.Tensor
+    count: float
+
+
+def p3_shard(sg: PR.ShardedGraph, g: Graph, rank: int,
+             device: Union[str, torch.device]) -> P3Shard:
+    """Rank ``rank``'s :class:`P3Shard` of ``sg`` (cut from ``g``) on
+    ``device``."""
+    device = torch.device(device)
+    cols = feature_slice(sg.x.shape[1], rank, sg.n_dev)
+    e = g.edges()
+    es, ed = sg.perm[e[:, 0]], sg.perm[e[:, 1]]
+    dg = DeviceGraph._build(es, ed, np.ones(len(es), bool), sg.n_pad,
+                            sg.n_pad, device, src_layout=True)
+    coef = (torch.rsqrt(torch.from_numpy(sg.out_deg).to(device))[
+        dg.edge_src.long()]
+        * torch.rsqrt(torch.from_numpy(sg.in_deg).to(device))[
+            dg.edge_dst.long()])
+    own = slice(rank * sg.n_local, (rank + 1) * sg.n_local)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return P3Shard(rank=rank, n_dev=sg.n_dev, n_local=sg.n_local, graph=dg,
+                   coef=coef, x_f=dev(sg.x[:, cols]), labels=dev(
+                       sg.labels[own]), label_mask=dev(sg.label_mask[own]),
+                   count=float(sg.label_mask.sum()))
+
+
+def p3_params(cfg, params_np: Sequence[dict], rank: int, world: int, *,
+              device: Union[str, torch.device] = "cuda") -> nn.ModuleList:
+    """The GCN ``params_np`` (the reference's full parameters as numpy) as
+    rank ``rank`` holds them under P3: W1's rows of the rank's feature
+    columns, everything else whole.  The ranks' W1 slices, concatenated
+    in rank order, are the full W1."""
+    from repro_torch.models.gnn import model as GM
+    rows = feature_slice(cfg.feat_dim, rank, world)
+    local = [dict(params_np[0], w=np.asarray(params_np[0]["w"])[rows])]
+    local += [dict(p) for p in params_np[1:]]
+    return GM.params_from_numpy(
+        dataclasses.replace(cfg, feat_dim=rows.stop - rows.start), local,
+        device=device)
+
+
+def p3_layer1(x_f: torch.Tensor, w1_f: torch.Tensor,
+              shard: P3Shard) -> torch.Tensor:
+    """Layer 1's aggregation and projection on one rank: K1 over the
+    whole graph at the rank's ``F/n`` columns (every vertex is present,
+    so nothing crosses the network), times ``w1_f`` ``(F/n, H)``; the
+    ``(N_pad, H)`` partials are reduce-scattered onto the vertex owners:
+    ``(n_local, H)``.  The backward all-gathers the cotangent, so W1's
+    slice gets its complete gradient (see :func:`make_p3_train_step`)."""
+    agg = PR.aggregate(x_f, shard.graph, shard.coef)       # (N_pad, F/n)
+    return C.ReduceScatter.apply(agg @ w1_f)              # (N_loc, H)
+
+
+def p3_forward(params: nn.ModuleList, shard: P3Shard) -> torch.Tensor:
+    """GCN logits of the rank's owned rows: layer 1 model-parallel
+    (:func:`p3_layer1`), deeper layers data-parallel pull (all-gather of
+    ``h @ W``, K1 over the whole graph, the owned rows kept)."""
+    own = slice(shard.rank * shard.n_local,
+                (shard.rank + 1) * shard.n_local)
+    h = p3_layer1(shard.x_f, params[0].w, shard) + params[0].b
+    h = F.relu(h)
+    for i in range(1, len(params)):
+        h_all = C.AllGather.apply(h @ params[i].w)
+        h = PR.aggregate(h_all, shard.graph, shard.coef)[own] + params[i].b
+        if i + 1 < len(params):
+            h = F.relu(h)
+    return h
+
+
+def clip_to_global_norm(params: nn.ModuleList, clip_norm: float) -> None:
+    """Scale every gradient by ``min(1, clip_norm / (||g|| + 1e-9))``
+    with ``||g||`` the norm of the WHOLE model's gradient: W1's slices of
+    every rank (their squared norms summed over the ranks) and the
+    summed replicated gradients, the same number on every rank."""
+    w1 = params[0].w.grad
+    sq = C.all_reduce_sum(torch.sum(w1 * w1).reshape(1))[0]
+    for p in params.parameters():
+        if p is not params[0].w and p.grad is not None:
+            sq = sq + torch.sum(p.grad * p.grad)
+    scale = torch.clamp(clip_norm / (torch.sqrt(sq) + 1e-9), max=1.0)
+    for p in params.parameters():
+        if p.grad is not None:
+            p.grad.mul_(scale)
+
+
+def make_p3_train_step(optimizer):
+    """Distributed GCN with P3 hybrid parallelism, one rank's step.
+
+    ``train_step(params, shard) -> loss``: ``params`` from
+    :func:`p3_params` (the model ``optimizer`` was built on), ``shard``
+    from :func:`p3_shard`.  The label count is the host's, outside the
+    differentiated function.  Replicated parameters' gradients are each
+    rank's local contribution and are SUMMED over the ranks; the
+    feature-sharded W1's gradient is already complete for its own slice
+    (the reduce-scatter's transpose delivers the full cotangent), so it
+    is kept as it is (reference ``core/parallel.py:102-107``).  Returns
+    the loss summed over the ranks (a 0-d tensor).
+
+    An optimizer that clips to a global norm (``clip_norm`` in its
+    defaults: :class:`~repro_torch.optim.AdamW`) would clip by the norm
+    of the rank's own W1 slice; the step clips first by the whole
+    model's norm (:func:`clip_to_global_norm`), after which the
+    optimizer's own clip multiplies by 1.  The reference clips inside
+    ``shard_map`` by each device's slice, so its replicated parameters
+    drift apart between devices (ROADMAP.md, Queue 3)."""
+    clip_norm = optimizer.defaults.get("clip_norm")
+
+    def train_step(params: nn.ModuleList, shard: P3Shard) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        h = p3_forward(params, shard)
+        loss = PR.local_loss(h, shard, max(shard.count, 1.0))
+        loss.backward()
+        total = PR.sum_grads_and_loss(params, loss, keep=(params[0].w,))
+        if clip_norm:
+            clip_to_global_norm(params, clip_norm)
+        optimizer.step()
+        return total
+
+    return train_step

@@ -320,11 +320,13 @@ def local_loss(h: torch.Tensor, shard: RankShard,
     return torch.sum((logz - gold) * shard.label_mask) / cnt
 
 
-def sum_grads_and_loss(params, loss_local: torch.Tensor) -> torch.Tensor:
+def sum_grads_and_loss(params, loss_local: torch.Tensor, *,
+                       keep=()) -> torch.Tensor:
     """Sum every rank's gradients into each parameter's ``grad`` (a SUM:
     each rank's gradient covers only its own rows of the loss) and return
-    the summed loss, in one all-reduce of one flat vector."""
-    ps = list(params.parameters())
+    the summed loss, in one all-reduce of one flat vector.  Parameters in
+    ``keep`` keep their own gradient (P3's feature-sharded W1)."""
+    ps = [p for p in params.parameters() if all(p is not k for k in keep)]
     flat = torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1) for p in ps]
                      + [loss_local.detach().reshape(1)])

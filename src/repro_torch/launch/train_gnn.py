@@ -28,7 +28,16 @@ hand-written Hopper kernels):
   policy over the wire codec ``--wire-codec``; under ``int8
   --use-kernel`` the input rows stay in the wire format into SAGE's
   layer-0 aggregation (the int8-in kernel), and under ``int8`` alone they
-  are decoded on the host, as in the reference.
+  are decoded on the host, as in the reference;
+* **distributed mini-batch** (``--devices N --minibatch``, the
+  DistDGL/PaGraph partition-parallel recipe, any architecture the block
+  forward takes): the ``--partitioner`` cuts the graph into N
+  partitions, every rank draws the same global seed batch and samples
+  the seeds it owns with the padded neighbor sampler (fanouts 5, 5),
+  fetching remote rows through its partition's halo cache (``--cache``,
+  a tenth of the nodes) over ``--wire-codec`` (rows arrive decoded, as
+  the reference's ``collate`` gives them); one step a rank all-reduces
+  the gradients (:mod:`repro_torch.distributed`).
 
 The distributed paths spawn exactly ``--devices`` ranks with
 ``torch.multiprocessing`` (spawn, never fork), one process a rank, joined
@@ -52,10 +61,12 @@ anything is built on it.
   PYTHONPATH=src python -m repro_torch.launch.train_gnn --minibatch \\
       --sampler neighbor --cache degree --wire-codec int8 --use-kernel \\
       --epochs 2
+  PYTHONPATH=src python -m repro_torch.launch.train_gnn --minibatch \\
+      --devices 4 --arch sage --batch 1024 --wire-codec int8 --epochs 2
 
-Refused, with the reason (none is silently ignored): ``--devices N
---minibatch`` (the distributed mini-batch pipeline, ROADMAP.md queue 1
-item 9 (iii)), ``--sampler cluster|saint``, a distributed run of another
+Refused, with the reason (none is silently ignored): ``--sampler
+cluster|saint``, another ``--sampler`` than ``neighbor`` on the
+distributed mini-batch path, a distributed full-graph run of another
 architecture than GCN (the reference trains those on one device while
 told to use N), and every flag set away from its default on a path that
 does not read it.  ``--use-kernel`` is refused where all it would choose
@@ -78,20 +89,20 @@ WORLD_TIMEOUT_S = 3600.0
 
 # flag -> (is it refused?, why)
 _REFUSED = {
-    "--devices > 1 --minibatch": (
-        lambda a: a.devices > 1 and a.minibatch,
-        "the distributed mini-batch pipeline is not ported to repro_torch "
-        "yet; see ROADMAP.md, Queue 1, item 9 (iii)"),
     "--sampler cluster|saint": (
         lambda a: a.minibatch and a.sampler in ("cluster", "saint"),
         "refused: the reference builds no sampler for them "
         "(train_gnn.py:412-413: sampler = None) and its loader thread "
         "dies on sampler.sample with AttributeError, so its trainer hangs; "
         "see ROADMAP.md, Queue 3"),
+    "--devices > 1 --minibatch --sampler": (
+        lambda a: a.devices > 1 and a.minibatch and a.sampler != "neighbor",
+        "distributed mini-batch uses the padded neighbor sampler "
+        "(--sampler neighbor)"),
     "--devices > 1 with another architecture than gcn": (
         lambda a: a.devices > 1 and not a.minibatch and a.arch != "gcn",
         "distributed full-graph mode implements GCN; use --minibatch for "
-        "other architectures (on one device)"),
+        "other architectures (distributed mini-batch with --devices N)"),
     "--fullgraph with another architecture than gcn": (
         lambda a: a.fullgraph and a.arch != "gcn",
         "--fullgraph implements GCN (like the synchronous distributed "
@@ -107,8 +118,8 @@ _REFUSED = {
         lambda a: a.updates_per_epoch != 0 and not a.update_stream,
         "--updates-per-epoch is read only with --update-stream"),
     "--partitioner": (
-        lambda a: a.partitioner != "hash" and not _sharded(a),
-        "--partitioner is read only by the distributed full-graph paths "
+        lambda a: a.partitioner != "hash" and not _spawned(a),
+        "--partitioner is read only by the distributed paths "
         "(--devices > 1 or --fullgraph)"),
     "--mode": (
         lambda a: a.mode != "pull" and not (_sharded(a) and not a.fullgraph),
@@ -129,10 +140,16 @@ def _sharded(a) -> bool:
     return a.fullgraph or (a.devices > 1 and not a.minibatch)
 
 
+def _spawned(a) -> bool:
+    """Whether ``a`` asks for a distributed run (spawned ranks): the
+    full-graph paths or the distributed mini-batch path."""
+    return a.fullgraph or a.devices > 1
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, default=1,
-                    help="ranks of the distributed full-graph paths "
+                    help="ranks of the distributed paths "
                          "(spawned processes; rank r on cuda:(r % "
                          "device_count), or all on the CPU under "
                          "--device cpu)")
@@ -151,7 +168,7 @@ def parse_args(argv=None):
     ap.add_argument("--partitioner", default="hash",
                     choices=["hash", "ldg", "fennel", "auto"],
                     help="edge-cut partitioner of the distributed "
-                         "full-graph paths (auto: EASE-style selection)")
+                         "paths (auto: EASE-style selection)")
     ap.add_argument("--mode", default="pull",
                     choices=["pull", "push", "stale", "hysync"],
                     help="synchronous distributed full-graph mode")
@@ -224,13 +241,14 @@ def parse_args(argv=None):
         raise SystemExit("--wire-codec is wired through --fullgraph and "
                          "--minibatch; the synchronous full-graph modes "
                          "move raw fp32")
-    if args.use_kernel and not (args.minibatch
+    if args.use_kernel and not (args.minibatch and args.devices == 1
                                 and args.wire_codec == "int8"):
         raise SystemExit(
             "train_gnn: --use-kernel only selects the int8-in path of "
-            "--minibatch --wire-codec int8; elsewhere the device chooses "
-            "the kernels (cuda runs the Hopper kernels, cpu their plain "
-            "versions)")
+            "--minibatch --wire-codec int8 on one device (the distributed "
+            "mini-batch path decodes the rows, as the reference's collate "
+            "does); elsewhere the device chooses the kernels (cuda runs "
+            "the Hopper kernels, cpu their plain versions)")
     if args.devices < 1:
         raise SystemExit("train_gnn: --devices must be at least 1")
     return args
@@ -239,10 +257,10 @@ def parse_args(argv=None):
 def main(argv=None):
     """Parse args, train, and (when asked) dump the telemetry plane on
     exit — metrics as Prometheus text, spans as JSONL.  A distributed
-    full-graph run (``--devices > 1`` or ``--fullgraph``) spawns its
-    ranks and returns :func:`run_world`'s summary of the job."""
+    run (``--devices > 1`` or ``--fullgraph``) spawns its ranks and
+    returns :func:`run_world`'s summary of the job."""
     args = parse_args(argv)
-    if _sharded(args):
+    if _spawned(args):
         return run_world([args], world=args.devices, device=args.device)[0]
     return _with_telemetry(args, run)
 
@@ -446,7 +464,7 @@ def _minibatch(args, g, cfg, model, opt, rng, device,
 
 
 # ---------------------------------------------------------------------------
-# the distributed full-graph paths: one spawned process a rank
+# the distributed paths: one spawned process a rank
 # ---------------------------------------------------------------------------
 
 def run_world(jobs, *, world: int, device: str = "cuda",
@@ -454,9 +472,9 @@ def run_world(jobs, *, world: int, device: str = "cuda",
     """Spawn ``world`` ranks once and run every job in turn inside that
     one world (a card's contexts and the group are paid for once).
 
-    A job is an argv list or a parsed ``Namespace`` of a distributed
-    full-graph run (its ``--devices`` must be ``world`` and its
-    ``--device`` ``device``), or a module-level callable ``fn(rank,
+    A job is an argv list or a parsed ``Namespace`` of a distributed run
+    (its ``--devices`` must be ``world`` and its ``--device``
+    ``device``), or a module-level callable ``fn(rank,
     world, device) -> dict`` that every rank runs inside the world.
     Returns one summary a job: rank 0's, with every rank's under
     ``"ranks"``.  Raises ``RuntimeError`` when a rank fails (its
@@ -473,10 +491,10 @@ def run_world(jobs, *, world: int, device: str = "cuda",
     for j in jobs:
         if isinstance(j, argparse.Namespace) and (
                 j.devices != world or j.device != device
-                or not _sharded(j)):
+                or not _spawned(j)):
             raise ValueError(f"a job of this world must be a distributed "
-                             f"full-graph run with --devices {world} "
-                             f"--device {device}")
+                             f"run with --devices {world} --device "
+                             f"{device}")
     dev = torch.device(device)
     if dev.type == "cuda":
         D.resolve(dev)                   # raises when CUDA is missing
@@ -587,12 +605,15 @@ def resolve_edge_cut(g, n_dev: int, method: str, log=print) -> str:
     return method
 
 
-def _distributed_job(args, rank: int, world: int, dev) -> dict:
-    """One rank's part of one distributed full-graph run (GCN): the
-    synchronous modes, or ``--fullgraph``.  Returns the rank's summary:
-    losses, per-epoch times and bytes (``epochs``), the launches of the
-    port's kernels, the collectives' totals, the final parameters (numpy)
-    and the path's own reports."""
+def _distributed_job(args, rank: int, world: int, dev, *,
+                     steps_per_epoch: int = 0) -> dict:
+    """One rank's part of one distributed run: the synchronous full-graph
+    modes or ``--fullgraph`` (GCN), or ``--minibatch`` (any architecture
+    the block forward takes; ``steps_per_epoch`` cuts its epoch short, as
+    :func:`run`'s does).  Returns the rank's summary: losses, per-epoch
+    (per-step) times and bytes, the launches of the port's kernels, the
+    collectives' totals, the final parameters (numpy) and the path's own
+    reports."""
     import torch
 
     from repro_torch.core import collectives as C
@@ -604,9 +625,9 @@ def _distributed_job(args, rank: int, world: int, dev) -> dict:
     g, reorder = _rank_graph(args, log)
     log(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
         f"{g.num_classes} classes; {world} ranks, rank 0 on {dev}")
-    cfg = GNNConfig(arch="gcn", feat_dim=g.features.shape[1],
-                    hidden=args.hidden, num_classes=g.num_classes,
-                    wire_codec=args.wire_codec)
+    cfg = GNNConfig(arch=args.arch if args.minibatch else "gcn",
+                    feat_dim=g.features.shape[1], hidden=args.hidden,
+                    num_classes=g.num_classes, wire_codec=args.wire_codec)
     # every rank draws the same initial parameters from the same seed
     model = GM.init_gnn(cfg, torch.Generator().manual_seed(args.seed),
                         device=dev)
@@ -615,9 +636,13 @@ def _distributed_job(args, rank: int, world: int, dev) -> dict:
     C.release_buffers()
     C.STATS.reset()
     ops.reset_launch_counts()
-    path = _async_fullgraph if args.fullgraph else _sync_fullgraph
-    out = path(args, g, reorder, cfg, model, opt, method, rank, world, dev,
-               log)
+    if args.minibatch:
+        out = _minibatch_dist(args, g, cfg, model, opt, method, rank, world,
+                              dev, log, steps_per_epoch)
+    else:
+        path = _async_fullgraph if args.fullgraph else _sync_fullgraph
+        out = path(args, g, reorder, cfg, model, opt, method, rank, world,
+                   dev, log)
     out.update(
         rank=rank, world=world, device=str(dev), partitioner=method,
         reorder=reorder["policy"],
@@ -627,6 +652,85 @@ def _distributed_job(args, rank: int, world: int, dev) -> dict:
         params=[{k: v.detach().cpu().numpy()
                  for k, v in layer.named_parameters()} for layer in model])
     return out
+
+
+def _minibatch_dist(args, g, cfg, model, opt, method, rank, world, dev, log,
+                    steps_per_epoch: int = 0) -> dict:
+    """``--devices N --minibatch`` (reference ``launch/train_gnn.py:
+    351-399``): the rank builds its own partition's store, draws the
+    global seed batches every rank draws (``--seed``) in a
+    ``HostPrefetcher`` thread, samples the seeds it owns, and takes one
+    step a batch (``make_distributed_minibatch_step``).  The traffic of
+    the trained batches (each batch carries the store's counters as they
+    stood after it was sampled, so batches sampled ahead do not count) is
+    summed over the ranks at each epoch's end: the reference's one-process
+    ``stats()`` over the same batches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core import telemetry
+    from repro_torch.distributed import (DistributedMinibatchSampler,
+                                         HostPrefetcher,
+                                         make_distributed_minibatch_step)
+    from repro_torch.distributed.sampler import COUNTERS
+    t0 = time.perf_counter()
+    ds = DistributedMinibatchSampler(
+        g, world, [5, 5], args.batch, partitioner=method,
+        cache_policy=args.cache, cache_capacity=g.num_nodes // 10,
+        wire_codec=args.wire_codec, seed=args.seed, parts=(rank,))
+    setup_s = time.perf_counter() - t0
+    step = make_distributed_minibatch_step(cfg, opt)
+    rng = np.random.default_rng(args.seed)
+
+    def make_batch():
+        seeds = rng.choice(g.num_nodes, args.batch, replace=False)
+        batch = ds.sample_partition(rank, ds.owned_seeds(rank, seeds))
+        return batch, len(seeds), ds.counters()
+
+    def summed(counters) -> dict:
+        tot = C.all_reduce_sum(torch.tensor([counters[k] for k in COUNTERS],
+                                            dtype=torch.float64))
+        return dict(zip(COUNTERS, (int(v) for v in tot.tolist())))
+
+    steps_per_epoch = steps_per_epoch or max(1, g.num_nodes // args.batch)
+    clock = C.StepClock(dev)
+    m_step = telemetry.histogram(
+        "train_step_seconds", "wall time per executed training step",
+        mode="minibatch_dist")
+    losses = []
+    counters = traffic = dict.fromkeys(COUNTERS, 0)
+    prefetch = HostPrefetcher(make_batch)
+    try:
+        for epoch in range(args.epochs):
+            for _ in range(steps_per_epoch):
+                batch, count, counters = next(prefetch)
+                with clock.step(), telemetry.span("train.step",
+                                                  mode="minibatch_dist"):
+                    losses.append(float(step(model, batch, ds.out_deg,
+                                             count)))
+                m_step.observe(clock.rows[-1]["wall_s"])
+            traffic = summed(counters)
+            log(f"epoch {epoch:3d} loss {losses[-1]:.4f} halo_hit "
+                f"{ds.stats(traffic)['halo_hit_ratio']:.2%}")
+    finally:
+        prefetch.close()
+    st = ds.stats(traffic)
+    trained = args.epochs * steps_per_epoch
+    log(f"cross-partition traffic "
+        f"{st['cross_partition_bytes'] / 2**20:.1f} MiB (wire codec "
+        f"{st['wire_codec']}) over {trained} trained batches ({world} "
+        f"ranks; rank 0 sampled {prefetch.produced}); halo_hit "
+        f"{st['halo_hit_ratio']:.2%}; ghost fraction "
+        f"{st['ghost_fraction']:.2f}; prefetch overlap "
+        f"{prefetch.overlap_ratio():.0%}")
+    return {"mode": "minibatch_dist", "losses": losses, "steps": clock.rows,
+            "setup_s": setup_s, "trained": trained,
+            "sampled": prefetch.produced, "counters": counters,
+            "counters_sampled": ds.counters(), "traffic": traffic,
+            "stats": st, "prefetch_overlap": prefetch.overlap_ratio(),
+            "prefetch_wait_s": prefetch.wait_s,
+            "sample_s": prefetch.sample_s}
 
 
 def _sync_fullgraph(args, g, reorder, cfg, model, opt, method, rank, world,

@@ -46,7 +46,8 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'core.partitioning', 'core.sync', 'core.halo',\n"
         "             'core.collectives', 'core.propagation',\n"
         "             'core.coordination', 'distributed',\n"
-        "             'distributed.pipeline', 'distributed.async_train'):\n"
+        "             'distributed.pipeline', 'distributed.async_train',\n"
+        "             'distributed.sampler', 'core.parallel'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

@@ -252,7 +252,8 @@ def test_train_gnn_minibatch_runs_on_cpu(codec):
 
 
 @pytest.mark.parametrize("flags, why", [
-    (["--devices", "2", "--minibatch"], "item 9 (iii)"),
+    (["--devices", "2", "--minibatch", "--sampler", "importance"],
+     "--sampler neighbor"),
     (["--devices", "2", "--arch", "sage"], "implements GCN"),
     (["--update-stream", "u.jsonl"], "requires --fullgraph"),
     (["--minibatch", "--sampler", "cluster"], "ROADMAP.md, Queue 3"),

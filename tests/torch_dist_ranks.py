@@ -3,7 +3,7 @@
 ``functools.partial`` jobs), on the graph and sizes of
 ``tests/torch_dist_reference.py``.  Imports torch and the port only, so a
 rank starts without JAX.  Each returns the rank's losses and final
-parameters as numpy."""
+parameters as numpy (P3's W1 as the rank's slice)."""
 import dataclasses
 
 import numpy as np
@@ -11,8 +11,11 @@ import torch
 
 from repro_torch.core import collectives as C
 from repro_torch.core import coordination
+from repro_torch.core import parallel as PL
 from repro_torch.core import propagation as PR
 from repro_torch.core.updates import synthesize_updates
+from repro_torch.distributed import (DistributedMinibatchSampler,
+                                     make_distributed_minibatch_step)
 from repro_torch.graph import generators as G
 from repro_torch.models.gnn import model as GM
 from repro_torch.optim import AdamW, Sgd
@@ -34,7 +37,7 @@ def params_np(model) -> list:
 
 
 def _model(params0, dev, **kw):
-    cfg = GM.GNNConfig(**CFG, **kw)
+    cfg = GM.GNNConfig(**dict(CFG, **kw))
     return cfg, GM.params_from_numpy(cfg, params0, device=dev)
 
 
@@ -104,3 +107,71 @@ def coordination_run(rank, world, dev):
                zip(out["decentralized"], out["parameter_server"]))
     return {"max_diff": diff, "comm": C.STATS.snapshot(),
             "params": out["decentralized"]}
+
+
+MB_B, MB_FANOUTS, MB_STEPS = 24, [3, 3], 3
+
+
+def minibatch_seeds(n_nodes: int) -> list:
+    """The global seed batches of the reference's ``minibatch`` mode."""
+    rng = np.random.default_rng(1)
+    return [rng.choice(n_nodes, MB_B, replace=False)
+            for _ in range(MB_STEPS)]
+
+
+def minibatch_sampler(g, world, method, parts=None):
+    return DistributedMinibatchSampler(
+        g, world, MB_FANOUTS, MB_B, partitioner=method,
+        cache_policy="degree", cache_capacity=g.num_nodes // 10, seed=0,
+        parts=parts)
+
+
+def minibatch_run(rank, world, dev, *, method, arch, params0, opt="adamw"):
+    """``MB_STEPS`` steps of the distributed mini-batch step on the rank's
+    own partition (its store alone): the losses, the parameters, the
+    rank's batches and its store's counters."""
+    g = graph()
+    cfg, model = _model(params0, dev, arch=arch)
+    ds = minibatch_sampler(g, world, method, parts=(rank,))
+    step = make_distributed_minibatch_step(cfg, OPTS[opt](
+        model.parameters()))
+    losses, batches = [], []
+    for seeds in minibatch_seeds(g.num_nodes):
+        b = ds.sample_partition(rank, ds.owned_seeds(rank, seeds))
+        losses.append(float(step(model, b, ds.out_deg, len(seeds))))
+        batches.append(b)
+    return {"losses": losses, "params": params_np(model),
+            "batches": batches, "counters": ds.counters()}
+
+
+def p3_run(rank, world, dev, *, params0, opt="adamw", steps=STEPS):
+    """``steps`` P3 steps (hash cut) from the reference's parameters."""
+    g = graph()
+    cfg = GM.GNNConfig(**CFG)
+    model = PL.p3_params(cfg, params0, rank, world, device=dev)
+    shard = PL.p3_shard(PR.shard_graph(g, world, method="hash"), g, rank,
+                        dev)
+    step = PL.make_p3_train_step(OPTS[opt](model.parameters()))
+    losses = [float(step(model, shard)) for _ in range(steps)]
+    return {"losses": losses, "params": params_np(model)}
+
+
+def p3_grads(rank, world, dev, *, params0):
+    """One P3 forward and backward from the reference's parameters: each
+    parameter's gradient before and after ``sum_grads_and_loss`` with W1
+    kept, as the P3 step sums them."""
+    g = graph()
+    model = PL.p3_params(GM.GNNConfig(**CFG), params0, rank, world,
+                         device=dev)
+    shard = PL.p3_shard(PR.shard_graph(g, world, method="hash"), g, rank,
+                        dev)
+    loss = PR.local_loss(PL.p3_forward(model, shard), shard, shard.count)
+    loss.backward()
+
+    def grads():
+        return [{k: v.grad.detach().cpu().numpy().copy()
+                 for k, v in layer.named_parameters()} for layer in model]
+
+    before = grads()
+    PR.sum_grads_and_loss(model, loss, keep=(model[0].w,))
+    return {"before": before, "after": grads()}
