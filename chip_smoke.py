@@ -68,7 +68,7 @@ Phases, in order; any failure makes the exit code nonzero:
    GCN's two large products;
 7. mini-batch GraphSAGE at Reddit's widths: ``--batch 1024 --epochs 1
    --cache degree`` with ``--wire-codec fp32`` and then ``int8
-   --use-kernel`` for 60 of the epoch's 227 steps (``train_gnn.run``'s
+   --use-kernel``, each for 40 of the epoch's 227 steps (``train_gnn.run``'s
    ``steps_per_epoch``; wire rows into K4); K4 launches once per int8
    step and never under fp32; step time, cache hit ratio, fetched MiB and the loss trend;
 11. (run after phase 7) locality reordering, the dataset registry, the
@@ -87,9 +87,10 @@ Phases, in order; any failure makes the exit code nonzero:
    event folded, then the updated server against a cold one built on the
    folded graph within 1e-5; (e) mini-batch SAGE with ``--sampler
    importance`` (over a sixteenth of the nodes), ``fastgcn`` and
-   ``ladies``: falling loss, K1's launches as phase 7's fp32 run, K1's
-   plan searches and host time a launch; (f) ``train_gnn --dataset
-   pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like`` (SAGE);
+   ``ladies`` (40 steps each): falling loss, K1's launches as phase 7's
+   fp32 run, K1's plan searches and host time a launch; (f) ``train_gnn
+   --dataset pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like``
+   (SAGE);
 12. (run after phase 11) phase 3's SAGE served through the replicated
    tier (``serve_gnn --replicas``, ``repro_torch.serving.ReplicaRouter``):
    (a) 2 replicas under ``least_queue`` and ``round_robin``, 256 requests
@@ -142,10 +143,10 @@ Phases, in order; any failure makes the exit code nonzero:
    its cache (grown by 32 slots), exactly 32 K7 launches (bf16 route;
    the float32 prefill below, 32 of the float32 route), finite logits,
    prefill against the decode-only loop at full depth over the prompts'
-   first 512 positions (``LM_CMP_PROMPT``, through a prefill of that
-   length: two SSD chunks of 256) in float32 (two prompts, within 1e-3
-   of the largest logit; Mamba2 3e-3) and in bf16 (all 8, RMS ratio
-   bound), prefill and decode tok/s, peak memory; (c)
+   first 256 positions (``LM_CMP_BY_ARCH``, through a prefill of that
+   length) in float32 (two prompts, within 1e-3 of the largest logit;
+   Mamba2 3e-3) and in bf16 (all 8, RMS ratio bound), prefill and
+   decode tok/s, peak memory; (c)
    a ``torch.profiler`` split of one prefill and of one decode step (K7,
    matrix products, elementwise work) as the active step after a
    profiled warm-up step; (d) a 2-layer float32 cut at full width on the
@@ -177,6 +178,33 @@ Phases, in order; any failure makes the exit code nonzero:
    nested cache launching neither, finite logits, tok/s and peak memory;
    (c) a 2-layer float32 cut with ``attn_every`` 1 (two applications of
    the shared block) on the card and the CPU as in 9(d);
+16. (run after 15, before 17) serve Granite-MoE-1B-A400M (the moe family:
+   24 layers, d 1024, 16 / 8 x 64 heads, 32 experts, top 8, GShard
+   capacity factor 1.25) at its published widths: (a) the serving
+   launcher's decode-only loop, 8 x 64 prompt tokens + 32, no K7 launch;
+   (b) bf16 at full depth, random weights: a prefill of 8 x 1024 with
+   exactly 24 K7 launches (bf16 route), 32 decode steps in its grown
+   cache launching none, finite logits, tok/s and peak memory; (c)
+   float32 on a 6-layer cut through ``launch/prefill_gap.py --layers 6
+   --capacity-factor 8.0`` (drop-free on both sides) over 2 x 512 tokens
+   within 1e-3 of the largest logit, K7's float32 route once a layer,
+   its ``--flip`` control above the bound; (d) ``torch.profiler`` splits
+   of one prefill and one decode step by the moe module's functions
+   (router, dispatch, expert products, combine) and kernel kind; (e) a
+   2-layer float32 cut at factor 1.25 on the card and the CPU as in 9(d),
+   the card routing by the CPU's expert choices (``ForcedRoutes``), and
+   every token whose own choice on the card differs (a flip) within the
+   two sides' router-logit difference of a tie; (f) (inside phase 14's
+   world) one Granite MoE block at full width, 8 x 1024 tokens in
+   float32, through
+   ``core/parallel.moe_expert_parallel`` with 8 experts a rank: within
+   1e-5 of the single card's ``moe_block_gathered``, every rank's output
+   bitwise equal, ms and bytes a rank;
+17. (run after 16, before 14) the port's four examples as ``python -m
+   repro_torch.examples.<name>`` on the card, each exiting 0, with their
+   seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
+   side, then ``distributed_gnn``: three runs in a world of 8 ranks,
+   three in a world of 4);
 14. (run last) distributed full-graph GCN at Reddit's widths (602 → 256
    → 41, hash partitioner) with 4 ranks sharing the card: one spawned
    world (``train_gnn.run_world``: gloo, CUDA tensors staged through
@@ -258,11 +286,16 @@ EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
                  "gin": {"gather_rows": 2, "segment_sum": 2},
                  "gat": {"gat_attention": 2}}
 MB_BATCH = 1024
-# phase 7's int8 run: a fixed number of steps (reduced from the epoch's
-# 227: a step is ~0.37 s of host encoding, and phase 14 needs the time)
-MB_INT8_STEPS = 60
+# phase 7's runs and phase 11(e)'s layer-wise samplers: a fixed number of
+# steps (reduced from the epoch's 227 for time: int8's steps are 0.37-0.46
+# s of host encoding; 60 from PR 20, 40 and fp32 and the samplers from PR
+# 24, for phases 16-17)
+MB_STEPS = 40
 
 failures: list = []
+# seconds each phase took, by name (written to chiprun_out/chip_smoke.json
+# and printed before the last lines)
+PHASE_SECONDS: dict = {}
 # phase 6's trained SAGE and GAT with their graphs: phase 11b compares
 # the packed runs' predictions with them
 TRAINED: dict = {}
@@ -286,7 +319,9 @@ def phase(name):
                 print(f"FAILED: {name}", flush=True)
                 return None
             finally:
-                print(f"   ({time.perf_counter() - t0:.1f} s)", flush=True)
+                secs = time.perf_counter() - t0
+                PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + secs
+                print(f"   ({secs:.1f} s)", flush=True)
         return run
     return wrap
 
@@ -1478,13 +1513,13 @@ def phase_minibatch(torch, results):
     for codec in ("fp32", "int8"):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        # the int8 run takes MB_INT8_STEPS steps of its epoch
+        # each run takes MB_STEPS steps of its epoch
         res = train_gnn.run(train_gnn.parse_args(train_args(
             "sage", CLASSES, [
                 "--minibatch", "--batch", str(MB_BATCH), "--epochs", "1",
                 "--cache", "degree", "--wire-codec", codec,
                 *(["--use-kernel"] if codec == "int8" else [])])),
-            steps_per_epoch=MB_INT8_STEPS if codec == "int8" else 0)
+            steps_per_epoch=MB_STEPS)
         torch.cuda.synchronize()
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         losses, steps = res["losses"], res["steps"]
@@ -1834,7 +1869,8 @@ def timed_k1_host(torch):
 def phase_samplers(torch, results):
     """``train_gnn --minibatch --sampler importance|fastgcn|ladies``, SAGE
     602 → 256 → 41, batch 1024, one epoch (importance over
-    :data:`IMPORTANCE_NODES` nodes): finite, falling loss and K1's
+    :data:`IMPORTANCE_NODES` nodes; the layer-wise samplers
+    :data:`MB_STEPS` steps of theirs): finite, falling loss and K1's
     launches as phase 7's fp32 run (two forward, one transpose a step).
     The layer-wise blocks change E every step; K1's plan search is
     memoised per shape and not per E, so its searches during a run stay
@@ -1854,7 +1890,9 @@ def phase_samplers(torch, results):
                 "--minibatch", "--sampler", sampler, "--batch",
                 str(MB_BATCH), "--epochs", "1", "--cache", "degree"])
             args[args.index("--nodes") + 1] = str(nodes)
-            res = train_gnn.main(args)
+            res = train_gnn.run(train_gnn.parse_args(args),
+                                steps_per_epoch=0 if sampler == "importance"
+                                else MB_STEPS)
         finally:
             restore()
         torch.cuda.synchronize()
@@ -2152,13 +2190,17 @@ ZOO = ("qwen2.5-14b", "gemma-7b", "glm4-9b")
 # depth, about 59 GB, do not fit beside the rest)
 ZOO_FP32_LAYERS = 4
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
-# phases 9, 10, 13 and 15 hold prefill against the decode-only loop over
-# the first LM_CMP_PROMPT positions of their prompts, through a prefill
-# of that length: two of Mamba2's (and Zamba2's) 256-position SSD chunks,
-# so the state passed between chunks is still checked, and four of K7's
-# 128-key tiles, at half the decode steps of the whole prompt (the loops
-# took most of phases 9 and 10)
+# phases 15 and 16 hold prefill against the decode-only loop over the
+# first LM_CMP_PROMPT positions of their prompts, through a prefill of
+# that length: two of Zamba2's 256-position SSD chunks, so the state
+# passed between chunks is checked, and four of K7's 128-key tiles, at
+# half the decode steps of the whole prompt
 LM_CMP_PROMPT = 512
+# phases 9, 10 and 13 compare over 256 positions (two of K7's key tiles;
+# one of Mamba2's SSD chunks, whose state passing phase 15 checks), for
+# time (from PR 24: phases 16 and 17 need it; 512 before, 1024 before PR
+# 21)
+LM_CMP_BY_ARCH = {PHI3: 256, MAMBA2: 256, **{a: 256 for a in ZOO}}
 # the configs phases 9 and 10 serve: empty, the published ones (32 and 48
 # layers, one K7 or K8 launch each per prefill).  A rehearsal off the card
 # puts small configs here and cuts LM_BATCH, LM_PROMPT, LM_GEN; the
@@ -2372,6 +2414,17 @@ def phase_lm_kernels(torch, results):
         torch, c, zlabel + ", bf16", *zshape)
     results[f"flash_attention_fp32.{ZAMBA2}"] = k7_case(
         torch, c, zlabel + ", float32", *zshape, dtype=torch.float32)
+    # Granite-MoE-1B-A400M's prefill (16 / 8 x 64), timed in both dtypes:
+    # bf16 is its served prefill's route, float32 its parity run's (16c)
+    gcfg = LM_CONFIGS.get(GRANITE) or get_config(GRANITE)
+    gshape = (Bsz, gcfg.num_heads, gcfg.num_kv_heads, S, S,
+              gcfg.resolved_head_dim)
+    glabel = (f"K7 {gcfg.name} prefill (B {Bsz}, S {S}, {gshape[1]} / "
+              f"{gshape[2]} x {gshape[5]}, causal)")
+    results[f"flash_attention.{GRANITE}"] = k7_case(
+        torch, c, glabel + ", bf16", *gshape)
+    results[f"flash_attention_fp32.{GRANITE}"] = k7_case(
+        torch, c, glabel + ", float32", *gshape, dtype=torch.float32)
     # every case in both dtypes: float32 holds the CUDA-core kernel to
     # 1e-4 of the largest value at each head width and mask
     for _, args, kw in cases[1:]:
@@ -2409,6 +2462,11 @@ def phase_lm_kernels(torch, results):
     results["ssd_chunk_state_fp32_cuda_core"] = k8_case(
         torch, c, "K8 float32, L 100, 8 x 32, N 24, G 2", 6, 100, 8, 32, 2,
         24, dtype=f32, route="cuda_core")
+    # and at the reduced configs' widths (8 x 32, N 16, chunk 16), timed
+    # beside the reference's einsum
+    results["ssd_chunk_state_fp32_cuda_core.reduced"] = k8_case(
+        torch, c, "K8 float32, L 16, 8 x 32, N 16, G 2 (the reduced "
+        "configs)", 6, 16, 8, 32, 2, 16, dtype=f32, route="cuda_core")
     # ragged chunks in bf16 (positions past L arrive as zeros), and more
     # chunks than SMs (a block then walks 16 heads, the most it takes)
     for G in (1, 2):
@@ -2467,36 +2525,40 @@ def cache_bytes(cache) -> int:
                else c.numel() * c.element_size() for c in cache.values())
 
 
-def lm_profile(torch, label, step, wall_s) -> dict:
-    """Device time of one ``step`` by kind (the port's kernel, matrix
-    products, copies, the rest), as the active step after a profiled
-    warm-up step, beside the step's wall time ``wall_s``."""
-    def kind(key):
-        k = key.lower()
-        if any(n in k for n in ("flash_fwd_wgmma_kernel",
-                                "flash_fwd_tf32_kernel", "ssd_state_kernel",
-                                "ssd_state_wgmma_kernel",
-                                "ssd_state_tf32_kernel")):
-            return "port kernel"
-        if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
-                                "sm80_", "ampere_", "matmul", "nvjet",
-                                "splitk")):
-            return "matrix products"
-        if k.startswith(("memcpy", "memset")):
-            return "copies"
-        return "elementwise and reductions"
+def kernel_kind(key: str) -> str:
+    """A device kernel's kind by its name: the port's K7 or K8, a matrix
+    product, a copy, or elementwise work and reductions."""
+    k = key.lower()
+    if any(n in k for n in ("flash_fwd_wgmma_kernel",
+                            "flash_fwd_tf32_kernel", "ssd_state_kernel",
+                            "ssd_state_wgmma_kernel",
+                            "ssd_state_tf32_kernel")):
+        return "port kernel"
+    if any(n in k for n in ("gemm", "gemv", "cutlass", "xmma", "sm90_",
+                            "sm80_", "ampere_", "matmul", "nvjet",
+                            "splitk")):
+        return "matrix products"
+    if k.startswith(("memcpy", "memset")):
+        return "copies"
+    return "elementwise and reductions"
 
+
+def lm_profile(torch, label, step, wall_s) -> dict:
+    """Device time of one ``step`` by kind (:func:`kernel_kind`), as the
+    active step after a profiled warm-up step, beside the step's wall
+    time ``wall_s``."""
     rows = device_rows(profile_active_step(torch, step))
     split = {}
     for e in rows:
-        split[kind(e.key)] = split.get(kind(e.key), 0.0) + dev_us(e) / 1e3
+        kind = kernel_kind(e.key)
+        split[kind] = split.get(kind, 0.0) + dev_us(e) / 1e3
     total = sum(split.values())
     print(f"   (c) {label} profiled: device {total:.3f} ms of "
           f"{wall_s * 1e3:.3f} ms wall ({total / (wall_s * 1e3):.2%} busy); "
           f"split (ms): " + json.dumps(split), flush=True)
     for e in rows[:10]:
         print(f"   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} "
-              f"{kind(e.key)[:12]:12s} {e.key[:80]}")
+              f"{kernel_kind(e.key)[:12]:12s} {e.key[:80]}")
     return {"device_ms": total, "wall_ms": wall_s * 1e3, "split_ms": split,
             "kernels": [{"kernel": e.key, "count": e.count,
                          "ms": dev_us(e) / 1e3} for e in rows[:40]]}
@@ -2524,7 +2586,7 @@ def lm_cut_parity(torch, cfg, arch) -> dict:
     tok = torch.randint(0, cut.vocab_size, (B, S),
                         generator=torch.Generator().manual_seed(4))
     outs = {}
-    for name, params, t in (("cuda", dev, tok.cuda()), ("cpu", cpu, tok)):
+    for name, params, t in (("cpu", cpu, tok), ("cuda", dev, tok.cuda())):
         with torch.inference_mode():
             lg = [M.forward(cut, params, {"tokens": t})]
             last, cache = M.prefill(cut, params, {"tokens": t})
@@ -2555,7 +2617,7 @@ def lm_phase(torch, arch, results):
     loop; (b) prefill of LM_BATCH x LM_PROMPT tokens and LM_GEN decode
     steps from its cache with exactly one K7 (Phi-3) or K8 (Mamba2)
     launch per layer, and prefill against the decode-only loop at full
-    depth over the prompts' first LM_CMP_PROMPT positions, in float32
+    depth over the prompts' first 256 positions, in float32
     (two prompts) and in bf16 (all LM_BATCH); (c) a profile of one
     prefill; (d) a 2-layer float32 cut on the card and on the CPU."""
     from repro_torch.configs.base import get_config
@@ -2592,7 +2654,8 @@ def lm_phase(torch, arch, results):
     prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(1))
-    cmp = prompts[:, :min(LM_CMP_PROMPT, LM_PROMPT)]
+    cmp = prompts[:, :min(LM_CMP_BY_ARCH.get(arch, LM_CMP_PROMPT),
+                           LM_PROMPT)]
     with torch.inference_mode():
         # float32 weights at full depth: prefill against the decode-only
         # loop, two of the prompts
@@ -2697,12 +2760,15 @@ def phase_mamba2(torch, results):
     lm_phase(torch, MAMBA2, results)
 
 
-def serve_full_depth(torch, cfg, arch, prompts, expected, results) -> dict:
-    """bf16 at full width and depth, random weights (phases 13 and 15): a
-    prefill of ``prompts`` (LM_BATCH x LM_PROMPT) that launches exactly
-    ``expected`` (launches by counter), LM_GEN decode steps in its grown
-    cache that launch nothing, finite logits; tok/s, peak memory and the
-    cache's bytes."""
+def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
+                     profile=None) -> dict:
+    """bf16 at full width and depth, random weights (phases 13, 15 and
+    16): a prefill of ``prompts`` (LM_BATCH x LM_PROMPT) that launches
+    exactly ``expected`` (launches by counter), LM_GEN decode steps in its
+    grown cache that launch nothing, finite logits; tok/s, peak memory
+    and the cache's bytes.  ``profile(params, cache, tok, out)``, where
+    given, runs last, with the weights, the grown cache and the last
+    token still held, and its dict goes under ``"profile"``."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import model as M
     dev, V = prompts.device, cfg.vocab_size
@@ -2752,6 +2818,8 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results) -> dict:
         require(counts == expected and decode_counts == counts,
                 f"a prefill launches exactly {expected} and the decode "
                 f"steps nothing: {counts}, {decode_counts}")
+        if profile is not None:
+            out["profile"] = profile(params, cache, tok, out)
         del params, cache, logits
     torch.cuda.empty_cache()
     return out
@@ -2760,7 +2828,7 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results) -> dict:
 def zoo_phase(torch, arch, results):
     """One of phase 13's dense configs: (a) float32 at full width on a
     ZOO_FP32_LAYERS-layer cut, prefill against the decode-only loop over
-    2 x LM_CMP_PROMPT tokens within 1e-3 of the largest logit, K7's
+    2 x 256 tokens within 1e-3 of the largest logit, K7's
     float32 route once a layer;
     (b) bf16 at full width and depth (``serve_full_depth``): K7's bf16
     route exactly once a layer in a prefill; (c) a 2-layer float32 cut on
@@ -2776,7 +2844,8 @@ def zoo_phase(torch, arch, results):
     prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(1))
-    cmp = prompts[:2, :min(LM_CMP_PROMPT, LM_PROMPT)]
+    cmp = prompts[:2, :min(LM_CMP_BY_ARCH.get(arch, LM_CMP_PROMPT),
+                           LM_PROMPT)]
     with torch.inference_mode():
         cut = cfg.replace(num_layers=min(ZOO_FP32_LAYERS, nl),
                           param_dtype="float32", compute_dtype="float32")
@@ -2869,6 +2938,411 @@ def phase_zamba2(torch, results):
         {"ssd_chunk_state": nl, "flash_attention": nl // per}, results)
     out["cut"] = lm_cut_parity(torch, cfg.replace(attn_every=1), ZAMBA2)
     results[f"lm.{ZAMBA2}"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the moe family, Granite-MoE-1B-A400M (32 experts, top 8)
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-1b-a400m"
+# 16(c): prefill against the decode-only loop needs a capacity factor
+# that drops nothing on either side (a prefill groups its 1 024 tokens, a
+# decode step the batch, so at 1.25 they drop different tokens): at
+# least E/k = 4; the reduced configs' 8.0
+GRANITE_FREE_CF = 8.0
+# 16(c) runs on a cut of 6 of the 24 layers at full width: at full depth
+# each of its two runs (prefill and 512 decode steps) took 29 s, and 12
+# layers still put chip_smoke.py at 957 s (PR 24)
+GRANITE_FP32_LAYERS = 6
+# 16(f), in phase 14's world: one Granite MoE block, 8 x 1024 tokens in
+# float32, its 32 experts split over the ranks
+EP_BATCH, EP_SEQ = 8, 1024
+# the moe module's functions 16(d) labels in its profile, and the part of
+# the time each stands for
+MOE_REGIONS = {"route": "router, softmax, top-k",
+               "dispatch": "dispatch (places, slots, token gather)",
+               "expert_ffn": "expert products",
+               "combine": "combine (gather back, weighted sum)"}
+LM_FP32_REL[GRANITE] = 1e-3
+LM_CUT[GRANITE] = (2, 256)
+
+
+def moe_profile(torch, label, step, wall_s) -> dict:
+    """Device time of one ``step`` of a ``moe`` model split by the moe
+    module's functions (:data:`MOE_REGIONS`, each labelled with a
+    ``record_function`` for the profile only) and, within each, by
+    :func:`kernel_kind`; the rest of the step by kernel kind alone.  A
+    kernel belongs to the innermost labelled function that launched it;
+    the kernels no PyTorch operator launched (the port's, through
+    ``ctypes``: K7) are split by kind apart, from the profile's device
+    rows.  The largest kernels of each part are listed."""
+    from repro_torch.models.transformer import moe as MOE
+    saved = {n: getattr(MOE, n) for n in MOE_REGIONS}
+
+    def labelled(fn, name):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            with torch.profiler.record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return run
+
+    try:
+        for n, fn in saved.items():
+            setattr(MOE, n, labelled(fn, n))
+        prof = profile_active_step(torch, step)
+    finally:
+        for n, fn in saved.items():
+            setattr(MOE, n, fn)
+    split: dict = {}
+    by_name: dict = {}                 # (part, kernel): ms
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        region, p = "outside the experts", e
+        while p is not None:
+            if p.name.startswith("moe.") and p.name[4:] in MOE_REGIONS:
+                region = MOE_REGIONS[p.name[4:]]
+                break
+            p = p.cpu_parent
+        for kern in e.kernels:
+            by_name[region, kern.name] = (by_name.get((region, kern.name),
+                                                      0.0)
+                                          + kern.duration / 1e3)
+    rows = device_rows(prof)
+    rows_ms = sum(dev_us(e) for e in rows) / 1e3
+    for e in rows:
+        seen = sum(ms for (_, n), ms in by_name.items() if n == e.key)
+        if dev_us(e) / 1e3 - seen > 1e-6:
+            key = ("launched through ctypes", e.key)
+            by_name[key] = dev_us(e) / 1e3 - seen
+    for (region, name), ms in by_name.items():
+        part = split.setdefault(region, {})
+        kind = kernel_kind(name)
+        part[kind] = part.get(kind, 0.0) + ms
+    total = sum(sum(v.values()) for v in split.values())
+    top = {}
+    for (region, name), ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if len(top.setdefault(region, [])) < 4:
+            top[region].append({"kernel": name[:90], "ms": ms})
+    print(f"   (d) {label} profiled: device {total:.3f} ms of "
+          f"{wall_s * 1e3:.3f} ms wall ({total / (wall_s * 1e3):.2%} busy; "
+          f"the kernels' own rows sum to {rows_ms:.3f} ms); split (ms): "
+          + json.dumps(split), flush=True)
+    for region, kernels in top.items():
+        print(f"      {region}: " + json.dumps(kernels), flush=True)
+    return {"device_ms": total, "kernel_rows_ms": rows_ms,
+            "wall_ms": wall_s * 1e3, "split_ms": split, "top": top}
+
+
+class ForcedRoutes:
+    """16(e)'s stand-in for the moe module's ``route``: on the CPU it
+    records each call's experts and router logits; on the card it records
+    the card's own choice and logits, then routes by the CPU's experts of
+    the same call (their gates renormalised from the card's softmax), so
+    the two sides compute the rest of the model from one expert choice.
+    A token whose expert set differs is a flip; :meth:`flips` holds each
+    to a tie (``lm_cut_parity`` runs the CPU first)."""
+
+    def __init__(self, torch, route):
+        self.torch, self.route = torch, route
+        self.cpu: list = []
+        self.card: list = []
+
+    def __call__(self, cfg, p, x):
+        w, idx, gates = self.route(cfg, p, x)
+        logits = (x.float() @ p["router"].float()).reshape(
+            -1, gates.shape[-1]).cpu()
+        flat = idx.reshape(-1, idx.shape[-1]).cpu()
+        if x.device.type == "cpu":
+            self.cpu.append((flat, logits))
+            return w, idx, gates
+        want = self.cpu[len(self.card)][0]
+        self.card.append((flat, logits))
+        idx = want.to(idx.device).reshape(idx.shape)
+        w = self.torch.gather(gates, -1, idx)
+        return w / w.sum(-1, keepdim=True), idx, gates
+
+    def flips(self) -> dict:
+        """The tokens whose expert set differs between the card's own
+        choice and the CPU's, call by call; each must lie within the two
+        sides' own logit difference of a tie: the CPU's margin between
+        its k-th and (k+1)-th logit at most twice the largest card-vs-CPU
+        logit difference of that call (each of the two logits moved by
+        at most that much)."""
+        torch = self.torch
+        out = {"calls": len(self.cpu), "tokens": 0, "flips": 0,
+               "max_logit_diff": 0.0, "flip_margins": [],
+               "unexplained": 0}
+        for (ci, cl), (gi, gl) in zip(self.cpu, self.card):
+            k = ci.shape[-1]
+            delta = float((cl - gl).abs().max())
+            top = cl.topk(k + 1, dim=-1).values
+            margin = top[:, k - 1] - top[:, k]
+            differ = (ci.sort(-1).values != gi.sort(-1).values).any(-1)
+            out["tokens"] += ci.shape[0]
+            out["flips"] += int(differ.sum())
+            out["max_logit_diff"] = max(out["max_logit_diff"], delta)
+            for m in margin[differ].tolist():
+                out["flip_margins"].append(m)
+                out["unexplained"] += int(m > 2 * delta)
+        return out
+
+
+@phase("16. serve Granite-MoE-1B-A400M at full width, bf16")
+def phase_granite(torch, results):
+    """The moe family through K7 at hd 64: (a) the serving launcher's
+    decode-only loop, no K7 launch; (b) bf16 at full width and depth
+    (``serve_full_depth``): a prefill of LM_BATCH x LM_PROMPT with K7's
+    bf16 route exactly once a layer, LM_GEN decode steps in its grown
+    cache launching nothing, at the published capacity factor 1.25; (c)
+    float32 on a GRANITE_FP32_LAYERS-layer cut through
+    ``launch/prefill_gap.py --capacity-factor 8.0``
+    (drop-free on both sides) over 2 x LM_CMP_PROMPT tokens, within 1e-3
+    of the largest logit, K7's float32 route once a layer, and its
+    ``--flip`` control above the bound; (d) a profile of one prefill and
+    one decode step split by :func:`moe_profile`; (e) a 2-layer float32
+    cut at full width and factor 1.25 on the card and the CPU
+    (``lm_cut_parity``), the card following the CPU's expert choices;
+    the tokens whose expert set the card's own router picks otherwise
+    are counted, and each must be a tie within the two sides' logit
+    difference (:class:`ForcedRoutes`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prefill_gap, serve
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer import moe as MOE
+    dev = torch.device("cuda")
+    cfg = LM_CONFIGS.get(GRANITE) or get_config(GRANITE)
+    nl, V = cfg.num_layers, cfg.vocab_size
+    reduced = ["--reduced"] if GRANITE in LM_CONFIGS else []
+    out: dict = {}
+
+    # (a) the serving launcher's decode-only loop
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.run(["--arch", GRANITE, "--batch", str(LM_BATCH),
+                     "--prompt-len", "64", "--gen", "32"] + reduced)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["serve"] = {"prefill_tok_s": res["prefill_tok_s"],
+                    "decode_tok_s": res["decode_tok_s"],
+                    "params": res["params"], "launches": counts,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "first_tokens": res["tokens"][0, :8].tolist()}
+    print(f"   (a) launch.serve, decode-only, {LM_BATCH} x 64 prompt tokens "
+          f"+ 32: " + json.dumps(out["serve"]), flush=True)
+    require(res["tokens"].shape == (LM_BATCH, 32), "32 tokens per sequence")
+    require(bool(torch.isfinite(res["logits"].float()).all()),
+            "finite decode logits")
+    require(not counts, f"the decode-only loop launches no kernel: {counts}")
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) bf16 at full depth, (d) its profile
+    prompts = torch.randint(0, V, (LM_BATCH, LM_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+
+    def profile(params, cache, tok, served):
+        return {
+            "prefill": moe_profile(
+                torch, "one prefill", lambda: M.prefill(
+                    cfg, params, {"tokens": prompts}),
+                served["prefill_ms"] / 1e3),
+            "decode": moe_profile(
+                torch, "one decode step", lambda: M.decode_step(
+                    cfg, params, cache, {"token": tok,
+                                         "pos": LM_PROMPT + LM_GEN - 1}),
+                served["decode_ms_per_step"] / 1e3)}
+
+    out["prefill"] = serve_full_depth(
+        torch, cfg, GRANITE, prompts, {"flash_attention": nl}, results,
+        profile=profile)
+
+    # (c) float32 prefill against the decode-only loop, drop-free
+    S_cmp = min(LM_CMP_PROMPT, LM_PROMPT)
+    layers = GRANITE_FP32_LAYERS
+    flags = ["--arch", GRANITE, "--dtype", "float32", "--layers",
+             str(layers), "--capacity-factor", str(GRANITE_FREE_CF),
+             "--batch", "2", "--prompt-len", str(S_cmp)] + reduced
+    ops.reset_launch_counts()
+    g = prefill_gap.run(flags)
+    counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+    results[f"launches.lm_fp32.{GRANITE}"] = counts32
+    flip = prefill_gap.run(flags + ["--flip", str(S_cmp - 8)])
+    out["fp32_prefill_vs_decode"] = dict(g, launches=counts32,
+                                         flip_control=flip)
+    bound = LM_FP32_REL[GRANITE]
+    print(f"   (c) float32, {layers} layers, capacity factor "
+          f"{GRANITE_FREE_CF}, 2 x {S_cmp}: prefill vs the decode-only loop "
+          + json.dumps(g) + f" (bound {bound} of the largest logit)",
+          flush=True)
+    print(f"   (c) control, the decode loop reading token {S_cmp - 8} "
+          f"changed: max_abs_rel {flip['max_abs_rel']}", flush=True)
+    require(counts32 == {"flash_attention_fp32": layers},
+            f"K7's float32 route once a layer: {counts32}")
+    require(g["max_abs_rel"] <= bound,
+            f"float32 prefill agrees with the decode-only loop: {g}")
+    require(flip["max_abs_rel"] > bound,
+            f"the one-token control lies above the bound: {flip}")
+    torch.cuda.empty_cache()
+
+    # (e) card against CPU at factor 1.25: the card follows the CPU's
+    # expert choices, and every token where its own choice differs must
+    # be a tie within the two sides' logit difference
+    forced = ForcedRoutes(torch, MOE.route)
+    MOE.route = forced
+    try:
+        out["cut"] = lm_cut_parity(torch, cfg, GRANITE)
+    finally:
+        MOE.route = forced.route
+    fl = forced.flips()
+    out["cut"]["routing"] = fl
+    print(f"   (e) expert sets, card's own choice vs the CPU's: "
+          + json.dumps(fl), flush=True)
+    require(fl["calls"] == len(forced.card) > 0 and fl["unexplained"] == 0,
+            f"every expert-set flip lies within the card-vs-CPU logit "
+            f"difference of a tie: {fl}")
+    results[f"lm.{GRANITE}"] = out
+
+
+def ep_inputs(torch, dev, batch, seq):
+    """16(f)'s block: Granite's MoE layer at full width in float32 (32
+    experts, top 8, capacity factor 1.25) and its ``batch`` x ``seq``
+    input, drawn on ``dev`` from one seed, so every rank of a world on
+    that card and the main process hold the same numbers."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import moe as MOE
+    cfg = get_config(GRANITE).replace(param_dtype="float32",
+                                      compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    p = MOE.init_moe(cfg, gen, torch.float32, dev)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+    return cfg, p, x
+
+
+def dist_moe_ep_job(rank, world, dev, *, batch, seq):
+    """(16f) One Granite MoE block through ``moe_expert_parallel``: the
+    rank keeps its experts' rows (``expert_shard``), runs the block three
+    times (the last one timed and its bytes counted), and returns its
+    output's digest, rank 0 also the output."""
+    import hashlib
+
+    import torch
+    from repro_torch.core import collectives as C
+    from repro_torch.core import parallel as PL
+    cfg, p, x = ep_inputs(torch, dev, batch, seq)
+    p = PL.expert_shard(cfg, p, rank, world)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.inference_mode():
+        for _ in range(2):
+            PL.moe_expert_parallel(cfg, p, x, capacity_factor=1.25)
+        sync()
+        C.STATS.reset()
+        t0 = time.perf_counter()
+        y = PL.moe_expert_parallel(cfg, p, x, capacity_factor=1.25)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    host = y.cpu().numpy()
+    return {"ms": ms, "comm": C.STATS.snapshot(),
+            "experts": int(p["w_in"].shape[0]),
+            "digest": hashlib.sha256(host.tobytes()).hexdigest(),
+            "y": host if rank == 0 else None}
+
+
+def _ep_checks(torch, res, results):
+    """(16f) The EP block against the single card's
+    ``moe_block_gathered`` on the same numbers: within 1e-5 of its
+    largest value, every rank's output bitwise equal; ms and bytes a
+    rank beside the single card's ms."""
+    from repro_torch.models.transformer import moe as MOE
+    dev = torch.device("cuda")
+    cfg, p, x = ep_inputs(torch, dev, EP_BATCH, EP_SEQ)
+    with torch.inference_mode():
+        for _ in range(2):
+            MOE.moe_block_gathered(cfg, p, x, capacity_factor=1.25)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = MOE.moe_block_gathered(cfg, p, x, capacity_factor=1.25)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+    want = want.cpu().numpy()
+    ranks = res["ranks"]
+    err = float(np.abs(ranks[0]["y"] - want).max())
+    top = float(np.abs(want).max())
+    summary = {"tokens": x.shape[0] * x.shape[1], "world": len(ranks),
+               "experts_per_rank": [r["experts"] for r in ranks],
+               "max_abs_err": err, "max_abs_ref": top,
+               "ranks_bitwise_equal": len({r["digest"] for r in ranks}) == 1,
+               "ms_per_rank": [r["ms"] for r in ranks],
+               "bytes_sent_per_rank": [r["comm"]["bytes_sent"]
+                                       for r in ranks],
+               "bytes_received_per_rank": [r["comm"]["bytes_received"]
+                                           for r in ranks],
+               "stage_s": [r["comm"]["stage_s"] for r in ranks],
+               "wait_s": [r["comm"]["wait_s"] for r in ranks],
+               "single_card_gathered_ms": single_ms}
+    results["dist.moe_ep"] = summary
+    print("   (16f) expert-parallel Granite block vs the single card: "
+          + json.dumps(summary), flush=True)
+    require(summary["experts_per_rank"] == [32 // len(ranks)] * len(ranks),
+            "each rank holds its share of the 32 experts")
+    require(err <= 1e-5 * top, f"EP block within 1e-5 of the single card "
+            f"({err} of {top})")
+    require(summary["ranks_bitwise_equal"], "every rank's output bitwise "
+            "equal")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the port's examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("serve_batched", "serve_gnn", "quickstart", "distributed_gnn")
+EXAMPLE_TIMEOUT_S = 600
+# flags every example gets: none on the card (a rehearsal off the card
+# puts "--device", "cpu" here)
+EXAMPLE_ARGS: tuple = ()
+
+
+@phase("17. the port's examples on the card")
+def phase_examples(torch, results):
+    """``python -m repro_torch.examples.<name>`` for each example, on the
+    card (their default device), all four side by side: each must exit
+    0.  Each one's seconds from start to exit are printed (times of
+    processes sharing the card and the host's cores), and its output goes
+    to ``chiprun_out/example_<name>.log``."""
+    logs = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out, procs = {}, {}
+    for name in EXAMPLES:
+        f = open(os.path.join(logs, f"example_{name}.log"), "w",
+                 encoding="utf-8")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.examples.{name}",
+             *EXAMPLE_ARGS], cwd=ROOT, env=env, stdout=f,
+            stderr=subprocess.STDOUT), f, time.perf_counter())
+    for name, (proc, f, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        finally:
+            f.close()
+        secs = time.perf_counter() - t0
+        with open(os.path.join(logs, f"example_{name}.log"),
+                  encoding="utf-8") as log:
+            tail = log.read().strip().splitlines()[-4:]
+        out[name] = {"exit_code": rc, "seconds": secs}
+        print(f"   {name}: exit {rc}, {secs:.1f} s; last lines: "
+              + json.dumps(tail), flush=True)
+    results["examples"] = out
+    bad = {n: r["exit_code"] for n, r in out.items() if r["exit_code"]}
+    require(not bad, f"every example exits 0: {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -3559,6 +4033,8 @@ def phase_distributed(torch, g, g_gat, results):
         dist_mb_parity_job, argv=mb_args("fp32"),
         argv_gat=mb_args("fp32", "gat", GAT_CLASSES))
     jobs["p3"] = functools.partial(dist_p3_job, argv=dist_args([]))
+    jobs["moe_ep"] = functools.partial(dist_moe_ep_job, batch=EP_BATCH,
+                                       seq=EP_SEQ)
     t0 = time.perf_counter()
     out = dict(zip(jobs, train_gnn.run_world(
         list(jobs.values()), world=DIST_WORLD, device="cuda",
@@ -3569,7 +4045,7 @@ def phase_distributed(torch, g, g_gat, results):
     want_k1_fwd = "gather_scale_segment_sum"
     want_k1 = {"gather_scale_segment_sum": 2, "gather_scale_segment_sum_t": 2}
     for name, res in out.items():
-        if name in ("coordination", "sgd", "mb_parity", "p3") or \
+        if name in ("coordination", "sgd", "mb_parity", "p3", "moe_ep") or \
                 name.startswith(("fault_", "mb_")):
             continue
         summary = _dist_summary(res)
@@ -3712,6 +4188,8 @@ def phase_distributed(torch, g, g_gat, results):
     _dist_mb_k1_cases(torch, g, results)
     print(f"   (f)-(i) in the main process: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # phase 16(f): the expert-parallel Granite block
+    _ep_checks(torch, out["moe_ep"], results)
 
 
 def kernels_line(results) -> dict:
@@ -3786,13 +4264,26 @@ def kernels_line(results) -> dict:
                 launches=results[f"launches.{lkey}.{ZAMBA2}"].get(name, 0))
         if name in ("flash_attention", "flash_attention_fp32"):
             # hd 80 on the hd-96 tiles: phase 8's case at Zamba2's prefill
-            # and its launches in phase 15's prefill (bf16) or cut (float32)
-            r = results[f"{name}.{ZAMBA2}"]
+            # and its launches in phase 15's prefill (bf16) or cut
+            # (float32); Granite's prefill (phase 8) with its launches in
+            # phase 16's prefill (bf16) or parity run (float32)
             lkey = "lm" if name == "flash_attention" else "lm_fp32"
-            rows[-1][f"at_{ZAMBA2}_hd80"] = dict(
-                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
-                launches=results[f"launches.{lkey}.{ZAMBA2}"].get(name, 0))
+            for arch, label in ((ZAMBA2, f"at_{ZAMBA2}_hd80"),
+                                (GRANITE, f"at_{GRANITE}")):
+                r = results[f"{name}.{arch}"]
+                rows[-1][label] = dict(
+                    {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                    launches=results.get(f"launches.{lkey}.{arch}",
+                                         {}).get(name, 0))
+        if name == "ssd_chunk_state_fp32_cuda_core":
+            # the reduced configs' widths; no path launches it (the
+            # serving launcher's loop is decode-only)
+            r = results[f"{name}.reduced"]
+            rows[-1]["at_reduced_configs"] = {
+                k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
         # K3 and its VJP over GAT's whole graph at its two layers' shapes
         wide = f"{GAT_HEADS}x{HIDDEN // GAT_HEADS}"
         narrow = f"{GAT_HEADS}x{GAT_CLASSES // GAT_HEADS}"
@@ -3912,13 +4403,19 @@ def main() -> int:
             torch, arch, results)
         torch.cuda.empty_cache()
     phase_zamba2(torch, results)
+    phase_granite(torch, results)
+    torch.cuda.empty_cache()
+    phase_examples(torch, results)
     phase_distributed(torch, g, g_gat, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
               encoding="utf-8") as f:
         json.dump({"card": smi, "failures": failures,
-                   "results": results}, f, indent=1,
-                  default=str)
+                   "phase_seconds": PHASE_SECONDS, "results": results}, f,
+                  indent=1, default=str)
+    print("phase seconds: " + json.dumps(
+        {k.split(" ")[0]: round(v, 1) for k, v in PHASE_SECONDS.items()}),
+        flush=True)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), flush=True)
         return 1

@@ -55,13 +55,13 @@ ARCH_FAMILIES = {
 
 #: the configs the port carries (``repro_torch/configs/<id>.py``)
 PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
-                  "gemma_7b", "glm4_9b", "zamba2_2_7b")
+                  "gemma_7b", "glm4_9b", "zamba2_2_7b",
+                  "granite_moe_1b_a400m")
 #: the families the port's model runs
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 #: ROADMAP.md queue 1 items of what is not ported yet
 ROADMAP_ITEMS = {
-    "moe": "10a (the moe family)",
     "mla_moe": "10c (the mla_moe family)",
     "encdec": "10d (the encdec and vlm families)",
     "vlm": "10d (the encdec and vlm families)",
@@ -89,9 +89,9 @@ class ModelConfig:
 
     ``family`` selects the forward function:
       dense | moe | mla_moe | ssm | hybrid | encdec | vlm
-    (the port runs ``dense``, ``ssm`` and ``hybrid``).  The fields are the
-    reference's that the port reads; those of the other families
-    (experts, MLA ranks, Whisper's encoder) come with their families,
+    (the port runs ``dense``, ``ssm``, ``hybrid`` and ``moe``).  The
+    fields are the reference's that the port reads; those of the other
+    families (MLA ranks, Whisper's encoder) come with their families,
     and the reference's lowering and survey switches (``scan_unroll``,
     ``parallelism``, ``sync_mode``, ``coordination``) have nothing to
     switch on one card.
@@ -119,6 +119,15 @@ class ModelConfig:
     mlp_gated: bool = True                   # SwiGLU/GeGLU vs plain 2-layer MLP
     pos_emb: str = "rope"                    # rope | learned (whisper)
     embed_scale: bool = False                # gemma: scale embeds by sqrt(d)
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                        # per-expert hidden dim
+    first_dense_layers: int = 0              # deepseek-v3: first 3 layers dense
+    moe_capacity_factor: float = 1.25        # GShard dropping capacity
+    moe_impl: str = "gshard"                 # gshard | ep (expert parallel)
 
     # --- SSM (mamba2 / zamba2) ---
     ssm_state: int = 0
@@ -164,7 +173,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: <=2 layers, d_model<=512."""
+        """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts."""
         kw = dict(
             num_layers=2,
             d_model=256,
@@ -176,6 +185,10 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+        if self.num_experts:
+            kw.update(num_experts=4, experts_per_token=2, moe_d_ff=128,
+                      first_dense_layers=min(self.first_dense_layers, 1),
+                      moe_capacity_factor=8.0)  # drop-free at smoke scale
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=16)
         if self.attn_every:

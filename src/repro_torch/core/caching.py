@@ -31,7 +31,7 @@ exactly the same thing on both paths.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Iterable, Optional, Union
 
 import numpy as np
 
@@ -340,3 +340,15 @@ CACHE_POLICIES = {
     "importance": importance_cache,  # AliGraph
     "random": random_cache,
 }
+
+
+def measure_cache(g: Graph, policy: str, capacity: int,
+                  batches: Iterable[np.ndarray]) -> dict:
+    """Replay input-node id streams from a sampler against a cache policy."""
+    ids = CACHE_POLICIES[policy](g, capacity)
+    store = FeatureStore(g, ids)
+    for b in batches:
+        store.fetch(b)
+    return {"policy": policy, "capacity": capacity,
+            "hit_ratio": store.hit_ratio,
+            "transferred_mb": store.transferred_bytes / 2**20}

@@ -1,5 +1,7 @@
 """Parallelism strategies (survey §3.2.5 / §2.3.1, Tables 2 & 7).
 
+GNN side:
+
 * :func:`p3_layer1` + :func:`make_p3_train_step` — P³'s push-pull hybrid
   [Gandhi & Iyer, OSDI'21]: layer 1 runs *model-parallel over the feature
   dimension* (features never cross the network; only the (N, hidden)
@@ -13,8 +15,16 @@ the matching rows of W1 (:func:`p3_params`), the other parameters
 replicated.  Every aggregation is K1 over the whole graph
 (:func:`~repro_torch.core.propagation.aggregate`).
 
-The reference's ``moe_expert_parallel`` (transformer expert parallelism)
-comes with the ``moe`` family (ROADMAP.md queue 1, item 10a).
+Transformer side:
+
+* :func:`moe_expert_parallel` — expert parallelism over the world's
+  ranks (the reference's ``shard_map`` over its ``model`` axis): rank
+  ``r`` holds experts ``[r·E/n, (r+1)·E/n)`` (:func:`expert_shard`), the
+  activations are replicated, each rank computes only its experts on the
+  tokens routed to them (gather dispatch), and one sum over the ranks
+  (:func:`repro_torch.core.collectives.all_reduce_sum`, in rank order)
+  combines.  The reference's data axis (tokens sharded over the batch)
+  is not ported: the port's world is the model axis alone.
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ from repro_torch.core import collectives as C
 from repro_torch.core import propagation as PR
 from repro_torch.core.abstraction import DeviceGraph
 from repro_torch.graph.structure import Graph
+from repro_torch.models.transformer import layers as TL
+from repro_torch.models.transformer import moe as MOE
 
 
 def feature_slice(feat_dim: int, rank: int, world: int) -> slice:
@@ -181,3 +193,85 @@ def make_p3_train_step(optimizer):
         return total
 
     return train_step
+
+
+# ===========================================================================
+# expert parallelism (transformer MoE)
+# ===========================================================================
+
+_EXPERT_KEYS = ("w_gate", "w_in", "w_out")
+
+
+def expert_slice(num_experts: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s experts of ``num_experts``; raises ``ValueError``
+    unless ``world`` divides ``num_experts`` (the reference's ``P("model",
+    ...)`` cannot split them either)."""
+    if num_experts % world:
+        raise ValueError(f"expert parallelism splits {num_experts} experts "
+                         f"over {world} ranks: {num_experts} % {world} != 0")
+    k = num_experts // world
+    return slice(rank * k, (rank + 1) * k)
+
+
+def expert_shard(cfg, p: dict, rank: int, world: int) -> dict:
+    """One MoE layer's params ``p`` as rank ``rank`` holds them under
+    expert parallelism: its experts' rows of ``w_gate``, ``w_in`` and
+    ``w_out`` (copies, so the full weights can be freed), the router and
+    any shared expert whole."""
+    sl = expert_slice(cfg.num_experts, rank, world)
+    return {k: (v[sl].clone() if k in _EXPERT_KEYS else v)
+            for k, v in p.items()}
+
+
+def _local_expert_compute(cfg, x: torch.Tensor, router, w_gate, w_in, w_out,
+                          capacity_factor: float, first_expert: int
+                          ) -> torch.Tensor:
+    """One rank's partial output: ``x`` (T, D) replicated, the expert
+    weights the rank's ``E_loc`` experts from ``first_expert`` on.  The
+    capacity C is taken over all T tokens, and places are counted in the
+    local experts' queues (a queue belongs to one expert, so they are its
+    places in the whole world).  Only the local experts' contributions
+    are summed here; the caller sums over the ranks."""
+    E, k, T = cfg.num_experts, cfg.experts_per_token, x.shape[0]
+    C = MOE._capacity(T, k, E, capacity_factor)
+    w, idx, _ = MOE.route(cfg, {"router": router}, x)
+    y = MOE.dispatch_combine(cfg, x[None], w[None], idx[None], C, w_gate,
+                             w_in, w_out, first_expert=first_expert)
+    return y[0]
+
+
+def moe_expert_parallel(cfg, p: dict, x: torch.Tensor, *,
+                        capacity_factor: float = 1.25) -> torch.Tensor:
+    """The MoE block under expert parallelism: ``x`` (B, S, D), the same
+    on every rank, -> (B, S, D), the same bits on every rank.
+
+    In a world of n ranks (``torch.distributed`` initialised, as
+    :func:`repro_torch.core.collectives.init_world` does) rank r computes
+    its experts ``[r·E/n, (r+1)·E/n)``; ``p``'s expert weights are either
+    all E experts (the rank takes its rows) or the rank's E/n
+    (:func:`expert_shard`).  The partial outputs are summed over the
+    ranks in rank order.  Without a world it computes
+    ``moe_block_gathered``, as the reference falls back without sharding
+    rules (``core/parallel.py:186-190``)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return MOE.moe_block_gathered(cfg, p, x,
+                                      capacity_factor=capacity_factor)
+    rank, world = C.rank(), C.world_size()
+    sl = expert_slice(cfg.num_experts, rank, world)
+    held = p["w_in"].shape[0]
+    if held == cfg.num_experts:
+        w = [p[k][sl] for k in _EXPERT_KEYS]
+    elif held == sl.stop - sl.start:
+        w = [p[k] for k in _EXPERT_KEYS]
+    else:
+        raise ValueError(f"rank {rank} of {world} holds {held} experts: "
+                         f"neither all {cfg.num_experts} nor its "
+                         f"{sl.stop - sl.start}")
+    B, S, D = x.shape
+    y = _local_expert_compute(cfg, x.reshape(B * S, D), p["router"], *w,
+                              capacity_factor, sl.start)
+    y = C.all_reduce_sum(y).reshape(B, S, D)
+    if cfg.num_shared_experts:
+        y = y + TL.mlp(cfg, x, p["shared"])
+    return y

@@ -363,3 +363,18 @@ class SaintRWSampler:
                 nodes.add(v)
         nodes = np.asarray(sorted(nodes), np.int64)
         return nodes, self.g.subgraph(nodes)
+
+
+def neighborhood_growth(g: Graph, seeds: np.ndarray, hops: int) -> List[int]:
+    """|k-hop neighborhood| per hop — quantifies the 'neighborhood
+    explosion' the survey motivates sampling with (§3.2.2)."""
+    cur = set(np.asarray(seeds).tolist())
+    sizes = [len(cur)]
+    gr = g.reverse()
+    for _ in range(hops):
+        nxt = set(cur)
+        for v in cur:
+            nxt.update(gr.neighbors(v).tolist())
+        cur = nxt
+        sizes.append(len(cur))
+    return sizes

@@ -8,6 +8,10 @@ feeds the prompt through ``decode_step`` one position at a time).
 
 ``--layers N`` cuts the config to its first N layers at its published
 widths (Zamba2-2.7B: a multiple of its ``attn_every``, 6).
+``--capacity-factor`` sets a ``moe`` config's GShard capacity factor for
+both paths: a prefill groups its prompt's tokens and a decode step the
+batch, so at the published 1.25 the two drop different tokens, and only
+a drop-free factor (at least E/k, Granite's 4) compares the paths.
 
 The two paths compute one function by two algorithms (chunked SSD or
 flash attention over the whole prompt; the recurrent update or the
@@ -66,6 +70,9 @@ def parse_args(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to its first N layers, its widths "
                          "kept (default: all)")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="a moe config's capacity factor (default: the "
+                         "config's)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--flip", type=int, default=None,
@@ -89,6 +96,11 @@ def run(argv=None) -> dict:
         cfg = cfg.replace(param_dtype=args.dtype, compute_dtype=args.dtype)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.capacity_factor is not None:
+        if cfg.family != "moe":
+            raise ValueError(f"--capacity-factor: {cfg.name} has no "
+                             f"experts")
+        cfg = cfg.replace(moe_capacity_factor=args.capacity_factor)
     dev = D.resolve(args.device)
     B, S, V = args.batch, args.prompt_len, cfg.vocab_size
     if args.flip is not None and not 0 <= args.flip < S:
@@ -106,6 +118,8 @@ def run(argv=None) -> dict:
     res = gap(lg[:, :V], dl[:, :V])
     res.update(arch=cfg.name, dtype=cfg.compute_dtype, layers=cfg.num_layers,
                d_model=cfg.d_model, batch=B, prompt_len=S, flip=args.flip,
+               capacity_factor=(cfg.moe_capacity_factor
+                                if cfg.family == "moe" else None),
                device=str(dev), seconds=time.perf_counter() - t0)
     return res
 

@@ -1,6 +1,7 @@
-"""The transformer zoo's serving path, ``dense``, ``ssm`` and ``hybrid``
-families (PyTorch port of the reference's ``models/transformer/model.py``):
-init, forward, prefill (forward + cache) and one-token decode.
+"""The transformer zoo's serving path, ``dense``, ``ssm``, ``hybrid`` and
+``moe`` families (PyTorch port of the reference's
+``models/transformer/model.py``): init, forward, prefill (forward +
+cache) and one-token decode.
 
 Params are nested dicts with the reference's keys; ``params["layers"]``
 is a list of per-layer dicts (the reference stacks a leading layer axis
@@ -12,13 +13,15 @@ stacked layout, ``(num_layers, B, C, K, hd)`` for keys and values and
 ``(num_layers, B, H, P, N)`` / ``(num_layers, B, kw-1, Cd)`` for the SSM
 (the hybrid's ``{"ssm": {...}, "attn": {"k", "v"}}`` holds one K/V slot
 per group), and :func:`decode_step` writes them in place (the reference
-donates them).
+donates them).  The ``moe`` family (Granite) is the dense block with the
+MLP replaced by the experts (:func:`_moe`: GShard dispatch, or expert
+parallelism with ``moe_impl="ep"``), with the dense family's K/V cache.
 
 Batch conventions:
   forward / prefill:  {"tokens": (B, S) int}
   decode:             {"token": (B, 1) int, "pos": int}
 
-The other families (``moe``, ``mla_moe``, ``encdec``, ``vlm``) raise
+The other families (``mla_moe``, ``encdec``, ``vlm``) raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -31,12 +34,13 @@ import torch
 from repro_torch.configs.base import PORTED_FAMILIES, not_ported
 from repro_torch.models.transformer import attention as A
 from repro_torch.models.transformer import layers as L
+from repro_torch.models.transformer import moe as MOE
 from repro_torch.models.transformer import ssm as S
 
 
 def _require_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in ("moe", "mla_moe", "encdec", "vlm"):
+        if cfg.family in ("mla_moe", "encdec", "vlm"):
             raise not_ported(f"the {cfg.family!r} family ({cfg.name})",
                              cfg.family, NotImplementedError)
         raise ValueError(f"unknown family {cfg.family!r}")
@@ -66,6 +70,13 @@ def _init_dense_layer(cfg, gen, dtype, device):
             "ln2": L.init_norm(cfg, cfg.d_model, device)}
 
 
+def _init_moe_layer(cfg, gen, dtype, device):
+    return {"attn": A.init_gqa(cfg, gen, dtype, device),
+            "moe": MOE.init_moe(cfg, gen, dtype, device),
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device)}
+
+
 def _init_ssm_layer(cfg, gen, dtype, device):
     return {"ssm": S.init_ssm(cfg, gen, dtype, device),
             "ln": L.init_norm(cfg, cfg.d_model, device)}
@@ -80,7 +91,8 @@ def init_params(cfg, gen: torch.Generator, *,
     dtype = L.dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {"embed": L.init_embed(cfg, gen, dtype, device),
                               "ln_f": L.init_norm(cfg, cfg.d_model, device)}
-    layer = _init_dense_layer if cfg.family == "dense" else _init_ssm_layer
+    layer = {"dense": _init_dense_layer, "moe": _init_moe_layer}.get(
+        cfg.family, _init_ssm_layer)
     params["layers"] = [layer(cfg, gen, dtype, device)
                         for _ in range(cfg.num_layers)]
     if cfg.family == "hybrid":
@@ -166,11 +178,33 @@ def _index(tree, i):
 # layer bodies
 # ===========================================================================
 
+def _moe(cfg, p, x):
+    """The experts of one ``moe`` layer: GShard dispatch
+    (:func:`~repro_torch.models.transformer.moe.moe_block`), or with
+    ``cfg.moe_impl == "ep"`` expert parallelism over the ranks of a
+    world (:func:`repro_torch.core.parallel.moe_expert_parallel`, which
+    without a world computes the gathered single-device block, as the
+    reference's does without sharding rules)."""
+    if cfg.moe_impl == "ep":
+        from repro_torch.core.parallel import moe_expert_parallel
+        return moe_expert_parallel(cfg, p, x,
+                                   capacity_factor=cfg.moe_capacity_factor)
+    return MOE.moe_block(cfg, p, x)
+
+
+def _ffn(cfg, p, h):
+    """The feed-forward half of an attention block: the experts in a
+    ``moe`` layer, the MLP in any other."""
+    if cfg.family == "moe":
+        return _moe(cfg, p["moe"], h)
+    return L.mlp(cfg, h, p["mlp"])
+
+
 def _dense_body(cfg, x, p, positions):
     h = L.apply_norm(cfg, x, p["ln1"])
     x = x + A.gqa_forward(cfg, p["attn"], h, positions)
     h = L.apply_norm(cfg, x, p["ln2"])
-    return x + L.mlp(cfg, h, p["mlp"])
+    return x + _ffn(cfg, p, h)
 
 
 def _ssm_body(cfg, x, p):
@@ -190,7 +224,7 @@ def _dense_prefill(cfg, x, p, positions, cache, i):
                               window=cfg.sliding_window, return_kv=True)
     x = x + o
     hh = L.apply_norm(cfg, x, p["ln2"])
-    x = x + L.mlp(cfg, hh, p["mlp"])
+    x = x + _ffn(cfg, p, hh)
     cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
     cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
     return x
@@ -212,7 +246,7 @@ def forward(cfg, params, batch) -> torch.Tensor:
     _require_family(cfg)
     x = L.embed(cfg, params["embed"], batch["tokens"])
     positions = _positions(batch["tokens"])
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for p in params["layers"]:
             x = _dense_body(cfg, x, p, positions)
     else:
@@ -277,7 +311,7 @@ def decode_step(cfg, params, cache, batch):
     _require_family(cfg)
     pos = int(batch["pos"])
     x = L.embed(cfg, params["embed"], batch["token"])
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for i, p in enumerate(params["layers"]):
             x = _dense_decode(cfg, x, p, cache, i, pos)
     elif cfg.family == "ssm":
@@ -301,7 +335,7 @@ def _dense_decode(cfg, x, p, cache, i, pos):
                            pos, window=cfg.sliding_window)
     x = x + o
     hh = L.apply_norm(cfg, x, p["ln2"])
-    return x + L.mlp(cfg, hh, p["mlp"])
+    return x + _ffn(cfg, p, hh)
 
 
 def _ssm_decode(cfg, x, p, cache, i):
@@ -330,7 +364,7 @@ def prefill(cfg, params, batch):
     x = L.embed(cfg, params["embed"], tokens)
 
     positions = _positions(tokens)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         cache = init_cache(cfg, B, Ssz, device=tokens.device)
         for i, p in enumerate(params["layers"]):
             x = _dense_prefill(cfg, x, p, positions, cache, i)

@@ -47,7 +47,12 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'core.collectives', 'core.propagation',\n"
         "             'core.coordination', 'distributed',\n"
         "             'distributed.pipeline', 'distributed.async_train',\n"
-        "             'distributed.sampler', 'core.parallel'):\n"
+        "             'distributed.sampler', 'core.parallel',\n"
+        "             'models.transformer.moe',\n"
+        "             'configs.granite_moe_1b_a400m', 'examples',\n"
+        "             'examples.quickstart', 'examples.serve_gnn',\n"
+        "             'examples.serve_batched',\n"
+        "             'examples.distributed_gnn'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

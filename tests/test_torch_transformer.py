@@ -33,7 +33,7 @@ from repro_torch.models.transformer import ssm as S
 TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ("phi3-mini-3.8b", "mamba2-780m", "qwen2.5-14b", "gemma-7b",
-         "glm4-9b", "zamba2-2.7b")
+         "glm4-9b", "zamba2-2.7b", "granite-moe-1b-a400m")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,7 +94,7 @@ def test_config_copies_the_published_numbers(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("granite-moe-1b-a400m", "10a"), ("deepseek-v3-671b", "10c"),
+    ("deepseek_v3_671b", "10c"), ("deepseek-v3-671b", "10c"),
     ("whisper-tiny", "10d"), ("qwen2-vl-7b", "10d")])
 def test_unported_archs_name_their_roadmap_item(arch, item):
     with pytest.raises(SystemExit, match=f"item {item}"):
@@ -104,8 +104,9 @@ def test_unported_archs_name_their_roadmap_item(arch, item):
 
 
 def test_unported_family_in_the_model_names_its_item():
-    cfg = base.get_config("phi3-mini-3.8b").reduced().replace(family="moe")
-    with pytest.raises(NotImplementedError, match="item 10a"):
+    cfg = base.get_config("phi3-mini-3.8b").reduced().replace(
+        family="mla_moe")
+    with pytest.raises(NotImplementedError, match="item 10c"):
         M.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10d"):
         L.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2), 1e4,
@@ -347,7 +348,8 @@ def test_params_from_numpy_and_param_count(arch, models):
     own = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert M.param_count(own) == M.param_count(params)
     np.testing.assert_array_equal(
-        _np(params["layers"][1]["ln1" if cfg.family == "dense" else "ln"]
+        _np(params["layers"][1]["ln1" if cfg.family in ("dense", "moe")
+                                else "ln"]
             ["scale"]), np.ones(cfg.d_model, np.float32))
     bad = jax.tree.map(np.asarray, rparams)
     bad["ln_f"] = {"weight": bad["ln_f"]["scale"]}
@@ -502,8 +504,8 @@ def test_serve_main_on_cpu(arch, capsys):
 def test_serve_refusals():
     with pytest.raises(SystemExit, match="whisper_vlm_smoke"):
         serve.main(["--arch", "whisper-tiny", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 10a"):
-        serve.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 10c"):
+        serve.main(["--arch", "deepseek-v3-671b", "--device", "cpu"])
 
 
 def test_serve_device_cuda_raises_without_a_card():

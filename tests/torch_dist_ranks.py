@@ -175,3 +175,26 @@ def p3_grads(rank, world, dev, *, params0):
     before = grads()
     PR.sum_grads_and_loss(model, loss, keep=(model[0].w,))
     return {"before": before, "after": grads()}
+
+
+def moe_ep_run(rank, world, dev, *, cfg, params, x, capacity_factor):
+    """One MoE block under expert parallelism: ``params`` the layer's full
+    parameters as numpy (each rank keeps its experts' rows,
+    ``parallel.expert_shard``), ``x`` (B, S, D) the same on every rank.
+    Returns the rank's output and how many experts it held."""
+    p = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in params.items()}
+    p = PL.expert_shard(cfg, p, rank, world)
+    y = PL.moe_expert_parallel(cfg, p, torch.from_numpy(x).to(dev),
+                               capacity_factor=capacity_factor)
+    return {"y": y.cpu().numpy(), "experts": int(p["w_in"].shape[0])}
+
+
+def moe_ep_forward(rank, world, dev, *, cfg, tree, tokens):
+    """A whole ``moe`` model's forward with ``moe_impl="ep"`` in the
+    world: every rank holds all parameters and takes its experts' rows.
+    Returns the logits."""
+    from repro_torch.models.transformer import model as TM
+    params = TM.params_from_numpy(cfg, tree, device=dev)
+    logits = TM.forward(cfg, params, {"tokens": torch.from_numpy(
+        tokens).to(dev)})
+    return {"logits": logits.cpu().numpy()}
