@@ -10,14 +10,15 @@ Phases, in order; any failure makes the exit code nonzero:
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all in parallel) and time the build; ptxas's registers and
    spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
-   SASS and in K8's (``cuobjdump -sass``: nonzero in each of the eight K7
-   kernels, bf16 and float32 at each tile width, 64, 96, 128 and 256, in
-   K8's two bf16 kernels, N 64 and 128, and in its float32 kernel, which
-   takes both, with no spills in any of them); each head width of
-   ``HEAD_DIMS`` and each K8 width in each dtype runs on one of those
-   instances (hd 80 on the hd-96 one, printed per width with its HGMMA
-   count); each ``launch_plan``'s shared memory equals what its kernel
-   asks for, hd 80's included;
+   SASS and in K8's (``cuobjdump -sass``: nonzero in each of the ten K7
+   kernels, bf16 and float32 at each tile width pair, (64, 64), (96,
+   96), (128, 128), (256, 256) and MLA's (192, 128), in K8's two bf16
+   kernels, N 64 and 128, and in its float32 kernel, which takes both,
+   with no spills in any of them); each width pair of ``WIDTH_PAIRS`` and
+   each K8 width in each dtype runs on one of those instances (hd 80 on
+   the hd-96 one, printed per pair with its HGMMA count); each
+   ``launch_plan``'s shared memory equals what its kernel asks for, hd
+   80's and (192, 128)'s included;
 2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
    GAT attention) at the full-width shapes of the GraphSAGE-Reddit
    serving path plus edge cases: max abs error against its plain PyTorch
@@ -68,7 +69,7 @@ Phases, in order; any failure makes the exit code nonzero:
    GCN's two large products;
 7. mini-batch GraphSAGE at Reddit's widths: ``--batch 1024 --epochs 1
    --cache degree`` with ``--wire-codec fp32`` and then ``int8
-   --use-kernel``, each for 40 of the epoch's 227 steps (``train_gnn.run``'s
+   --use-kernel``, each for 30 of the epoch's 227 steps (``train_gnn.run``'s
    ``steps_per_epoch``; wire rows into K4); K4 launches once per int8
    step and never under fp32; step time, cache hit ratio, fetched MiB and the loss trend;
 11. (run after phase 7) locality reordering, the dataset registry, the
@@ -87,7 +88,7 @@ Phases, in order; any failure makes the exit code nonzero:
    event folded, then the updated server against a cold one built on the
    folded graph within 1e-5; (e) mini-batch SAGE with ``--sampler
    importance`` (over a sixteenth of the nodes), ``fastgcn`` and
-   ``ladies`` (40 steps each): falling loss, K1's launches as phase 7's
+   ``ladies`` (30 steps each): falling loss, K1's launches as phase 7's
    fp32 run, K1's plan searches and host time a launch; (f) ``train_gnn
    --dataset pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like``
    (SAGE);
@@ -143,7 +144,7 @@ Phases, in order; any failure makes the exit code nonzero:
    its cache (grown by 32 slots), exactly 32 K7 launches (bf16 route;
    the float32 prefill below, 32 of the float32 route), finite logits,
    prefill against the decode-only loop at full depth over the prompts'
-   first 256 positions (``LM_CMP_BY_ARCH``, through a prefill of that
+   first 128 positions (``LM_CMP_BY_ARCH``, through a prefill of that
    length) in float32 (two prompts, within 1e-3 of the largest logit;
    Mamba2 3e-3) and in bf16 (all 8, RMS ratio bound), prefill and
    decode tok/s, peak memory; (c)
@@ -159,7 +160,7 @@ Phases, in order; any failure makes the exit code nonzero:
    bf16, random weights: a prefill of 8 x 1024 with exactly one K7 launch
    (bf16 route) a layer, 32 decode steps in its grown cache, finite
    logits, tok/s and peak memory; float32 prefill against the decode-only
-   loop over 2 x 512 tokens on a 4-layer cut at full width (1e-3 of the
+   loop over 2 x 256 tokens on a 4-layer cut at full width (1e-3 of the
    largest logit, K7's float32 route once a layer); a 2-layer float32 cut
    on the card and the CPU as in 9(d).  Full depth in float32 is left
    out: Qwen2.5-14B's float32 weights (about 59 GB) do not fit beside
@@ -186,7 +187,7 @@ Phases, in order; any failure makes the exit code nonzero:
    exactly 24 K7 launches (bf16 route), 32 decode steps in its grown
    cache launching none, finite logits, tok/s and peak memory; (c)
    float32 on a 6-layer cut through ``launch/prefill_gap.py --layers 6
-   --capacity-factor 8.0`` (drop-free on both sides) over 2 x 512 tokens
+   --capacity-factor 8.0`` (drop-free on both sides) over 2 x 256 tokens
    within 1e-3 of the largest logit, K7's float32 route once a layer,
    its ``--flip`` control above the bound; (d) ``torch.profiler`` splits
    of one prefill and one decode step by the moe module's functions
@@ -200,7 +201,32 @@ Phases, in order; any failure makes the exit code nonzero:
    ``core/parallel.moe_expert_parallel`` with 8 experts a rank: within
    1e-5 of the single card's ``moe_block_gathered``, every rank's output
    bitwise equal, ms and bytes a rank;
-17. (run after 16, before 14) the port's four examples as ``python -m
+18. (run after 16, before 17) serve DeepSeek-V3 (the mla_moe family:
+   MLA with q_lora 1536, kv_lora 512, 128 heads of q/k 192 = 128 + 64
+   rotary and v 128; 256 experts of width 2 048, top 8, one shared
+   expert; the first 3 layers dense, FFN 18 432; vocab 129 280) at its
+   published widths: (a) K7 at (192, 128) against its plain version in
+   bf16 (element by element, as phase 8) and float32 (1e-4 of the
+   largest value) at the prefill shape (8 x 1024, 128 / 128 heads,
+   causal), Sq 64 against Skv 1056 and a window of 256, each timed beside
+   its bound and ``scaled_dot_product_attention``'s time (the backend it
+   picks named from its kernels), and at small ragged shapes; (b) bf16 on
+   a cut of the 3 dense and 2 MoE layers (5 of 61, about 53 GB; the
+   published depth does not fit a card), weights drawn on the card: a
+   prefill of 8 x 1024 at factor 1.25 with exactly one K7 launch (bf16
+   route) a layer, 32 decode steps (the absorbed latent attention) in its
+   grown latent cache launching none, tok/s and peak memory, and a
+   ``torch.profiler`` split of the prefill (MLA projections, K7, the
+   moe module's functions, the rest); (c) float32 prefill against the
+   decode-only loop through ``launch/prefill_gap.py --layers 2`` (1 dense
+   + 1 MoE layer) over 2 x 256 tokens at the drop-free factor 32, within
+   1e-3 of the largest logit, K7's float32 route once a layer, its
+   ``--flip`` control (the last token changed) above 0.1; (d) the first
+   dense MLA block at full
+   width in float32 (weights drawn on the CPU), 1 x 256 tokens, on the
+   card and the CPU within 1e-4 of the largest output; (e) the serving
+   launcher's decode-only loop at ``--reduced``, no K7 launch;
+17. (run after 18, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
    seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
    side, then ``distributed_gnn``: three runs in a world of 8 ranks,
@@ -216,7 +242,7 @@ Phases, in order; any failure makes the exit code nonzero:
    and pull against the same GCN in float64 through the plain versions
    on the card) and two wrong paths (pull with its gathered rows in
    bf16, pull without one rank's gradient), which must exceed the
-   bound; every synchronous mode and async S 0 under 10 SGD steps
+   bound; every synchronous mode and async S 0 under 5 SGD steps
    against the card's single-card GCN within 1e-5; every rank's
    parameters bitwise equal; (b) every rank launches K1 and K1ᵀ exactly
    once an epoch each at 256 and at 41 columns (the wrapper counts by
@@ -288,9 +314,9 @@ EVAL_LAUNCHES = {"gcn": {"gather_scale_segment_sum": 2},
 MB_BATCH = 1024
 # phase 7's runs and phase 11(e)'s layer-wise samplers: a fixed number of
 # steps (reduced from the epoch's 227 for time: int8's steps are 0.37-0.46
-# s of host encoding; 60 from PR 20, 40 and fp32 and the samplers from PR
-# 24, for phases 16-17)
-MB_STEPS = 40
+# s of host encoding; cut to 60, then 40, then 30 as phases 16-18 came,
+# PERF.md section 7)
+MB_STEPS = 30
 
 failures: list = []
 # seconds each phase took, by name (written to chiprun_out/chip_smoke.json
@@ -491,7 +517,7 @@ def phase_build(torch, results):
                   or "wgmma" in line.lower()):
                 print(f"   ptxas {name} {fn}: {line.strip()}")
                 ptxas.setdefault(fn, []).append(line.strip())
-    # every K7 kernel (bf16 and float32, four tile widths each), K8's
+    # every K7 kernel (bf16 and float32, five tile width pairs each), K8's
     # bf16 kernels (N 64 and 128) and its float32 kernel (both widths, 64
     # state columns a block) run on the tensor cores: their SASS holds
     # HGMMA, and ptxas spills nothing in them
@@ -502,33 +528,36 @@ def phase_build(torch, results):
     results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
     tc = {k: n for k, n in hgmma.items()
           if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32"))}
-    require(len(tc) == 11 and all(tc.values()),
-            f"HGMMA in each of the eight K7 kernels, K8's two bf16 kernels "
+    require(len(tc) == 13 and all(tc.values()),
+            f"HGMMA in each of the ten K7 kernels, K8's two bf16 kernels "
             f"and its float32 kernel: {tc}")
     spills = {k: v for k, v in ptxas.items() if k in tc and any(
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
     require(not spills, f"no ptxas spills in the tensor-core kernels: "
             f"{spills}")
     # each launch_plan states the shared memory its kernel asks for, and
-    # each head width runs on a built instance (hd 80 on the hd-96 one)
+    # each width pair runs on a built instance (hd 80 on the hd-96 one)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
     smem, instances = {}, {}
-    for hd in fa.HEAD_DIMS:
+    for hd, hd_v in fa.WIDTH_PAIRS:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, 1, 64, hd, dtype=dtype)
-            plan = fa.launch_plan(q, q, q, q)
-            inst = f"{plan['kernel']}[{plan['tile_width']}]"
-            instances[f"hd {hd}, {dtype}"] = (inst, hgmma.get(inst, 0))
-            smem[f"flash_attention[{hd}, {dtype}]"] = (
+            v = torch.zeros(1, 1, 64, hd_v, dtype=dtype)
+            plan = fa.launch_plan(q, q, v, v)
+            inst = (f"{plan['kernel']}[{plan['tile_width']},"
+                    f"{plan['tile_width_v']}]")
+            instances[f"({hd}, {hd_v}), {dtype}"] = (inst,
+                                                     hgmma.get(inst, 0))
+            smem[f"flash_attention[{hd}, {hd_v}, {dtype}]"] = (
                 plan["smem_bytes"],
                 build.library("flash_attention").flash_attention_smem(
-                    hd, int(dtype == torch.bfloat16)))
-    print("   K7 instance (HGMMA count) per head width: "
+                    hd, hd_v, int(dtype == torch.bfloat16)))
+    print("   K7 instance (HGMMA count) per width pair: "
           + json.dumps(instances), flush=True)
     results["build"]["k7_instances"] = instances
     require(all(i in tc and i not in spills for i, _ in instances.values()),
-            f"every head width runs on a built tensor-core instance with "
+            f"every width pair runs on a built tensor-core instance with "
             f"HGMMA and no spills: {instances}")
     k8 = {}
     for N in sc.TC_NS:
@@ -2196,11 +2225,12 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 # passed between chunks is checked, and four of K7's 128-key tiles, at
 # half the decode steps of the whole prompt
 LM_CMP_PROMPT = 512
-# phases 9, 10 and 13 compare over 256 positions (two of K7's key tiles;
-# one of Mamba2's SSD chunks, whose state passing phase 15 checks), for
-# time (from PR 24: phases 16 and 17 need it; 512 before, 1024 before PR
-# 21)
-LM_CMP_BY_ARCH = {PHI3: 256, MAMBA2: 256, **{a: 256 for a in ZOO}}
+# phase 13 compares over 256 positions (two of K7's key tiles), phases 9
+# and 10 over 128 (one key tile; half of Mamba2's SSD chunk: phase 15
+# checks the state passed between chunks, phase 8 K7's walk over many
+# tiles), for time (cut from 1024 to 512, 256 and 128 as phases 15-18
+# came, PERF.md section 7)
+LM_CMP_BY_ARCH = {PHI3: 128, MAMBA2: 128, **{a: 256 for a in ZOO}}
 # the configs phases 9 and 10 serve: empty, the published ones (32 and 48
 # layers, one K7 or K8 launch each per prefill).  A rehearsal off the card
 # puts small configs here and cuts LM_BATCH, LM_PROMPT, LM_GEN; the
@@ -2259,18 +2289,20 @@ ZAMBA2_FP32_LAYERS = 12
 ZAMBA2_REFERENCE_GAP = {"layers 12": 1.4749537658159388e-4}
 
 
-def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
+def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, hd_v=None, window=0,
             causal=True, dtype=None, timed=True):
     """K7 on (B, S, H, hd) tensors passed as (B, H, S, hd) views, as the
-    model passes them, against its plain version; the library call is
-    ``scaled_dot_product_attention`` with the same mask."""
+    model passes them (v ``hd_v`` wide, by default ``hd``), against its
+    plain version; the library call is ``scaled_dot_product_attention``
+    with the same mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     dtype = dtype or torch.bfloat16
+    hd_v = hd_v or hd
     q = c.randn(B, Sq, H, hd).to(dtype).transpose(1, 2)
     k = c.randn(B, Skv, K, hd).to(dtype).transpose(1, 2)
-    v = c.randn(B, Skv, K, hd).to(dtype).transpose(1, 2)
+    v = c.randn(B, Skv, K, hd_v).to(dtype).transpose(1, 2)
     qpos = torch.arange(Sq, device=c.dev)[:, None] + (Skv - Sq)
     kpos = torch.arange(Skv, device=c.dev)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=c.dev)
@@ -2292,8 +2324,9 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, window=0,
                           window=window), (q, k, v), timed=timed,
         library=lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=H != K, **sdpa_kw),
-        bytes_=q.element_size() * (2 * B * H * Sq * hd + 2 * B * K * Skv * hd),
-        flops=4.0 * B * H * pairs * hd, flush=c.flush,
+        bytes_=q.element_size() * (B * H * Sq * (hd + hd_v)
+                                   + B * K * Skv * (hd + hd_v)),
+        flops=2.0 * B * H * pairs * (hd + hd_v), flush=c.flush,
         rel=BF16_ATOL_REL if bf16 else 1e-4,
         elem_rel=BF16_ULP_REL if bf16 else None, elem_abs=p_term,
         peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
@@ -2510,9 +2543,10 @@ def phase_lm_kernels(torch, results):
 def _with_room(torch, cache, n):
     """prefill's cache (the prompt's S positions, as the reference's) with
     ``n`` zero slots more for the decode steps that follow, wherever it
-    holds keys and values (the hybrid's nested ``attn``); an SSM cache
-    holds no positions."""
-    if "k" not in cache:
+    holds keys and values (the hybrid's nested ``attn``) or latents
+    (mla_moe's ``{"c", "kr"}`` of each stack); an SSM cache holds no
+    positions."""
+    if "k" not in cache and "c" not in cache:
         return {k: _with_room(torch, c, n) if isinstance(c, dict) else c
                 for k, c in cache.items()}
     return {k: torch.cat([c, c.new_zeros(c.shape[:2] + (n,) + c.shape[3:])],
@@ -2617,7 +2651,7 @@ def lm_phase(torch, arch, results):
     loop; (b) prefill of LM_BATCH x LM_PROMPT tokens and LM_GEN decode
     steps from its cache with exactly one K7 (Phi-3) or K8 (Mamba2)
     launch per layer, and prefill against the decode-only loop at full
-    depth over the prompts' first 256 positions, in float32
+    depth over the prompts' first LM_CMP_BY_ARCH positions, in float32
     (two prompts) and in bf16 (all LM_BATCH); (c) a profile of one
     prefill; (d) a 2-layer float32 cut on the card and on the CPU."""
     from repro_torch.configs.base import get_config
@@ -2954,6 +2988,9 @@ GRANITE_FREE_CF = 8.0
 # each of its two runs (prefill and 512 decode steps) took 29 s, and 12
 # layers still put chip_smoke.py at 957 s (PR 24)
 GRANITE_FP32_LAYERS = 6
+# and over 2 x GRANITE_CMP_PROMPT tokens (two of K7's key tiles; cut
+# from LM_CMP_PROMPT's 512 for phase 18's time)
+GRANITE_CMP_PROMPT = 256
 # 16(f), in phase 14's world: one Granite MoE block, 8 x 1024 tokens in
 # float32, its 32 experts split over the ranks
 EP_BATCH, EP_SEQ = 8, 1024
@@ -2967,41 +3004,45 @@ LM_FP32_REL[GRANITE] = 1e-3
 LM_CUT[GRANITE] = (2, 256)
 
 
-def moe_profile(torch, label, step, wall_s) -> dict:
+def moe_profile(torch, label, step, wall_s, regions=None) -> dict:
     """Device time of one ``step`` of a ``moe`` model split by the moe
     module's functions (:data:`MOE_REGIONS`, each labelled with a
-    ``record_function`` for the profile only) and, within each, by
-    :func:`kernel_kind`; the rest of the step by kernel kind alone.  A
-    kernel belongs to the innermost labelled function that launched it;
-    the kernels no PyTorch operator launched (the port's, through
-    ``ctypes``: K7) are split by kind apart, from the profile's device
-    rows.  The largest kernels of each part are listed."""
+    ``record_function`` for the profile only; ``regions``, as (module,
+    function name, description) triples, labels others too) and, within
+    each, by :func:`kernel_kind`; the rest of the step by kernel kind
+    alone.  A kernel belongs to the innermost labelled function that
+    launched it; the kernels no PyTorch operator launched (the port's,
+    through ``ctypes``: K7) are split by kind apart, from the profile's
+    device rows.  The largest kernels of each part are listed."""
     from repro_torch.models.transformer import moe as MOE
-    saved = {n: getattr(MOE, n) for n in MOE_REGIONS}
+    if regions is None:
+        regions = [(MOE, n, d) for n, d in MOE_REGIONS.items()]
+    saved = [(mod, n, getattr(mod, n)) for mod, n, _ in regions]
+    names = {f"region.{i}": d for i, (_, _, d) in enumerate(regions)}
 
     def labelled(fn, name):
         @functools.wraps(fn)
         def run(*a, **kw):
-            with torch.profiler.record_function(f"moe.{name}"):
+            with torch.profiler.record_function(name):
                 return fn(*a, **kw)
         return run
 
     try:
-        for n, fn in saved.items():
-            setattr(MOE, n, labelled(fn, n))
+        for i, (mod, n, fn) in enumerate(saved):
+            setattr(mod, n, labelled(fn, f"region.{i}"))
         prof = profile_active_step(torch, step)
     finally:
-        for n, fn in saved.items():
-            setattr(MOE, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
     split: dict = {}
     by_name: dict = {}                 # (part, kernel): ms
     for e in prof.events():
         if not e.kernels:
             continue
-        region, p = "outside the experts", e
+        region, p = "the rest", e
         while p is not None:
-            if p.name.startswith("moe.") and p.name[4:] in MOE_REGIONS:
-                region = MOE_REGIONS[p.name[4:]]
+            if p.name in names:
+                region = names[p.name]
                 break
             p = p.cpu_parent
         for kern in e.kernels:
@@ -3097,8 +3138,8 @@ def phase_granite(torch, results):
     cache launching nothing, at the published capacity factor 1.25; (c)
     float32 on a GRANITE_FP32_LAYERS-layer cut through
     ``launch/prefill_gap.py --capacity-factor 8.0``
-    (drop-free on both sides) over 2 x LM_CMP_PROMPT tokens, within 1e-3
-    of the largest logit, K7's float32 route once a layer, and its
+    (drop-free on both sides) over 2 x GRANITE_CMP_PROMPT tokens, within
+    1e-3 of the largest logit, K7's float32 route once a layer, and its
     ``--flip`` control above the bound; (d) a profile of one prefill and
     one decode step split by :func:`moe_profile`; (e) a 2-layer float32
     cut at full width and factor 1.25 on the card and the CPU
@@ -3159,7 +3200,7 @@ def phase_granite(torch, results):
         profile=profile)
 
     # (c) float32 prefill against the decode-only loop, drop-free
-    S_cmp = min(LM_CMP_PROMPT, LM_PROMPT)
+    S_cmp = min(GRANITE_CMP_PROMPT, LM_PROMPT)
     layers = GRANITE_FP32_LAYERS
     flags = ["--arch", GRANITE, "--dtype", "float32", "--layers",
              str(layers), "--capacity-factor", str(GRANITE_FREE_CF),
@@ -3203,6 +3244,232 @@ def phase_granite(torch, results):
             f"every expert-set flip lies within the card-vs-CPU logit "
             f"difference of a tie: {fl}")
     results[f"lm.{GRANITE}"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the mla_moe family, DeepSeek-V3 (MLA, 256 experts, top 8)
+# ---------------------------------------------------------------------------
+
+DSV3 = "deepseek-v3-671b"
+# 18(b): the bf16 cut served at full width: the published 3 dense layers
+# and 2 MoE layers, 5 of 61 (about 53 GB of weights; the published depth,
+# about 1.3 TB in bf16, does not fit a card)
+DSV3_LAYERS = 5
+# 18(c): float32 prefill against the decode-only loop on a cut of 1 dense
+# + 1 MoE layer (about 55 GB), over 2 x 256 tokens at the drop-free
+# factor E/k = 32 (a prefill's one group of 512 tokens has C = 512, its
+# float32 expert buffers about 11 GB); the control, the decode loop
+# reading the prompt's last token changed, must move the logits by more
+# than DSV3_FLIP_MIN of the largest (a token further back reaches the
+# last position only through two attention layers over 256 positions: 8
+# back, it moved a 1024-wide float32 cut's logits by 0.14 of the largest
+# on a CPU, too near the floor)
+DSV3_FP32_LAYERS, DSV3_CMP_PROMPT, DSV3_FREE_CF = 2, 256, 32.0
+DSV3_FLIP_MIN = 0.1
+LM_FP32_REL[DSV3] = 1e-3
+# 18(d): the first dense MLA block at full width in float32 on the card and
+# the CPU, over 1 x DSV3_BLOCK_TOKENS tokens (the full cut does not fit the
+# host's memory)
+DSV3_BLOCK_TOKENS = 256
+
+
+def sdpa_backend(torch, fn) -> dict:
+    """The backend ``scaled_dot_product_attention`` picks for the call
+    ``fn`` makes, read from the device kernels one call launches: flash,
+    efficient (memory-efficient), cudnn, math (kernels, none of them a
+    fused one), or "not seen" where the profile holds no device row."""
+    names = [e.key for e in device_rows(profile_active_step(torch, fn))]
+    low = " ".join(names).lower()
+    backend = ("not seen" if not names else
+               "cudnn" if "cudnn" in low else
+               "flash" if "flash" in low else
+               "efficient" if ("fmha" in low or "efficient" in low
+                               or "mem_eff" in low) else "math")
+    return {"backend": backend, "kernels": [n[:80] for n in names[:4]]}
+
+
+def mla_k7_cases(torch, cfg, results) -> dict:
+    """18(a): K7 at MLA's (q/k, v) widths against its plain version at
+    the served prefill's shape, Sq 64 against Skv LM_PROMPT + LM_GEN and a
+    window of 256, in bf16 and float32, each timed beside its bound and
+    SDPA's time (the backend SDPA picks, by dtype, from its kernels at the
+    prefill shape); then small ragged shapes (G 2, non-causal, a window of
+    40), untimed."""
+    import torch.nn.functional as F
+    c = Checker(torch, seed=18)
+    H = cfg.num_heads
+    hd, hd_v = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    S, Bsz, Sd = LM_PROMPT, LM_BATCH, LM_PROMPT + LM_GEN
+    name = f"K7 {cfg.name} MLA ({hd}, {hd_v})"
+    cases = (("", f"{name} prefill (B {Bsz}, S {S}, {H} / {H} heads, "
+                  f"causal)", (Bsz, H, H, S, S), {}),
+             (".sq_lt_skv", f"{name}, Sq 64 < Skv {Sd}", (Bsz, H, H, 64, Sd),
+              {}),
+             (".window", f"{name} prefill shape, window 256",
+              (Bsz, H, H, S, S), {"window": 256}))
+    out = {}
+    for dname, dtype, counter in (("bf16", torch.bfloat16, "flash_attention"),
+                                  ("float32", torch.float32,
+                                   "flash_attention_fp32")):
+        for key, label, shape, kw in cases:
+            r = k7_case(torch, c, f"{label}, {dname}", *shape, hd,
+                        hd_v=hd_v, dtype=dtype, **kw)
+            results[f"{counter}.{DSV3}{key}"] = r
+        q = c.randn(Bsz, S, H, hd).to(dtype).transpose(1, 2)
+        v = c.randn(Bsz, S, H, hd_v).to(dtype).transpose(1, 2)
+        out[f"sdpa_{dname}"] = sdpa_backend(torch, lambda: (
+            F.scaled_dot_product_attention(q, q, v, is_causal=True)))
+        results[f"{counter}.{DSV3}"]["library_backend"] = \
+            out[f"sdpa_{dname}"]["backend"]
+        print(f"   SDPA at the prefill shape, {dname}: "
+              + json.dumps(out[f"sdpa_{dname}"]), flush=True)
+        del q, v
+        for args, kw in (((f"{name}, G 2, S 200", 2, 8, 4, 200, 200), {}),
+                         ((f"{name}, non-causal, Sq 48 < Skv 96", 2, 4, 4,
+                           48, 96), {"causal": False}),
+                         ((f"{name}, window 40, S 130", 1, 4, 2, 130, 130),
+                          {"window": 40})):
+            k7_case(torch, c, f"{args[0]}, {dname}", *args[1:], hd,
+                    hd_v=hd_v, dtype=dtype, timed=False, **kw)
+    return out
+
+
+def mla_block_parity(torch, cfg) -> dict:
+    """18(d): the first dense MLA block (``_mla_body`` with the dense
+    FFN) at full width in float32, its weights drawn on the CPU, on the
+    card (K7's float32 route, once) and on the CPU over the same 1 x
+    DSV3_BLOCK_TOKENS inputs: within 1e-4 of the largest CPU output."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import model as M
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    T = DSV3_BLOCK_TOKENS
+    p_cpu = M._init_mla_dense_layer(c32, torch.Generator().manual_seed(3),
+                                    torch.float32, "cpu")
+    x = torch.randn(1, T, c32.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    pos = torch.arange(T)[None]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = M._mla_body(c32, x, p_cpu, pos)
+        cpu_s = time.perf_counter() - t0
+        p_dev = _to_cuda(p_cpu)
+        ops.reset_launch_counts()
+        got = M._mla_body(c32, x.cuda(), p_dev, pos.cuda()).cpu()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    res = {"tokens": T, "max_abs_err": err, "max_abs_cpu": scale,
+           "cpu_s": cpu_s, "launches": counts}
+    print(f"   (d) the first dense MLA block, float32, 1 x {T}, card vs CPU: "
+          + json.dumps(res), flush=True)
+    require(counts == {"flash_attention_fp32": 1},
+            f"the block launches K7's float32 route once: {counts}")
+    require(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale,
+            f"the dense MLA block, card vs CPU: {err} (max|cpu| {scale})")
+    return res
+
+
+@phase("18. serve DeepSeek-V3 (mla_moe) at full width, bf16")
+def phase_deepseek(torch, results):
+    """The mla_moe family through K7 at (192, 128): (a) K7's cases
+    (:func:`mla_k7_cases`); (b) bf16 on a DSV3_LAYERS-layer cut at full
+    width (``serve_full_depth``): K7's bf16 route exactly once a layer in
+    a prefill, none in the decode steps, and a profile of the prefill
+    split into the MLA blocks' own work (``attention.mla_forward``: the
+    projections, the latent's norm and RoPE, the decompression; K7 apart,
+    launched through ctypes), the moe module's functions and the rest;
+    (c) float32 prefill against the decode-only loop through
+    ``launch/prefill_gap.py --layers DSV3_FP32_LAYERS --capacity-factor
+    32`` over 2 x DSV3_CMP_PROMPT tokens within LM_FP32_REL of the
+    largest logit, K7's float32 route once a layer, and its ``--flip``
+    control above DSV3_FLIP_MIN; (d) the first dense MLA block on the card
+    and the CPU (:func:`mla_block_parity`); (e) the serving launcher's
+    decode-only loop at ``--reduced`` (no K7 launch)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prefill_gap, serve
+    from repro_torch.models.transformer import attention as A
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer import moe as MOE
+    dev = torch.device("cuda")
+    cfg = LM_CONFIGS.get(DSV3) or get_config(DSV3)
+    reduced = ["--reduced"] if DSV3 in LM_CONFIGS else []
+    out: dict = {}
+
+    # (a) K7 at (192, 128)
+    out["k7"] = mla_k7_cases(torch, cfg, results)
+    torch.cuda.empty_cache()
+
+    # (b) bf16 on the cut, its prefill profiled
+    cut = cfg.replace(num_layers=min(DSV3_LAYERS, cfg.num_layers))
+    prompts = torch.randint(0, cut.vocab_size, (LM_BATCH, LM_PROMPT),
+                            device=dev, generator=torch.Generator(device=dev)
+                            .manual_seed(1))
+    regions = [(A, "mla_forward", "MLA projections, norms, RoPE, "
+                "decompression (K7 apart)")] + [
+        (MOE, n, d) for n, d in MOE_REGIONS.items()]
+
+    def profile(params, cache, tok, served):
+        return moe_profile(torch, "one prefill", lambda: M.prefill(
+            cut, params, {"tokens": prompts}), served["prefill_ms"] / 1e3,
+            regions=regions)
+
+    out["prefill"] = serve_full_depth(
+        torch, cut, DSV3, prompts, {"flash_attention": cut.num_layers},
+        results, profile=profile)
+    print(f"   (b) {cut.num_layers} layers ({cut.first_dense_layers} dense),"
+          f" prefill {out['prefill']['prefill_tok_s']:.0f} tok/s, decode "
+          f"{out['prefill']['decode_ms_per_step']:.2f} ms a step, peak "
+          f"{out['prefill']['max_memory_allocated'] / 2**30:.2f} GiB",
+          flush=True)
+
+    # (c) float32 prefill against the decode-only loop, drop-free
+    S_cmp = min(DSV3_CMP_PROMPT, LM_PROMPT)
+    flags = ["--arch", DSV3, "--dtype", "float32", "--layers",
+             str(DSV3_FP32_LAYERS), "--capacity-factor", str(DSV3_FREE_CF),
+             "--batch", "2", "--prompt-len", str(S_cmp)] + reduced
+    ops.reset_launch_counts()
+    g = prefill_gap.run(flags)
+    counts32 = {k: v for k, v in ops.launch_counts().items() if v}
+    results[f"launches.lm_fp32.{DSV3}"] = counts32
+    torch.cuda.empty_cache()
+    flip = prefill_gap.run(flags + ["--flip", str(S_cmp - 1)])
+    torch.cuda.empty_cache()
+    out["fp32_prefill_vs_decode"] = dict(g, launches=counts32,
+                                         flip_control=flip)
+    bound = LM_FP32_REL[DSV3]
+    print(f"   (c) float32, {DSV3_FP32_LAYERS} layers (1 dense, 1 MoE), "
+          f"capacity factor {DSV3_FREE_CF}, 2 x {S_cmp}: prefill vs the "
+          f"decode-only loop " + json.dumps(g) + f" (bound {bound} of the "
+          f"largest logit)", flush=True)
+    print(f"   (c) control, the decode loop reading token {S_cmp - 1} "
+          f"changed: max_abs_rel {flip['max_abs_rel']}", flush=True)
+    require(counts32 == {"flash_attention_fp32": DSV3_FP32_LAYERS},
+            f"K7's float32 route once a layer: {counts32}")
+    require(g["max_abs_rel"] <= bound,
+            f"float32 prefill agrees with the decode-only loop: {g}")
+    require(flip["max_abs_rel"] > DSV3_FLIP_MIN,
+            f"the one-token control lies above {DSV3_FLIP_MIN}: {flip}")
+
+    # (d) the first dense MLA block, card against CPU
+    out["block"] = mla_block_parity(torch, cfg)
+    torch.cuda.empty_cache()
+
+    # (e) the serving launcher's decode-only loop at the reduced config
+    ops.reset_launch_counts()
+    res = serve.run(["--arch", DSV3, "--reduced", "--batch", str(LM_BATCH),
+                     "--prompt-len", "64", "--gen", "32"])
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    out["serve_reduced"] = {"prefill_tok_s": res["prefill_tok_s"],
+                            "decode_tok_s": res["decode_tok_s"],
+                            "params": res["params"], "launches": counts}
+    print(f"   (e) launch.serve --reduced, decode-only, {LM_BATCH} x 64 + "
+          f"32: " + json.dumps(out["serve_reduced"]), flush=True)
+    require(res["tokens"].shape == (LM_BATCH, 32), "32 tokens per sequence")
+    require(bool(torch.isfinite(res["logits"].float()).all()),
+            "finite decode logits")
+    require(not counts, f"the decode-only loop launches no kernel: {counts}")
+    results[f"lm.{DSV3}"] = out
 
 
 def ep_inputs(torch, dev, batch, seq):
@@ -3374,6 +3641,9 @@ DIST_STREAM_EPOCHS, DIST_STREAM_PER_EPOCH = 5, 500
 # reference's 1e-4.
 DIST_ADAMW_PARAM_TOL, DIST_SGD_TOL, DIST_LOSS_TOL = 1e-3, 1e-5, 1e-4
 DIST_SGD_LR = 0.1
+# the SGD parity runs take this many steps (cut from 10 for phase 18's
+# time; stale and hysync still read a 3-step-old snapshot)
+DIST_SGD_STEPS = 5
 DIST_SGD_MODES = ("pull", "push", "stale", "hysync", "async_s0")
 # pull with a fault put in for one job: every all-gathered row rounded
 # to bf16 (straight-through), or the last rank's gradient left out of
@@ -3381,8 +3651,9 @@ DIST_SGD_MODES = ("pull", "push", "stale", "hysync", "async_s0")
 DIST_FAULTS = ("bf16_gather", "rank_gradient_dropped")
 # (f) the distributed mini-batch launcher: SAGE at batch 1024 (a global
 # batch, about 256 seeds a rank), fp32 and int8, a fixed number of steps
-# each (reduced from the epoch's 227, as phase 7's int8 run)
-DIST_MB_STEPS = 40
+# each (reduced from the epoch's 227, as phase 7's int8 run; from 40 for
+# phase 18's time)
+DIST_MB_STEPS = 20
 # (g) each arch, 10 SGD steps on the same global seed batches on 4 ranks
 # and on the single card (GAT on its 40-class graph); SAGE also under
 # AdamW, and two wrong paths: the last rank's gradient left out (judged
@@ -3452,8 +3723,8 @@ def _params_np(model) -> list:
 
 
 def dist_sgd_job(rank, world, dev, *, argv):
-    """Every synchronous mode and the asynchronous trainer at S 0, 10 SGD
-    steps each from phase 6's initial parameters
+    """Every synchronous mode and the asynchronous trainer at S 0,
+    DIST_SGD_STEPS SGD steps each from phase 6's initial parameters
     (``propagation.run_sync``, ``AsyncFullGraphTrainer.run``): each
     mode's final parameters (numpy)."""
     import torch
@@ -3469,10 +3740,10 @@ def dist_sgd_job(rank, world, dev, *, argv):
         opt = Sgd(model.parameters(), lr=DIST_SGD_LR)
         if mode == "async_s0":
             AsyncFullGraphTrainer(g, cfg, opt, world, staleness=0,
-                                  device=dev).run(model, TRAIN_EPOCHS)
+                                  device=dev).run(model, DIST_SGD_STEPS)
         else:
             PR.run_sync(model, opt, sg, g, rank, dev, mode=mode,
-                        staleness=3, steps=TRAIN_EPOCHS)
+                        staleness=3, steps=DIST_SGD_STEPS)
         out[mode] = _params_np(model)
     return out
 
@@ -3690,9 +3961,10 @@ def dist_p3_job(rank, world, dev, *, argv):
     return out
 
 
-def _single_card(torch, g, optimizer, *, float64=False, device="cuda"):
-    """Phase 6's GCN trained 10 steps from its initial parameters by
-    ``optimizer`` (``"adamw"``: the launcher's, or ``"sgd"``: lr
+def _single_card(torch, g, optimizer, *, float64=False, device="cuda",
+                 steps=TRAIN_EPOCHS):
+    """Phase 6's GCN trained ``steps`` steps from its initial parameters
+    by ``optimizer`` (``"adamw"``: the launcher's, or ``"sgd"``: lr
     ``DIST_SGD_LR``); under ``float64`` through the kernels' plain
     versions (the kernels take float32): the exact answer every float32
     run is read against.  Its parameters (numpy)."""
@@ -3718,7 +3990,7 @@ def _single_card(torch, g, optimizer, *, float64=False, device="cuda"):
     if float64:
         segment_sum.pick = lambda cuda_fn, plain_fn, t: plain_fn
     try:
-        for _ in range(TRAIN_EPOCHS):
+        for _ in range(steps):
             step(model, dg, x, y, mask)
     finally:
         segment_sum.pick = pick
@@ -3938,7 +4210,8 @@ def _dist_minibatch_checks(torch, g, g_gat, out, results):
 
 
 def _p3_checks(out, sgd_ref, results):
-    """(h) P3 against phase 6's single-card GCN (the first 602 rows of
+    """(h) P3 against phase 6's single-card GCN (``sgd_ref``: TRAIN_EPOCHS
+    SGD steps; the first 602 rows of
     W1; the padded rows stay zero), bitwise equal replicated parameters,
     launches by design, times and bytes beside pull's."""
     res = out["p3"]["ranks"]
@@ -4088,7 +4361,8 @@ def phase_distributed(torch, g, g_gat, results):
     # within the reference's 1e-4, the parameters after 10 AdamW epochs
     # within DIST_ADAMW_PARAM_TOL, which both faults must exceed; beside
     # them float32's own error (phase 6's run and pull against float64),
-    # and after 10 SGD steps every mode within 1e-5 of the single card
+    # and after DIST_SGD_STEPS SGD steps every mode within 1e-5 of the
+    # single card
     pull = out["pull"]
     adamw = {}                       # name: (first 4 losses, parameters)
     if "gcn" in TRAINED and "train.gcn" in results:
@@ -4135,7 +4409,7 @@ def phase_distributed(torch, g, g_gat, results):
     for f, d in faults.items():
         require(d > DIST_ADAMW_PARAM_TOL, f"the AdamW bound "
                 f"{DIST_ADAMW_PARAM_TOL} catches the fault {f} ({d:.3e})")
-    sgd_ref = _single_card(torch, g, "sgd")
+    sgd_ref = _single_card(torch, g, "sgd", steps=DIST_SGD_STEPS)
     sgd = {}
     for mode in DIST_SGD_MODES:
         per_rank = [r[mode] for r in out["sgd"]["ranks"]]
@@ -4143,7 +4417,7 @@ def phase_distributed(torch, g, g_gat, results):
         require(all(_dist_params_diff(p, per_rank[0]) == 0.0
                     for p in per_rank), f"SGD {mode}: ranks bitwise equal")
     results["dist.sgd_vs_single_card"] = sgd
-    print("   SGD, 10 steps, parameters vs the single card: "
+    print(f"   SGD, {DIST_SGD_STEPS} steps, parameters vs the single card: "
           + json.dumps(sgd), flush=True)
     require(max(sgd.values()) <= DIST_SGD_TOL,
             f"every mode within 1e-5 of the single card under SGD: {sgd}")
@@ -4184,7 +4458,8 @@ def phase_distributed(torch, g, g_gat, results):
     # (f), (g) the distributed mini-batch path, (h) P3, (i) their K1 / K1ᵀ
     t0 = time.perf_counter()
     _dist_minibatch_checks(torch, g, g_gat, out, results)
-    _p3_checks(out, sgd_ref, results)
+    # P3 trains TRAIN_EPOCHS SGD steps: its own single-card reference
+    _p3_checks(out, _single_card(torch, g, "sgd"), results)
     _dist_mb_k1_cases(torch, g, results)
     print(f"   (f)-(i) in the main process: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -4266,10 +4541,13 @@ def kernels_line(results) -> dict:
             # hd 80 on the hd-96 tiles: phase 8's case at Zamba2's prefill
             # and its launches in phase 15's prefill (bf16) or cut
             # (float32); Granite's prefill (phase 8) with its launches in
-            # phase 16's prefill (bf16) or parity run (float32)
+            # phase 16's prefill (bf16) or parity run (float32); MLA's
+            # (192, 128) at DeepSeek-V3's prefill (18(a)) with its launches
+            # in 18(b)'s prefill or 18(c)'s parity run
             lkey = "lm" if name == "flash_attention" else "lm_fp32"
             for arch, label in ((ZAMBA2, f"at_{ZAMBA2}_hd80"),
-                                (GRANITE, f"at_{GRANITE}")):
+                                (GRANITE, f"at_{GRANITE}"),
+                                (DSV3, f"at_{DSV3}_192_128")):
                 r = results[f"{name}.{arch}"]
                 rows[-1][label] = dict(
                     {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
@@ -4404,6 +4682,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_zamba2(torch, results)
     phase_granite(torch, results)
+    torch.cuda.empty_cache()
+    phase_deepseek(torch, results)
     torch.cuda.empty_cache()
     phase_examples(torch, results)
     phase_distributed(torch, g, g_gat, results)

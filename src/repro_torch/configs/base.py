@@ -56,13 +56,12 @@ ARCH_FAMILIES = {
 #: the configs the port carries (``repro_torch/configs/<id>.py``)
 PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
                   "gemma_7b", "glm4_9b", "zamba2_2_7b",
-                  "granite_moe_1b_a400m")
+                  "granite_moe_1b_a400m", "deepseek_v3_671b")
 #: the families the port's model runs
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "mla_moe")
 
 #: ROADMAP.md queue 1 items of what is not ported yet
 ROADMAP_ITEMS = {
-    "mla_moe": "10c (the mla_moe family)",
     "encdec": "10d (the encdec and vlm families)",
     "vlm": "10d (the encdec and vlm families)",
     # a config whose family is ported but whose file is not (none now:
@@ -89,9 +88,9 @@ class ModelConfig:
 
     ``family`` selects the forward function:
       dense | moe | mla_moe | ssm | hybrid | encdec | vlm
-    (the port runs ``dense``, ``ssm``, ``hybrid`` and ``moe``).  The
-    fields are the reference's that the port reads; those of the other
-    families (MLA ranks, Whisper's encoder) come with their families,
+    (the port runs all but ``encdec`` and ``vlm``).  The fields are the
+    reference's that the port reads; those of the other families
+    (Whisper's encoder) come with their families,
     and the reference's lowering and survey switches (``scan_unroll``,
     ``parallelism``, ``sync_mode``, ``coordination``) have nothing to
     switch on one card.
@@ -128,6 +127,13 @@ class ModelConfig:
     first_dense_layers: int = 0              # deepseek-v3: first 3 layers dense
     moe_capacity_factor: float = 1.25        # GShard dropping capacity
     moe_impl: str = "gshard"                 # gshard | ep (expert parallel)
+
+    # --- MLA (deepseek) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 0
+    qk_nope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # --- SSM (mamba2 / zamba2) ---
     ssm_state: int = 0
@@ -189,6 +195,9 @@ class ModelConfig:
             kw.update(num_experts=4, experts_per_token=2, moe_d_ff=128,
                       first_dense_layers=min(self.first_dense_layers, 1),
                       moe_capacity_factor=8.0)  # drop-free at smoke scale
+        if self.q_lora_rank or self.kv_lora_rank:
+            kw.update(q_lora_rank=64, kv_lora_rank=32, qk_rope_head_dim=16,
+                      qk_nope_head_dim=32, v_head_dim=32)
         if self.ssm_state:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=16)
         if self.attn_every:

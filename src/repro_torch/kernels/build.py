@@ -57,8 +57,8 @@ SIGNATURES = {
     # the strides arrive as a pointer to a host array of int64
     "flash_attention": {
         "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _I, _P],
-        "flash_attention_smem": [_I, _I],
+                                _I, _I, _I, _F, _I, _P],
+        "flash_attention_smem": [_I, _I, _I],
     },
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

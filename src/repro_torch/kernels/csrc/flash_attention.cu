@@ -15,6 +15,7 @@
 // last dim contiguous) by 4-d TMA maps over (hd, position, head, batch),
 // so the model passes its (B, S, H, hd) tensors as (B, H, S, hd) views
 // without a transpose copy, and the output is written the same way.
+// v and the output may be narrower than q and k (hd_v < hd: MLA, below).
 // TMA needs a 16-byte-aligned base and byte strides in multiples of 16
 // (the wrapper's launch_plan checks both and names the tensor).  Ragged
 // Q and K tiles arrive as zeros and are masked; the store clips rows
@@ -50,7 +51,7 @@
 // the bf16 A layout) and issues O += P V as wgmma m64n{hd}k16 with V as a
 // transposed (MN-major) B operand.  The epilogue divides by max(l,
 // 1e-30), writes bf16 O into the warpgroup's dead Q rows and TMA-stores
-// it.  BK is 128 keys for hd <= 128 and 64 at hd 256 (the O accumulator
+// it.  BK is 128 keys for hd <= 192 and 64 at hd 256 (the O accumulator
 // alone is 128 registers a thread); swizzle 128 B, 64 B at hd 96
 // (192-byte rows: three 32-column chunks).  P is rounded to bf16 for the
 // PV product, as the TPU kernel's default-precision jnp.dot(p, v) and
@@ -97,9 +98,9 @@
 //   - shared memory: a float32 tile is twice a bf16 one and the split
 //     doubles it again: Q hi/lo + K (then K hi) + K lo + raw V + V^T
 //     hi/lo take 73, 109, 145 and 209 KB of the 227 KB at hd 64, 96, 128
-//     and 256 (tiles of 32 keys, 16 at hd 256, whose V^T rows of 64 B
-//     take a 64-byte swizzle): two blocks an SM at hd 64 and 96, one at
-//     128 and 256.
+//     and 256, and 193 KB at MLA's (192, 128) (tiles of 32 keys, 16 at
+//     hd 256, whose V^T rows of 64 B take a 64-byte swizzle): two blocks
+//     an SM at hd 64 and 96, one at 128, 256 and (192, 128).
 // The epilogue writes float32 O / max(l, 1e-30) over Q hi and TMA-stores
 // it.  No float atomics, and the passes accumulate in a fixed order.
 //
@@ -113,6 +114,22 @@
 // zeros), P V writes 16 zero columns, and the TMA store clips them.  The
 // softmax scale is the caller's 1/sqrt(80).  Cost: a sixth of the tile's
 // MMA work and shared-memory traffic is padding; no new instance is built.
+//
+// MLA (DeepSeek-V3's prefill): q and k 192 wide (128 columns decompressed
+// from the latent + 64 rotary), v 128, 128 heads (H == K).  Both kernels
+// take the q/k tile width HD and the v tile width HDV as template
+// arguments (HDV == HD at every other width, where the code is what one
+// width gave).  bf16: Q K^T over 192 columns is three 64-column chunks of
+// 128-byte swizzle, twelve k16 steps; P V is wgmma m64n128k16 into
+// o[HDV / 2] from V's two chunks; O goes out through two of Q's three
+// chunks.  Shared memory counts K at 192 and V at 128: Q 48 KB + two
+// stages of K 48 KB and V 32 KB = 209 KB, with 128-key tiles (counting V
+// at 192 would be 241 KB, over the 227 KB a block may use).  The
+// registers a consumer holds are hd 128's (o 64, S 64, P 32).  float32:
+// 24 k8 steps of Q K^T, V^T hi/lo 128 wide, P V m64n128k8; one block an
+// SM at 193 KB.  Bound at the served prefill (B 8, S 1024, causal): 1.34
+// GB of q, k, v and out in bf16 (0.40 ms at 3.35 TB/s) against 344
+// GFLOP (0.35 ms at 989 TFLOP/s): bound by bytes.
 //
 // Sums run in a fixed order in both: bitwise repeatable.
 #include <cuda.h>
@@ -146,18 +163,23 @@ constexpr int TC_ROWS = 64;       // query rows per consumer warpgroup
 constexpr int TC_THREADS = 384;   // a producer warpgroup and two consumer warpgroups
 constexpr int TC_STAGES = 2;      // K/V tiles in flight
 
-template <int HD>
+// HD: the q/k tile width; HDV: the v (and output) tile width, HD but for
+// MLA's (192, 128)
+template <int HD, int HDV>
 struct Tile {
-  static constexpr int BK = HD <= 128 ? 128 : 64;     // keys per kv tile
+  static constexpr int BK = HD <= 192 ? 128 : 64;     // keys per kv tile
   static constexpr int SW = HD % 64 == 0 ? 128 : 64;  // swizzle = bytes of a chunk row
   static constexpr int CW = SW / 2;                   // bf16 columns per chunk
-  static constexpr int NC = HD / CW;                  // chunks per row
+  static constexpr int NC = HD / CW;                  // chunks of a Q or K row
+  static constexpr int NCV = HDV / CW;                // chunks of a V or O row
+  static_assert(HDV % CW == 0 && HDV <= HD, "V rows of whole chunks, O within Q's rows");
   static constexpr int Q_CHUNK = TC_BQ * SW;          // bytes of one chunk of the Q tile
   static constexpr int KV_CHUNK = BK * SW;
   static constexpr int Q_BYTES = NC * Q_CHUNK;
-  static constexpr int KV_BYTES = NC * KV_CHUNK;      // one K or one V tile
+  static constexpr int K_BYTES = NC * KV_CHUNK;       // one K tile
+  static constexpr int V_BYTES = NCV * KV_CHUNK;      // one V tile
   // slack to align the base to 1024, the tiles, the 1 + 3 * STAGES barriers
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * TC_STAGES * KV_BYTES + 8 * (1 + 3 * TC_STAGES);
+  static constexpr int SMEM = 1024 + Q_BYTES + TC_STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 3 * TC_STAGES);
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -167,20 +189,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // tensor maps over (hd, position, head, batch); Q and O in boxes of CW x
 // 64 rows (one consumer warpgroup), K and V in boxes of CW x BK keys
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, int G, int Sq, int Skv,
                        int causal, int window, float scale_log2) {
-  using T = Tile<HD>;
-  constexpr int BK = T::BK, SW = T::SW, CW = T::CW, NC = T::NC;
+  using T = Tile<HD, HDV>;
+  constexpr int BK = T::BK, SW = T::SW, CW = T::CW, NC = T::NC, NCV = T::NCV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sK = sQ + T::Q_BYTES;                  // TC_STAGES K tiles
-  uint8_t* sV = sK + TC_STAGES * T::KV_BYTES;     // TC_STAGES V tiles
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + TC_STAGES * T::KV_BYTES);
+  uint8_t* sV = sK + TC_STAGES * T::K_BYTES;      // TC_STAGES V tiles
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + TC_STAGES * T::V_BYTES);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + TC_STAGES;
   uint64_t* empty = full_v + TC_STAGES;
@@ -221,13 +243,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         const int s = i % TC_STAGES;
         hopper::mbar_wait(empty + s, ((i / TC_STAGES) & 1) ^ 1);
-        hopper::mbar_expect_tx(full_k + s, T::KV_BYTES);
+        hopper::mbar_expect_tx(full_k + s, T::K_BYTES);
         for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(sK + s * T::KV_BYTES + c * T::KV_CHUNK, &tk, full_k + s, c * CW,
+          hopper::tma_load_4d(sK + s * T::K_BYTES + c * T::KV_CHUNK, &tk, full_k + s, c * CW,
                               t * BK, kh, b);
-        hopper::mbar_expect_tx(full_v + s, T::KV_BYTES);
-        for (int c = 0; c < NC; ++c)
-          hopper::tma_load_4d(sV + s * T::KV_BYTES + c * T::KV_CHUNK, &tv, full_v + s, c * CW,
+        hopper::mbar_expect_tx(full_v + s, T::V_BYTES);
+        for (int c = 0; c < NCV; ++c)
+          hopper::tma_load_4d(sV + s * T::V_BYTES + c * T::KV_CHUNK, &tv, full_v + s, c * CW,
                               t * BK, kh, b);
       }
     }
@@ -247,9 +269,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wlast = min(q0 + cw * TC_ROWS + TC_ROWS, Sq) - 1 + off;
   const uint32_t q_addr = hopper::smem_u32(sQ) + cw * TC_ROWS * SW;
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+  for (int x = 0; x < HDV / 2; ++x) o[x] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
   hopper::mbar_wait(full_q, 0);
 
@@ -257,8 +279,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int s = i % TC_STAGES;
     const uint32_t parity = (i / TC_STAGES) & 1;
     const int k0 = t * BK;
-    const uint32_t k_addr = hopper::smem_u32(sK + s * T::KV_BYTES);
-    const uint32_t v_addr = hopper::smem_u32(sV + s * T::KV_BYTES);
+    const uint32_t k_addr = hopper::smem_u32(sK + s * T::K_BYTES);
+    const uint32_t v_addr = hopper::smem_u32(sV + s * T::V_BYTES);
 
     // S = Q K^T over hd in k-steps of 16
     float sc[BK / 2];
@@ -323,7 +345,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int jn = 0; jn < HD / 8; ++jn) {
+    for (int jn = 0; jn < HDV / 8; ++jn) {
       o[4 * jn] *= a0;
       o[4 * jn + 1] *= a0;
       o[4 * jn + 2] *= a1;
@@ -347,11 +369,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t db = hopper::make_desc(v_addr + kk * 16 * SW, T::KV_CHUNK, 8 * SW, SW);
-      if constexpr (HD == 64)
+      if constexpr (HDV == 64)
         hopper::wgmma_rs_n64(o, pa[kk], db);
-      else if constexpr (HD == 96)
+      else if constexpr (HDV == 96)
         hopper::wgmma_rs_n96(o, pa[kk], db);
-      else if constexpr (HD == 128)
+      else if constexpr (HDV == 128)
         hopper::wgmma_rs_n128(o, pa[kk], db);
       else
         hopper::wgmma_rs_n256(o, pa[kk], db);
@@ -372,7 +394,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   uint8_t* sO = sQ + cw * TC_ROWS * SW;
 #pragma unroll
-  for (int jn = 0; jn < HD / 8; ++jn) {
+  for (int jn = 0; jn < HDV / 8; ++jn) {
     const int col = 8 * jn + cq;
     const int byte = (col % CW) * 2;
 #pragma unroll
@@ -388,7 +410,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::fence_proxy_async();
   hopper::named_barrier(1 + cw, 128);
   if (t128 == 0 && q0 + cw * TC_ROWS < Sq) {
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NCV; ++c)
       hopper::tma_store_4d(&to, sO + c * T::Q_CHUNK, c * CW, q0 + cw * TC_ROWS, h, b);
     hopper::tma_store_commit_and_wait_read();
   }
@@ -401,20 +423,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int F_BQ = 64;          // query rows per block: one consumer warpgroup
 constexpr int F_THREADS = 160;    // the consumer warpgroup and a producer warp
 
-template <int HD>
+// HD and HDV as in Tile
+template <int HD, int HDV>
 struct TileF {
-  static constexpr int BK = HD <= 128 ? 32 : 16;   // keys per kv tile
-  static constexpr int NC = HD / 32;               // 128-byte chunks of a Q, K or V row
+  static constexpr int BK = HD <= 192 ? 32 : 16;   // keys per kv tile
+  static constexpr int NC = HD / 32;               // 128-byte chunks of a Q or K row
+  static constexpr int NCV = HDV / 32;             // 128-byte chunks of a V or O row
+  static_assert(HDV % 32 == 0 && HDV <= HD, "V rows of whole chunks, O within Q's rows");
   static constexpr int Q_CHUNK = F_BQ * 128;
   static constexpr int KV_CHUNK = BK * 128;
   static constexpr int Q_BYTES = NC * Q_CHUNK;     // 64 x HD float32
-  static constexpr int KV_BYTES = NC * KV_CHUNK;   // BK x HD float32
+  static constexpr int K_BYTES = NC * KV_CHUNK;    // BK x HD float32
+  static constexpr int V_BYTES = NCV * KV_CHUNK;   // BK x HDV float32 (and each V^T part)
   static constexpr int VT_SW = BK >= 32 ? 128 : 4 * BK;  // V^T rows: BK keys, swizzle
   static constexpr int VT_CW = VT_SW / 4;          // keys per chunk of a V^T row
-  static constexpr int VT_CHUNK = HD * VT_SW;
+  static constexpr int VT_CHUNK = HDV * VT_SW;
   // Q hi (over raw Q) and lo; K (raw, then hi), K lo; raw V; V^T hi, lo;
   // 3 barriers
-  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 5 * KV_BYTES + 8 * 3;
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * K_BYTES + 3 * V_BYTES + 8 * 3;
   // two blocks fit on an SM (228 KB, 1 KB of it reserved per block) at hd
   // 64 and 96
   static constexpr int BLOCKS = SMEM + 1024 <= 228 * 1024 / 2 ? 2 : 1;
@@ -433,7 +459,7 @@ __device__ __forceinline__ void split4(const float4 x, uint4& hi, uint4& lo) {
 // the loads of up to 8 units issue before their splits
 template <int U>
 __device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo, int tid) {
-  constexpr int BATCH = U <= 8 ? U : (U % 8 == 0 ? 8 : 6);   // U is 4, 6, 8, 12, 16 or 32
+  constexpr int BATCH = U <= 8 ? U : (U % 8 == 0 ? 8 : 6);   // U is 4, 6, 8, 12, 16, 32 or 48
   static_assert(U % BATCH == 0, "whole batches");
 #pragma unroll
   for (int k0 = 0; k0 < U; k0 += BATCH) {
@@ -453,24 +479,24 @@ __device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* lo, int tid) 
 
 // tensor maps over (hd, position, head, batch) in float32 with 128-byte
 // swizzle: Q and O in boxes of 32 x 64 rows, K and V in boxes of 32 x BK
-template <int HD>
-__global__ void __launch_bounds__(F_THREADS, TileF<HD>::BLOCKS)
+template <int HD, int HDV>
+__global__ void __launch_bounds__(F_THREADS, TileF<HD, HDV>::BLOCKS)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap to, int G, int Sq, int Skv, int causal,
                       int window, float scale_log2) {
-  using T = TileF<HD>;
-  constexpr int BK = T::BK, NC = T::NC;
+  using T = TileF<HD, HDV>;
+  constexpr int BK = T::BK, NC = T::NC, NCV = T::NCV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);  // Q, Q hi, O
   uint8_t* sQl = sQ + T::Q_BYTES;
   uint8_t* sK = sQl + T::Q_BYTES;    // raw K and V as TMA writes them; K hi over K
-  uint8_t* sV = sK + T::KV_BYTES;
-  uint8_t* sKl = sV + T::KV_BYTES;
-  uint8_t* sVh = sKl + T::KV_BYTES;  // V^T hi and lo, keys in the A fragment's order
-  uint8_t* sVl = sVh + T::KV_BYTES;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sVl + T::KV_BYTES);
+  uint8_t* sV = sK + T::K_BYTES;
+  uint8_t* sKl = sV + T::V_BYTES;
+  uint8_t* sVh = sKl + T::K_BYTES;   // V^T hi and lo, keys in the A fragment's order
+  uint8_t* sVl = sVh + T::V_BYTES;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sVl + T::V_BYTES);
   uint64_t* full_kv = full_q + 1;
   uint64_t* empty = full_kv + 1;
 
@@ -504,11 +530,11 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::tma_load_4d(sQ + c * T::Q_CHUNK, &tq, full_q, c * 32, q0, h, b);
       for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
         hopper::mbar_wait(empty, (i & 1) ^ 1);
-        hopper::mbar_expect_tx(full_kv, 2 * T::KV_BYTES);
-        for (int c = 0; c < NC; ++c) {
+        hopper::mbar_expect_tx(full_kv, T::K_BYTES + T::V_BYTES);
+        for (int c = 0; c < NC; ++c)
           hopper::tma_load_4d(sK + c * T::KV_CHUNK, &tk, full_kv, c * 32, t * BK, kh, b);
+        for (int c = 0; c < NCV; ++c)
           hopper::tma_load_4d(sV + c * T::KV_CHUNK, &tv, full_kv, c * 32, t * BK, kh, b);
-        }
       }
     }
     return;
@@ -531,9 +557,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::mbar_wait(full_q, 0);
   split_tile<T::Q_BYTES / 16 / 128>(sQ, sQl, tid);
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+  for (int x = 0; x < HDV / 2; ++x) o[x] = 0.f;
   float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
 
   for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
@@ -542,13 +568,13 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     // every warp's products on the previous tile are done with the splits
     hopper::named_barrier(1, 128);
     // K: hi in place and lo beside, in TMA's layout, byte for byte
-    split_tile<T::KV_BYTES / 16 / 128>(sK, sKl, tid);
+    split_tile<T::K_BYTES / 16 / 128>(sK, sKl, tid);
     // V^T: item (column n, quarter g of a k-step pair) takes keys key0 +
     // {0, 2, 4, 6} of raw V to k-slots 4 g .. 4 g + 3 of V^T's row n
 #pragma unroll
-    for (int k = 0; k < HD * BK / 4 / 128; ++k) {
+    for (int k = 0; k < HDV * BK / 4 / 128; ++k) {
       const int it = tid + 128 * k;
-      const int n = it % HD, g = it / HD;
+      const int n = it % HDV, g = it / HDV;
       const int key0 = 8 * (g >> 1) + (g & 1);
       const uint32_t col = (n / 32) * T::KV_CHUNK + (n % 32) * 4;
       float4 x;
@@ -637,7 +663,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int jn = 0; jn < HD / 8; ++jn) {
+    for (int jn = 0; jn < HDV / 8; ++jn) {
       o[4 * jn] *= a0;
       o[4 * jn + 1] *= a0;
       o[4 * jn + 2] *= a1;
@@ -665,15 +691,15 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t at = ((8 * kk) / T::VT_CW) * T::VT_CHUNK + ((8 * kk) % T::VT_CW) * 4;
       const uint64_t vh = hopper::make_desc(vh_addr + at, 16, 8 * T::VT_SW, T::VT_SW);
       const uint64_t vl = hopper::make_desc(vl_addr + at, 16, 8 * T::VT_SW, T::VT_SW);
-      if constexpr (HD == 64) {
+      if constexpr (HDV == 64) {
         hopper::wgmma_tf32_rs_n64(o, ph[kk], vh);
         hopper::wgmma_tf32_rs_n64(o, ph[kk], vl);
         hopper::wgmma_tf32_rs_n64(o, pl[kk], vh);
-      } else if constexpr (HD == 96) {
+      } else if constexpr (HDV == 96) {
         hopper::wgmma_tf32_rs_n96(o, ph[kk], vh);
         hopper::wgmma_tf32_rs_n96(o, ph[kk], vl);
         hopper::wgmma_tf32_rs_n96(o, pl[kk], vh);
-      } else if constexpr (HD == 128) {
+      } else if constexpr (HDV == 128) {
         hopper::wgmma_tf32_rs_n128(o, ph[kk], vh);
         hopper::wgmma_tf32_rs_n128(o, ph[kk], vl);
         hopper::wgmma_tf32_rs_n128(o, pl[kk], vh);
@@ -697,7 +723,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   hopper::named_barrier(1, 128);   // every warp's products are done reading Q hi
 #pragma unroll
-  for (int jn = 0; jn < HD / 8; ++jn) {
+  for (int jn = 0; jn < HDV / 8; ++jn) {
     const int col = 8 * jn + cq;
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2) {
@@ -711,118 +737,114 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   hopper::fence_proxy_async();
   hopper::named_barrier(1, 128);
   if (tid == 0) {
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NCV; ++c)
       hopper::tma_store_4d(&to, sQ + c * T::Q_CHUNK, c * 32, q0, h, b);
     hopper::tma_store_commit_and_wait_read();
   }
 }
 
-// HD is the tile's width, hd <= HD the tensors' (the maps' head axis):
-// TMA fills a box's columns past hd with zeros and the store clips them
-template <int HD>
+// HD and HDV are the tile's widths, hd <= HD and hd_v <= HDV the tensors'
+// (the maps' head axis): TMA fills a box's columns past hd with zeros and
+// the store clips them
+template <int HD, int HDV>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-                int H, int K, int Sq, int Skv, int hd, int causal, int window, float scale,
-                cudaStream_t stream) {
-  using T = TileF<HD>;
+                int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window,
+                float scale, cudaStream_t stream) {
+  using T = TileF<HD, HDV>;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap mq, mk, mv, mo;
   int err = make_map(&mq, F32, 4, q, hd, Sq, H, B, st, 32, F_BQ, 128);
   if (!err) err = make_map(&mk, F32, 4, k, hd, Skv, K, B, st + 3, 32, T::BK, 128);
-  if (!err) err = make_map(&mv, F32, 4, v, hd, Skv, K, B, st + 6, 32, T::BK, 128);
-  if (!err) err = make_map(&mo, F32, 4, o, hd, Sq, H, B, st + 9, 32, F_BQ, 128);
+  if (!err) err = make_map(&mv, F32, 4, v, hd_v, Skv, K, B, st + 6, 32, T::BK, 128);
+  if (!err) err = make_map(&mo, F32, 4, o, hd_v, Sq, H, B, st + 9, 32, F_BQ, 128);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tf32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      flash_fwd_tf32_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
-  flash_fwd_tf32_kernel<HD><<<grid, F_THREADS, T::SMEM, stream>>>(
+  flash_fwd_tf32_kernel<HD, HDV><<<grid, F_THREADS, T::SMEM, stream>>>(
       mq, mk, mv, mo, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-int dispatch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st,
-                  int B, int H, int K, int Sq, int Skv, int hd, int causal, int window,
-                  float scale, cudaStream_t s) {
-  switch (hd) {
-    case 64: return launch_tf32<64>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    // hd 80 on the hd-96 tiles: the third 32-column chunk holds 16 zeros
-    case 80:
-    case 96: return launch_tf32<96>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    case 128:
-      return launch_tf32<128>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    case 256:
-      return launch_tf32<256>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// HD is the tile's width, hd <= HD the tensors' (as in launch_tf32)
-template <int HD>
+// HD and HDV as in launch_tf32
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, const long long* st,
-                 int B, int H, int K, int Sq, int Skv, int hd, int causal, int window, float scale,
-                 cudaStream_t stream) {
-  using T = Tile<HD>;
+                 int B, int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window,
+                 float scale, cudaStream_t stream) {
+  using T = Tile<HD, HDV>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
   int err = make_map(&mq, BF16, 2, q, hd, Sq, H, B, st, T::CW, TC_ROWS, T::SW);
   if (!err) err = make_map(&mk, BF16, 2, k, hd, Skv, K, B, st + 3, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mv, BF16, 2, v, hd, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
-  if (!err) err = make_map(&mo, BF16, 2, o, hd, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
+  if (!err) err = make_map(&mv, BF16, 2, v, hd_v, Skv, K, B, st + 6, T::CW, T::BK, T::SW);
+  if (!err) err = make_map(&mo, BF16, 2, o, hd_v, Sq, H, B, st + 9, T::CW, TC_ROWS, T::SW);
   if (err) return err;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      flash_fwd_wgmma_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (Sq + TC_BQ - 1) / TC_BQ);
-  flash_fwd_wgmma_kernel<HD><<<grid, TC_THREADS, T::SMEM, stream>>>(
+  flash_fwd_wgmma_kernel<HD, HDV><<<grid, TC_THREADS, T::SMEM, stream>>>(
       mq, mk, mv, mo, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-int dispatch_wgmma(const void* q, const void* k, const void* v, void* o, const long long* st,
-                   int B, int H, int K, int Sq, int Skv, int hd, int causal, int window,
-                   float scale, cudaStream_t s) {
+// the instance of a (q/k, v) width pair, or cudaErrorInvalidValue: equal
+// widths 64, 80 (on the 96-wide tiles: the third chunk holds 16 zeros),
+// 96, 128 and 256, and MLA's (192, 128)
+template <bool BF16>
+int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
+             int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window, float scale,
+             cudaStream_t s) {
+#define K7_LAUNCH(HD, HDV)                                                                   \
+  return BF16 ? launch_wgmma<HD, HDV>(q, k, v, o, st, B, H, K, Sq, Skv, hd, hd_v, causal,   \
+                                      window, scale, s)                                      \
+              : launch_tf32<HD, HDV>(q, k, v, o, st, B, H, K, Sq, Skv, hd, hd_v, causal,    \
+                                     window, scale, s)
+  if (hd == 192 && hd_v == 128) K7_LAUNCH(192, 128);
+  if (hd != hd_v) return (int)cudaErrorInvalidValue;
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    // hd 80 on the hd-96 tiles: the third 64-byte chunk holds 16 zeros
+    case 64: K7_LAUNCH(64, 64);
     case 80:
-    case 96: return launch_wgmma<96>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    case 128:
-      return launch_wgmma<128>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
-    case 256:
-      return launch_wgmma<256>(q, k, v, o, st, B, H, K, Sq, Skv, hd, causal, window, scale, s);
+    case 96: K7_LAUNCH(96, 96);
+    case 128: K7_LAUNCH(128, 128);
+    case 256: K7_LAUNCH(256, 256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef K7_LAUNCH
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, position) of q, k, v, o in
-// turn; is_bf16 selects bf16 tensors and the bf16 kernel (else float32
-// and the TF32 split kernel).  Returns cudaGetLastError() after the
-// launch, or hopper::TENSOR_MAP_ERROR + a CUresult if a TMA map was
-// refused.
+// turn; hd is q's and k's width, hd_v v's and o's; is_bf16 selects bf16
+// tensors and the bf16 kernel (else float32 and the TF32 split kernel).
+// Returns cudaGetLastError() after the launch, or
+// hopper::TENSOR_MAP_ERROR + a CUresult if a TMA map was refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const long long* strides, int B, int H, int K, int Sq,
-                                   int Skv, int hd, int causal, int window, float scale,
+                                   int Skv, int hd, int hd_v, int causal, int window, float scale,
                                    int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq == 0 || B == 0 || H == 0) return 0;
-  return is_bf16 ? dispatch_wgmma(q, k, v, o, strides, B, H, K, Sq, Skv, hd, causal, window,
-                                  scale, s)
-                 : dispatch_tf32(q, k, v, o, strides, B, H, K, Sq, Skv, hd, causal, window,
-                                 scale, s);
+  return is_bf16 ? dispatch<true>(q, k, v, o, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
+                                  window, scale, s)
+                 : dispatch<false>(q, k, v, o, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
+                                   window, scale, s);
 }
 
-// the dynamic shared memory a block of the hd-wide kernel asks for (0 for
-// a width it does not take): launch_plan states the same number, and
+// the dynamic shared memory a block of the (hd, hd_v) kernel asks for (0
+// for a pair it does not take): launch_plan states the same number, and
 // chip_smoke.py holds the two together
-extern "C" int flash_attention_smem(int hd, int is_bf16) {
+extern "C" int flash_attention_smem(int hd, int hd_v, int is_bf16) {
+  if (hd == 192 && hd_v == 128) return is_bf16 ? Tile<192, 128>::SMEM : TileF<192, 128>::SMEM;
+  if (hd != hd_v) return 0;
   switch (hd) {
-    case 64: return is_bf16 ? Tile<64>::SMEM : TileF<64>::SMEM;
+    case 64: return is_bf16 ? Tile<64, 64>::SMEM : TileF<64, 64>::SMEM;
     case 80:   // the hd-96 tiles
-    case 96: return is_bf16 ? Tile<96>::SMEM : TileF<96>::SMEM;
-    case 128: return is_bf16 ? Tile<128>::SMEM : TileF<128>::SMEM;
-    case 256: return is_bf16 ? Tile<256>::SMEM : TileF<256>::SMEM;
+    case 96: return is_bf16 ? Tile<96, 96>::SMEM : TileF<96, 96>::SMEM;
+    case 128: return is_bf16 ? Tile<128, 128>::SMEM : TileF<128, 128>::SMEM;
+    case 256: return is_bf16 ? Tile<256, 256>::SMEM : TileF<256, 256>::SMEM;
     default: return 0;
   }
 }

@@ -92,7 +92,8 @@ def edge_dot(a, b, edge_src, order, row_ptr, heads: int = 1):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
     """K7: causal / sliding-window GQA attention, queries aligned to the
-    end of the kv axis; q (B, H, Sq, hd), k, v (B, K, Skv, hd)."""
+    end of the kv axis; q (B, H, Sq, hd), k (B, K, Skv, hd), v (B, K,
+    Skv, hd_v) -> (B, H, Sq, hd_v)."""
     fn = _ss.pick(_fa.flash_attention_cuda, _fa.flash_attention_plain, q)
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 

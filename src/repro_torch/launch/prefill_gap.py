@@ -7,11 +7,14 @@ feeds the prompt through ``decode_step`` one position at a time).
       --device cpu
 
 ``--layers N`` cuts the config to its first N layers at its published
-widths (Zamba2-2.7B: a multiple of its ``attn_every``, 6).
-``--capacity-factor`` sets a ``moe`` config's GShard capacity factor for
-both paths: a prefill groups its prompt's tokens and a decode step the
-batch, so at the published 1.25 the two drop different tokens, and only
-a drop-free factor (at least E/k, Granite's 4) compares the paths.
+widths (Zamba2-2.7B: a multiple of its ``attn_every``, 6; DeepSeek-V3:
+``min(first_dense_layers, N - 1)`` dense layers, so that every cut
+holds at least one MoE layer, as ``reduced()`` does).
+``--capacity-factor`` sets a ``moe`` or ``mla_moe`` config's GShard
+capacity factor for both paths: a prefill groups its prompt's tokens and
+a decode step the batch, so at the published 1.25 the two drop
+different tokens, and only a drop-free factor (at least E/k, Granite's
+4, DeepSeek-V3's 32) compares the paths.
 
 The two paths compute one function by two algorithms (chunked SSD or
 flash attention over the whole prompt; the recurrent update or the
@@ -61,6 +64,16 @@ def gap(a: torch.Tensor, b: torch.Tensor) -> dict:
             .item()}
 
 
+def cut_layers(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers; an ``mla_moe`` config keeps
+    ``min(first_dense_layers, n - 1)`` dense layers, so that the cut holds
+    at least one MoE layer."""
+    if cfg.family == "mla_moe":
+        return cfg.replace(num_layers=n, first_dense_layers=min(
+            cfg.first_dense_layers, n - 1))
+    return cfg.replace(num_layers=n)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -69,10 +82,12 @@ def parse_args(argv=None):
                     help="param and compute dtype (default: the config's)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config to its first N layers, its widths "
-                         "kept (default: all)")
+                         "kept (default: all); an mla_moe config keeps "
+                         "min(first_dense_layers, N - 1) dense layers, so "
+                         "that the cut holds a MoE layer")
     ap.add_argument("--capacity-factor", type=float, default=None,
-                    help="a moe config's capacity factor (default: the "
-                         "config's)")
+                    help="a moe or mla_moe config's capacity factor "
+                         "(default: the config's)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--flip", type=int, default=None,
@@ -95,9 +110,9 @@ def run(argv=None) -> dict:
     if args.dtype:
         cfg = cfg.replace(param_dtype=args.dtype, compute_dtype=args.dtype)
     if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     if args.capacity_factor is not None:
-        if cfg.family != "moe":
+        if not cfg.num_experts:
             raise ValueError(f"--capacity-factor: {cfg.name} has no "
                              f"experts")
         cfg = cfg.replace(moe_capacity_factor=args.capacity_factor)
@@ -119,7 +134,7 @@ def run(argv=None) -> dict:
     res.update(arch=cfg.name, dtype=cfg.compute_dtype, layers=cfg.num_layers,
                d_model=cfg.d_model, batch=B, prompt_len=S, flip=args.flip,
                capacity_factor=(cfg.moe_capacity_factor
-                                if cfg.family == "moe" else None),
+                                if cfg.num_experts else None),
                device=str(dev), seconds=time.perf_counter() - t0)
     return res
 

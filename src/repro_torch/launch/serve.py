@@ -5,6 +5,8 @@
       --reduced --batch 8 --prompt-len 64 --gen 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-1b-a400m --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --reduced --device cpu
 
 As in the reference, the loop is decode-only: the prompt is fed through
 ``decode_step`` one position at a time into a cache sized for prompt and

@@ -38,10 +38,12 @@ def cache_dtype_of(cfg) -> torch.dtype:
 def normal(gen: torch.Generator, shape, device, std: float = 1.0,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``std * N(0, 1)`` drawn in float32 from ``gen`` (which lives on
-    ``device``), then cast to ``dtype``."""
+    ``device``), then cast to ``dtype``.  The draw is scaled in place, so
+    one float32 copy is live besides the result (a float32 (256, 7168,
+    2048) expert weight is 15 GB)."""
     x = torch.randn(tuple(shape), generator=gen, device=device,
                     dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -195,8 +197,9 @@ def _attention_card(qs, k, v, *, causal, q_offset, window, kv_valid_len,
                     q_chunk):
     """The CUDA branch of :func:`attention`: K7 with ``scale=1`` on the
     pre-scaled q, for ``q_offset == Skv - Sq`` and no ``kv_valid_len``;
-    any other call raises.  K7 tiles the queries itself (no
-    ``q_chunk``)."""
+    any other call raises.  v passes at its own width (MLA's 128 beside
+    q and k's 192; K7 raises for a pair it does not take).  K7 tiles the
+    queries itself (no ``q_chunk``)."""
     Sq, Skv = qs.shape[1], k.shape[1]
     if kv_valid_len is not None or int(q_offset) != Skv - Sq:
         raise not_ported(
@@ -212,8 +215,9 @@ def _attention_card(qs, k, v, *, causal, q_offset, window, kv_valid_len,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_offset, window: int = 0,
               kv_valid_len=None, q_chunk: int = 1024) -> torch.Tensor:
-    """Grouped-query attention.  q: (B, Sq, H, hd); k, v: (B, Skv, K, hd)
-    with H = K * G; the output has q's dtype.  ``q_offset``: absolute
+    """Grouped-query attention.  q: (B, Sq, H, hd); k: (B, Skv, K, hd);
+    v: (B, Skv, K, hd_v) with H = K * G; the output, (B, Sq, H, hd_v),
+    has q's dtype.  ``q_offset``: absolute
     position of q[0]; ``window`` > 0 masks to ``|i - j| < window``;
     ``kv_valid_len`` masks kv positions >= it.
 

@@ -1,5 +1,5 @@
-"""The transformer zoo's serving path, ``dense``, ``ssm``, ``hybrid`` and
-``moe`` families (PyTorch port of the reference's
+"""The transformer zoo's serving path, ``dense``, ``ssm``, ``hybrid``,
+``moe`` and ``mla_moe`` families (PyTorch port of the reference's
 ``models/transformer/model.py``): init, forward, prefill (forward +
 cache) and one-token decode.
 
@@ -16,13 +16,21 @@ per group), and :func:`decode_step` writes them in place (the reference
 donates them).  The ``moe`` family (Granite) is the dense block with the
 MLP replaced by the experts (:func:`_moe`: GShard dispatch, or expert
 parallelism with ``moe_impl="ep"``), with the dense family's K/V cache.
+The ``mla_moe`` family (DeepSeek-V3) runs MLA blocks
+(:func:`~repro_torch.models.transformer.attention.mla_forward`, its
+prefill through K7 at q/k 192 and v 128 on the card; the absorbed
+``mla_decode``), the first ``first_dense_layers`` with the dense MLP
+(``params["dense_layers"]``), the rest with the experts
+(``params["moe_layers"]``); its cache is the latent one, ``{"dense":
+{"c", "kr"}, "moe": {"c", "kr"}}``, ``(n_layers, B, C, kv_lora_rank)``
+and ``(n_layers, B, C, qk_rope_head_dim)``.
 
 Batch conventions:
   forward / prefill:  {"tokens": (B, S) int}
   decode:             {"token": (B, 1) int, "pos": int}
 
-The other families (``mla_moe``, ``encdec``, ``vlm``) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The other families (``encdec``, ``vlm``) raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -40,12 +48,16 @@ from repro_torch.models.transformer import ssm as S
 
 def _require_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in ("mla_moe", "encdec", "vlm"):
+        if cfg.family in ("encdec", "vlm"):
             raise not_ported(f"the {cfg.family!r} family ({cfg.name})",
                              cfg.family, NotImplementedError)
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         _hybrid_groups(cfg)
+    if cfg.family == "mla_moe" and not \
+            0 <= cfg.first_dense_layers <= cfg.num_layers:
+        raise ValueError(f"first_dense_layers {cfg.first_dense_layers} "
+                         f"outside 0..num_layers {cfg.num_layers}")
 
 
 def _hybrid_groups(cfg) -> int:
@@ -77,6 +89,20 @@ def _init_moe_layer(cfg, gen, dtype, device):
             "ln2": L.init_norm(cfg, cfg.d_model, device)}
 
 
+def _init_mla_dense_layer(cfg, gen, dtype, device):
+    return {"attn": A.init_mla(cfg, gen, dtype, device),
+            "mlp": L.init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device)}
+
+
+def _init_mla_moe_layer(cfg, gen, dtype, device):
+    return {"attn": A.init_mla(cfg, gen, dtype, device),
+            "moe": MOE.init_moe(cfg, gen, dtype, device),
+            "ln1": L.init_norm(cfg, cfg.d_model, device),
+            "ln2": L.init_norm(cfg, cfg.d_model, device)}
+
+
 def _init_ssm_layer(cfg, gen, dtype, device):
     return {"ssm": S.init_ssm(cfg, gen, dtype, device),
             "ln": L.init_norm(cfg, cfg.d_model, device)}
@@ -91,6 +117,14 @@ def init_params(cfg, gen: torch.Generator, *,
     dtype = L.dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {"embed": L.init_embed(cfg, gen, dtype, device),
                               "ln_f": L.init_norm(cfg, cfg.d_model, device)}
+    if cfg.family == "mla_moe":
+        nd = cfg.first_dense_layers
+        params["dense_layers"] = [_init_mla_dense_layer(cfg, gen, dtype,
+                                                        device)
+                                  for _ in range(nd)]
+        params["moe_layers"] = [_init_mla_moe_layer(cfg, gen, dtype, device)
+                                for _ in range(cfg.num_layers - nd)]
+        return params
     layer = {"dense": _init_dense_layer, "moe": _init_moe_layer}.get(
         cfg.family, _init_ssm_layer)
     params["layers"] = [layer(cfg, gen, dtype, device)
@@ -115,6 +149,11 @@ def param_count(params) -> int:
     return sum(t.numel() for t in _leaves(params))
 
 
+#: the param keys that hold a list of layers (a stacked leading axis in
+#: the reference)
+STACKS = frozenset({"layers", "dense_layers", "moe_layers"})
+
+
 def _map(fn, want, given):
     """``fn(want_leaf, given_leaf)`` over two param trees of one layout."""
     if isinstance(want, torch.Tensor):
@@ -136,9 +175,10 @@ def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
                       = "cuda") -> Dict[str, Any]:
     """The port's params holding the reference's: ``tree`` is the
     reference's ``init_params`` pytree mapped to numpy, with stacked
-    ``(num_layers, ...)`` leaves under ``layers`` (the hybrid's
-    ``shared_attn`` is one unstacked layer).  Keys and shapes must match
-    the port's own; each leaf takes the port's dtype for it."""
+    ``(n_layers, ...)`` leaves under ``layers`` (or, in ``mla_moe``,
+    ``dense_layers`` and ``moe_layers``; the hybrid's ``shared_attn`` is
+    one unstacked layer).  Keys and shapes must match the port's own;
+    each leaf takes the port's dtype for it."""
     skeleton = init_params(cfg, torch.Generator(), device="meta")
     device = torch.device(device)
 
@@ -159,11 +199,10 @@ def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
         raise ValueError(f"top-level keys {sorted(tree)} != "
                          f"{sorted(skeleton)}")
     out = {k: convert(skeleton[k], tree[k], k)
-           for k in skeleton if k != "layers"}
-    stacked = tree["layers"]
-    out["layers"] = [
-        convert(want, _index(stacked, i), f"layers[{i}]")
-        for i, want in enumerate(skeleton["layers"])]
+           for k in skeleton if k not in STACKS}
+    for name in STACKS.intersection(skeleton):
+        out[name] = [convert(want, _index(tree[name], i), f"{name}[{i}]")
+                     for i, want in enumerate(skeleton[name])]
     return out
 
 
@@ -194,8 +233,9 @@ def _moe(cfg, p, x):
 
 def _ffn(cfg, p, h):
     """The feed-forward half of an attention block: the experts in a
-    ``moe`` layer, the MLP in any other."""
-    if cfg.family == "moe":
+    layer that has them (``moe``, ``mla_moe``'s MoE layers), the MLP in
+    any other."""
+    if "moe" in p:
         return _moe(cfg, p["moe"], h)
     return L.mlp(cfg, h, p["mlp"])
 
@@ -212,21 +252,56 @@ def _ssm_body(cfg, x, p):
     return x + S.ssm_forward(cfg, p["ssm"], h)
 
 
+def _mla_body(cfg, x, p, positions):
+    h = L.apply_norm(cfg, x, p["ln1"])
+    x = x + A.mla_forward(cfg, p["attn"], h, positions)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    return x + _ffn(cfg, p, h)
+
+
+def _mla_layers(params):
+    """``mla_moe``'s layers in order, each with its cache stack's name and
+    its index there: the dense ones, then the MoE ones."""
+    for stack in ("dense", "moe"):
+        for i, p in enumerate(params[f"{stack}_layers"]):
+            yield stack, i, p
+
+
+def _to_ring(dst, src):
+    """The prompt's rows ``src`` (B, S, ...) into one layer's cache ``dst``
+    (B, C, ...): position p in ring slot p % C, the last C positions kept
+    (C == S without a window)."""
+    Ssz, C = src.shape[1], dst.shape[1]
+    kept = torch.arange(max(0, Ssz - C), Ssz, device=src.device)
+    dst[:, kept % C] = src[:, kept].to(dst.dtype)
+
+
 def _dense_prefill(cfg, x, p, positions, cache, i):
     """One dense block over the prompt, its keys and values into slot
-    ``i`` of ``cache`` ({"k", "v"} of capacity C): position p in ring slot
-    p % C, the last C positions kept (C == S without a window)."""
-    Ssz, C = x.shape[1], cache["k"].shape[2]
-    kept = torch.arange(max(0, Ssz - C), Ssz, device=x.device)
-    slots = kept % C
+    ``i`` of ``cache`` ({"k", "v"}; :func:`_to_ring`)."""
     hh = L.apply_norm(cfg, x, p["ln1"])
     o, (k, v) = A.gqa_forward(cfg, p["attn"], hh, positions,
                               window=cfg.sliding_window, return_kv=True)
     x = x + o
     hh = L.apply_norm(cfg, x, p["ln2"])
     x = x + _ffn(cfg, p, hh)
-    cache["k"][i][:, slots] = k[:, kept].to(cache["k"].dtype)
-    cache["v"][i][:, slots] = v[:, kept].to(cache["v"].dtype)
+    _to_ring(cache["k"][i], k)
+    _to_ring(cache["v"][i], v)
+    return x
+
+
+def _mla_prefill(cfg, x, p, positions, cache, i):
+    """One MLA block over the prompt, its normalized latent and rotary key
+    into slot ``i`` of ``cache`` ({"c", "kr"}; :func:`_to_ring`)."""
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, (c_n, kr) = A.mla_forward(cfg, p["attn"], hh, positions,
+                                 window=cfg.sliding_window,
+                                 return_cache=True)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    x = x + _ffn(cfg, p, hh)
+    _to_ring(cache["c"][i], c_n)
+    _to_ring(cache["kr"][i], kr)
     return x
 
 
@@ -249,6 +324,9 @@ def forward(cfg, params, batch) -> torch.Tensor:
     if cfg.family in ("dense", "moe"):
         for p in params["layers"]:
             x = _dense_body(cfg, x, p, positions)
+    elif cfg.family == "mla_moe":
+        for _, _, p in _mla_layers(params):
+            x = _mla_body(cfg, x, p, positions)
     else:
         for i, p in enumerate(params["layers"]):
             x = _ssm_body(cfg, x, p)
@@ -267,8 +345,16 @@ def init_cache(cfg, batch_size: int, cache_len: int, *,
     """Zero cache for decode: keys and values for ``cache_len`` positions
     (a ring of ``sliding_window`` slots when that is smaller), the SSM
     state and conv window, or (hybrid) both: ``{"ssm": ..., "attn":
-    ...}`` with one K/V slot per group of ``attn_every`` layers."""
+    ...}`` with one K/V slot per group of ``attn_every`` layers, or
+    (mla_moe) the latent cache of each stack, ``{"dense": {"c", "kr"},
+    "moe": {"c", "kr"}}``."""
     _require_family(cfg)
+    if cfg.family == "mla_moe":
+        nd = cfg.first_dense_layers
+        return {"dense": _latent_cache(cfg, nd, batch_size, cache_len,
+                                       device),
+                "moe": _latent_cache(cfg, cfg.num_layers - nd, batch_size,
+                                     cache_len, device)}
     if cfg.family == "ssm":
         return _ssm_cache(cfg, cfg.num_layers, batch_size, device)
     if cfg.family == "hybrid":
@@ -279,14 +365,27 @@ def init_cache(cfg, batch_size: int, cache_len: int, *,
     return _kv_cache(cfg, cfg.num_layers, batch_size, cache_len, device)
 
 
+def _capacity(cfg, cache_len):
+    return (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+            else cache_len)
+
+
 def _kv_cache(cfg, n_layers, batch_size, cache_len, device):
     dt = L.cache_dtype_of(cfg)
-    C = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
-         else cache_len)
-    shape = (n_layers, batch_size, C, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (n_layers, batch_size, _capacity(cfg, cache_len),
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _latent_cache(cfg, n_layers, batch_size, cache_len, device):
+    dt = L.cache_dtype_of(cfg)
+    C = _capacity(cfg, cache_len)
+    return {"c": torch.zeros((n_layers, batch_size, C, cfg.kv_lora_rank),
+                             dtype=dt, device=device),
+            "kr": torch.zeros((n_layers, batch_size, C,
+                               cfg.qk_rope_head_dim), dtype=dt,
+                              device=device)}
 
 
 def _ssm_cache(cfg, n_layers, batch_size, device):
@@ -314,6 +413,9 @@ def decode_step(cfg, params, cache, batch):
     if cfg.family in ("dense", "moe"):
         for i, p in enumerate(params["layers"]):
             x = _dense_decode(cfg, x, p, cache, i, pos)
+    elif cfg.family == "mla_moe":
+        for stack, i, p in _mla_layers(params):
+            x = _mla_decode(cfg, x, p, cache[stack], i, pos)
     elif cfg.family == "ssm":
         for i, p in enumerate(params["layers"]):
             x = _ssm_decode(cfg, x, p, cache, i)
@@ -333,6 +435,17 @@ def _dense_decode(cfg, x, p, cache, i, pos):
     hh = L.apply_norm(cfg, x, p["ln1"])
     o, _, _ = A.gqa_decode(cfg, p["attn"], hh, cache["k"][i], cache["v"][i],
                            pos, window=cfg.sliding_window)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    return x + _ffn(cfg, p, hh)
+
+
+def _mla_decode(cfg, x, p, cache, i, pos):
+    """One MLA block on one token, its latent and rotary key into slot
+    ``i`` of ``cache`` ({"c", "kr"}) in place."""
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, _, _ = A.mla_decode(cfg, p["attn"], hh, cache["c"][i],
+                           cache["kr"][i], pos, window=cfg.sliding_window)
     x = x + o
     hh = L.apply_norm(cfg, x, p["ln2"])
     return x + _ffn(cfg, p, hh)
@@ -368,6 +481,10 @@ def prefill(cfg, params, batch):
         cache = init_cache(cfg, B, Ssz, device=tokens.device)
         for i, p in enumerate(params["layers"]):
             x = _dense_prefill(cfg, x, p, positions, cache, i)
+    elif cfg.family == "mla_moe":
+        cache = init_cache(cfg, B, Ssz, device=tokens.device)
+        for stack, i, p in _mla_layers(params):
+            x = _mla_prefill(cfg, x, p, positions, cache[stack], i)
     else:
         states, convs = [], []
         if cfg.family == "hybrid":

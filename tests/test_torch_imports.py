@@ -52,7 +52,8 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'configs.granite_moe_1b_a400m', 'examples',\n"
         "             'examples.quickstart', 'examples.serve_gnn',\n"
         "             'examples.serve_batched',\n"
-        "             'examples.distributed_gnn'):\n"
+        "             'examples.distributed_gnn',\n"
+        "             'configs.deepseek_v3_671b'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

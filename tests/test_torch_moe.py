@@ -105,6 +105,24 @@ def test_moe_fields_and_reduced_match_the_reference():
         set(names)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", GRANITE])
+def test_mla_fields_and_reduced_match_the_reference(arch):
+    """The five MLA fields of the published config and of ``reduced()``
+    (the MLA branch: q_lora 64, kv_lora 32, rope 16, nope 32, v 32;
+    untouched, all 0, where the config has no MLA)."""
+    names = ("q_lora_rank", "kv_lora_rank", "qk_rope_head_dim",
+             "qk_nope_head_dim", "v_head_dim")
+    rc, c = ref_base.get_config(arch), base.get_config(arch)
+    for cut in ((rc, c), (rc.reduced(), c.reduced())):
+        assert {n: getattr(cut[1], n) for n in names} == \
+            {n: getattr(cut[0], n) for n in names}
+    want = (1536, 512, 64, 128, 128) if c.family == "mla_moe" else \
+        (0,) * 5
+    assert tuple(getattr(c, n) for n in names) == want
+    assert {f.name for f in dataclasses.fields(base.ModelConfig)} >= \
+        set(names)
+
+
 # ---------------------------------------------------------------------------
 # the router and the blocks
 # ---------------------------------------------------------------------------
