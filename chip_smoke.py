@@ -136,7 +136,8 @@ Phases, in order; any failure makes the exit code nonzero:
    8 x 32, N 16, chunk 16, timed; a chunk of 300) off the tensor-core
    tile on the CUDA-core route, each case's route printed and every
    launch counted under its route's counter; the calls K7 does not
-   compute raise on the card;
+   compute raise on the card, and K7 and K8 refuse an input that
+   requires grad (naming ROADMAP item 10e) but run under no_grad;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
@@ -226,7 +227,37 @@ Phases, in order; any failure makes the exit code nonzero:
    width in float32 (weights drawn on the CPU), 1 x 256 tokens, on the
    card and the CPU within 1e-4 of the largest output; (e) the serving
    launcher's decode-only loop at ``--reduced``, no K7 launch;
-17. (run after 18, before 14) the port's four examples as ``python -m
+19. (run after 18, before 17) serve Whisper-tiny (the encdec family: 4
+   encoder + 4 decoder layers, d 384, 6 / 6 x 64 heads, LayerNorm, GELU,
+   learned positions) and Qwen2-VL-7B (the vlm family: 28 layers, d
+   3584, 28 / 4 x 128, M-RoPE sections (16, 24, 24)) at their published
+   widths, their frontends stubbed as in the reference: (a) K7 against
+   its plain version in bf16 (element by element) and float32 (1e-4 of
+   the largest value) at Whisper's encoder (8 x 1500 frames, non-causal),
+   its cross attention from a 224-token prompt and from one decode token
+   (Sq 224 and 1 against Skv 1500, non-causal, q_offset 0) and Qwen2-VL's
+   prefill (8 x 1024, causal), each timed beside its bound and SDPA's
+   time; (b) Whisper-tiny in bf16, 1 500 frame embeddings (its 30-s
+   window after the conv stem) and a 224-token prompt, B 8: exactly 12
+   K7 launches a prefill (4 encoder, 4 causal decoder, 4 cross), then 32
+   decode steps in its grown self cache (the cross cache kept) with
+   exactly 4 K7 launches each (cross attention), finite logits, tok/s,
+   peak memory, cache bytes; (c) Qwen2-VL-7B in bf16 at full depth (~7.6
+   B parameters), 8 x 1024 embeddings at Qwen2-VL's M-RoPE image layout
+   (128 text, a 24 x 32 grid of merged patches, 128 text): exactly 28 K7
+   launches a prefill, 32 decode steps on the generated tokens'
+   embeddings launching none, a ``torch.profiler`` split of the prefill
+   by kind; (d) float32 prefill against the decode-only loop through
+   ``launch/prefill_gap.py`` over 2 x 256 positions (Whisper at full
+   depth with 1 500 frames, its loop's cross cache from a prefill over
+   the first token; Qwen2-VL on a 4-layer cut at text-style positions),
+   within 1e-3 of the largest logit, K7's float32 route the expected
+   number of times, the ``--flip`` control (the last position changed)
+   above 100x the gap and the bound; (e) Whisper's first encoder block,
+   its first decoder block (self and cross attention) and Qwen2-VL's
+   first block under the image layout, float32, card against CPU within
+   1e-4 of the largest output;
+17. (run after 19, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
    seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
    side, then ``distributed_gnn``: three runs in a world of 8 ranks,
@@ -2311,7 +2342,8 @@ def k7_case(torch, c, label, B, H, K, Sq, Skv, hd, *, hd_v=None, window=0,
     if window:
         mask &= kpos > qpos - window
     pairs = int(mask.sum())
-    sdpa_kw = ({"is_causal": True} if causal and not window and Sq == Skv
+    sdpa_kw = ({} if not causal and not window else
+               {"is_causal": True} if causal and not window and Sq == Skv
                else {"attn_mask": mask})
     bf16 = dtype == torch.bfloat16
     p_term = (BF16_P_REL * fa.flash_attention_plain(
@@ -2538,6 +2570,25 @@ def phase_lm_kernels(torch, results):
         else:
             raise RuntimeError(f"check failed: attention with {what} ran "
                                f"on the card")
+    # K7 and K8 are forward only: an input that requires grad (grad
+    # enabled) raises, naming ROADMAP item 10e; under no_grad they run
+    from repro_torch.kernels import ops
+    q = c.randn(1, 4, 128, 64).to(torch.bfloat16).requires_grad_()
+    x = c.randn(2, 64, 4, 64).requires_grad_()
+    dt, A_, Bm = c.randn(2, 64, 4).abs(), -c.randn(4).abs(), c.randn(2, 64, 1,
+                                                                     64)
+    for what, call in (("K7", lambda: ops.flash_attention(q, q, q)),
+                       ("K8", lambda: ops.ssd_chunk_state(x, dt, A_, Bm))):
+        try:
+            call()
+        except NotImplementedError as e:
+            require("item 10e" in str(e), f"{what}'s refusal names 10e: {e}")
+            print(f"   {what} on an input that requires grad refused: {e}")
+        else:
+            raise RuntimeError(f"check failed: {what} ran on an input that "
+                               f"requires grad")
+        with torch.no_grad():
+            require(not call().requires_grad, f"{what} runs under no_grad")
 
 
 def _with_room(torch, cache, n):
@@ -2545,7 +2596,11 @@ def _with_room(torch, cache, n):
     ``n`` zero slots more for the decode steps that follow, wherever it
     holds keys and values (the hybrid's nested ``attn``) or latents
     (mla_moe's ``{"c", "kr"}`` of each stack); an SSM cache holds no
-    positions."""
+    positions, and encdec's cross cache keeps the encoder's (zero slots
+    there would add exp(0 - m) terms to every cross softmax)."""
+    if "cross" in cache:
+        return {"self": _with_room(torch, cache["self"], n),
+                "cross": cache["cross"]}
     if "k" not in cache and "c" not in cache:
         return {k: _with_room(torch, c, n) if isinstance(c, dict) else c
                 for k, c in cache.items()}
@@ -2794,27 +2849,53 @@ def phase_mamba2(torch, results):
     lm_phase(torch, MAMBA2, results)
 
 
+def _prefix(batch, n):
+    """prefill's batch cut to its first ``n`` decoder positions (vlm's
+    M-RoPE positions along their last axis; encdec's frames kept)."""
+    out = dict(batch)
+    for key in ("tokens", "embeds"):
+        if key in out:
+            out[key] = out[key][:, :n]
+    if "positions" in out:
+        out["positions"] = out["positions"][..., :n]
+    return out
+
+
 def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
-                     profile=None) -> dict:
-    """bf16 at full width and depth, random weights (phases 13, 15 and
-    16): a prefill of ``prompts`` (LM_BATCH x LM_PROMPT) that launches
-    exactly ``expected`` (launches by counter), LM_GEN decode steps in its
-    grown cache that launch nothing, finite logits; tok/s, peak memory
-    and the cache's bytes.  ``profile(params, cache, tok, out)``, where
+                     profile=None, decode_expected=None) -> dict:
+    """bf16 at full width and depth, random weights (phases 13, 15, 16,
+    18 and 19): a prefill of ``prompts`` (token ids (B, S), or prefill's
+    batch for the stub-frontend families: vlm's embeddings at M-RoPE
+    positions, encdec's frames beside the tokens) that launches exactly
+    ``expected`` (launches by counter), LM_GEN decode steps in its grown
+    cache that each launch exactly ``decode_expected`` (default nothing),
+    finite logits; tok/s (of the S decoder positions), peak memory and
+    the cache's bytes.  A vlm decode step reads the embedding of the
+    token it generated.  ``profile(params, cache, tok, out)``, where
     given, runs last, with the weights, the grown cache and the last
     token still held, and its dict goes under ``"profile"``."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import model as M
-    dev, V = prompts.device, cfg.vocab_size
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    feed = batch.get("tokens", batch.get("embeds"))
+    dev, V = feed.device, cfg.vocab_size
+    B, S = feed.shape[:2]
+    decode_expected = decode_expected or {}
     with torch.inference_mode():
         params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                device=dev)
-        M.prefill(cfg, params, {"tokens": prompts[:, :256]})      # warm-up
+
+        def step(tok):
+            if cfg.family == "vlm":
+                return {"embeds": params["embed"]["embedding"][tok]}
+            return {"token": tok}
+
+        M.prefill(cfg, params, _prefix(batch, 256))               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = M.prefill(cfg, params, {"tokens": prompts})
+        logits, cache = M.prefill(cfg, params, batch)
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         counts = {k: v for k, v in ops.launch_counts().items() if v}
@@ -2824,34 +2905,37 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
         cache = _with_room(torch, cache, LM_GEN)
         torch.cuda.reset_peak_memory_stats()
         tok = torch.argmax(logits[:, :V], -1)[:, None]
+        steps = []
         t0 = time.perf_counter()
         for i in range(LM_GEN):
+            ops.reset_launch_counts()
             logits, cache = M.decode_step(cfg, params, cache,
-                                          {"token": tok,
-                                           "pos": LM_PROMPT + i})
+                                          dict(step(tok), pos=S + i))
+            steps.append({k: v for k, v in ops.launch_counts().items()
+                          if v})
             tok = torch.argmax(logits[:, :V], -1)[:, None]
         torch.cuda.synchronize()
         t_decode = time.perf_counter() - t0
         finite = finite and bool(torch.isfinite(logits.float()).all())
-        decode_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        results[f"launches.lm_decode.{arch}"] = steps[-1]
         out = {
-            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+            "batch": B, "prompt": S, "gen": LM_GEN,
             "params": M.param_count(params),
             "prefill_ms": t_prefill * 1e3,
-            "prefill_tok_s": LM_BATCH * LM_PROMPT / t_prefill,
+            "prefill_tok_s": B * S / t_prefill,
             "decode_ms_per_step": t_decode / LM_GEN * 1e3,
-            "decode_tok_s": LM_BATCH * LM_GEN / t_decode,
+            "decode_tok_s": B * LM_GEN / t_decode,
             "max_memory_allocated": max(peak_prefill,
                                         torch.cuda.max_memory_allocated()),
             "cache_bytes": cache_bytes(cache),
-            "launches": counts}
-        print(f"   (b) bf16, {cfg.num_layers} layers: prefill {LM_BATCH} x "
-              f"{LM_PROMPT}, then {LM_GEN} decode steps: " + json.dumps(out),
-              flush=True)
+            "launches": counts, "launches_per_decode_step": steps[-1]}
+        print(f"   (b) bf16, {cfg.num_layers} layers: prefill {B} x {S}, "
+              f"then {LM_GEN} decode steps: " + json.dumps(out), flush=True)
         require(finite, "finite prefill and decode logits")
-        require(counts == expected and decode_counts == counts,
-                f"a prefill launches exactly {expected} and the decode "
-                f"steps nothing: {counts}, {decode_counts}")
+        require(counts == expected and all(
+            c == decode_expected for c in steps),
+                f"a prefill launches exactly {expected} and each decode "
+                f"step {decode_expected}: {counts}, {steps}")
         if profile is not None:
             out["profile"] = profile(params, cache, tok, out)
         del params, cache, logits
@@ -3470,6 +3554,260 @@ def phase_deepseek(torch, results):
             "finite decode logits")
     require(not counts, f"the decode-only loop launches no kernel: {counts}")
     results[f"lm.{DSV3}"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the encdec (Whisper-tiny) and vlm (Qwen2-VL-7B) families
+# ---------------------------------------------------------------------------
+
+WHISPER, QWEN2VL = "whisper-tiny", "qwen2-vl-7b"
+# 19(b): Whisper's 30-s window, 1 500 frame embeddings after its stride-2
+# conv stem (stubbed, as in the reference), and a 224-token decoder prompt
+# (32 decode steps stay within its 448-token context)
+WHISPER_ENC_LEN, WHISPER_PROMPT = 1500, 224
+# 19(c): Qwen2-VL's M-RoPE layout over LM_PROMPT positions: text tokens,
+# a grid of merged patches (rows x cols), text tokens
+QWEN2VL_LAYOUT = (128, 24, 32, 128)
+# 19(d): float32 prefill against the decode-only loop over 2 x 256
+# positions, Whisper at full depth, Qwen2-VL on a 4-layer cut at full
+# width; the control (the last token, or its embedding, changed) must
+# lie above ENCDEC_VLM_FLIP_FACTOR times the gap and above the bound
+ENCDEC_VLM_CMP, QWEN2VL_FP32_LAYERS, ENCDEC_VLM_FLIP_FACTOR = 256, 4, 100.0
+LM_FP32_REL[WHISPER] = LM_FP32_REL[QWEN2VL] = 1e-3
+# 19(e): Qwen2-VL's first block on the card and the CPU in float32, under
+# this M-RoPE layout (32 text, a 12 x 16 grid, 32 text: 256 positions)
+QWEN2VL_BLOCK_LAYOUT = (32, 12, 16, 32)
+
+
+def mrope_positions(torch, B, n_text, gh, gw, n_after, dev):
+    """Qwen2-VL's M-RoPE position ids (3, B, S) for ``n_text`` text tokens
+    (t = h = w = i), a gh x gw grid of merged patches (t = n_text, h =
+    n_text + row, w = n_text + col) and ``n_after`` text tokens continuing
+    from n_text + max(gh, gw), as Qwen2-VL numbers an image's patches."""
+    text = torch.arange(n_text, device=dev).expand(3, n_text)
+    rows = torch.arange(gh, device=dev).repeat_interleave(gw)
+    cols = torch.arange(gw, device=dev).repeat(gh)
+    img = torch.stack([torch.zeros_like(rows), rows, cols]) + n_text
+    after = (n_text + max(gh, gw) + torch.arange(n_after, device=dev)
+             ).expand(3, n_after)
+    pos = torch.cat([text, img, after], dim=1)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+
+
+def encdec_vlm_k7_cases(torch, wcfg, qcfg, results) -> dict:
+    """19(a): K7 at the new call shapes, each in bf16 (element by element,
+    as phase 8) and float32 (1e-4 of the largest value), timed beside its
+    bound and SDPA's time: Whisper's encoder (non-causal, Se x Se), its
+    cross attention from prefill (Sd x Se) and from one-token decode (1 x
+    Se), and Qwen2-VL's causal prefill (G 7, hd 128)."""
+    c = Checker(torch, seed=19)
+    Bsz, Se, Sd, S = LM_BATCH, WHISPER_ENC_LEN, WHISPER_PROMPT, LM_PROMPT
+    wh = (wcfg.num_heads, wcfg.num_kv_heads)
+    qh = (qcfg.num_heads, qcfg.num_kv_heads)
+    cases = (
+        ("whisper.encoder", f"K7 {wcfg.name} encoder (B {Bsz}, {Se} x {Se}, "
+         f"{wh[0]} / {wh[1]} x {wcfg.resolved_head_dim}, non-causal)",
+         (Bsz, *wh, Se, Se, wcfg.resolved_head_dim), {"causal": False}),
+        ("whisper.cross_prefill", f"K7 {wcfg.name} cross attention, prefill "
+         f"(B {Bsz}, Sq {Sd} x Skv {Se})",
+         (Bsz, *wh, Sd, Se, wcfg.resolved_head_dim), {"causal": False}),
+        ("whisper.cross_decode", f"K7 {wcfg.name} cross attention, decode "
+         f"(B {Bsz}, Sq 1 x Skv {Se})",
+         (Bsz, *wh, 1, Se, wcfg.resolved_head_dim), {"causal": False}),
+        (QWEN2VL, f"K7 {qcfg.name} prefill (B {Bsz}, S {S}, {qh[0]} / "
+         f"{qh[1]} x {qcfg.resolved_head_dim}, causal)",
+         (Bsz, *qh, S, S, qcfg.resolved_head_dim), {}))
+    out = {}
+    for dname, dtype, counter in (("bf16", torch.bfloat16, "flash_attention"),
+                                  ("float32", torch.float32,
+                                   "flash_attention_fp32")):
+        for key, label, shape, kw in cases:
+            r = k7_case(torch, c, f"{label}, {dname}", *shape, dtype=dtype,
+                        **kw)
+            results[f"{counter}.{key}"] = r
+            out[f"{key}.{dname}"] = r
+    return out
+
+
+def encdec_vlm_gap(torch, arch, cfg_name, layers, expected, reduced,
+                   results):
+    """19(d): float32 prefill against the decode-only loop through
+    ``launch/prefill_gap.py`` over 2 x ENCDEC_VLM_CMP positions (Whisper
+    with WHISPER_ENC_LEN frames), the launches of both paths by counter
+    (``expected``), and the ``--flip`` control (the last position's token,
+    or Qwen2-VL's embedding, changed)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prefill_gap
+    S_cmp = min(ENCDEC_VLM_CMP, LM_PROMPT)
+    flags = (["--arch", arch, "--dtype", "float32", "--batch", "2",
+              "--prompt-len", str(S_cmp), "--enc-len", str(WHISPER_ENC_LEN)]
+             + (["--layers", str(layers)] if layers else []) + reduced)
+    ops.reset_launch_counts()
+    g = prefill_gap.run(flags)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    results[f"launches.lm_fp32.{arch}"] = counts
+    torch.cuda.empty_cache()
+    flip = prefill_gap.run(flags + ["--flip", str(S_cmp - 1)])
+    torch.cuda.empty_cache()
+    bound = LM_FP32_REL[arch]
+    print(f"   (d) {cfg_name}, float32, {g['layers']} layers, 2 x {S_cmp}: "
+          f"prefill vs the decode-only loop " + json.dumps(g) + f" (bound "
+          f"{bound} of the largest logit); launches {counts}", flush=True)
+    print(f"   (d) control, position {S_cmp - 1} changed: max_abs_rel "
+          f"{flip['max_abs_rel']}", flush=True)
+    require(counts == expected, f"{cfg_name}: the float32 prefill and the "
+            f"decode-only loop launch {expected}: {counts}")
+    require(g["max_abs_rel"] <= bound,
+            f"{cfg_name}: float32 prefill agrees with the decode-only loop: "
+            f"{g}")
+    require(flip["max_abs_rel"] > max(bound, ENCDEC_VLM_FLIP_FACTOR
+                                      * g["max_abs_rel"]),
+            f"{cfg_name}: the control lies clearly above the gap: {flip}")
+    return dict(g, launches=counts, flip_control=flip)
+
+
+def _card_vs_cpu(torch, label, fn, params, inputs, want_launches) -> dict:
+    """``fn(params, *inputs)`` in float32 on the CPU and on the card
+    (params and inputs copied there): within 1e-4 of the largest CPU
+    output, with exactly ``want_launches`` on the card."""
+    from repro_torch.kernels import ops
+    with torch.inference_mode():
+        want = fn(params, *inputs)
+        ops.reset_launch_counts()
+        got = fn(_to_cuda(params), *(t.cuda() for t in inputs)).cpu()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    res = {"max_abs_err": err, "max_abs_cpu": scale, "launches": counts}
+    print(f"   (e) {label}, float32, card vs CPU: " + json.dumps(res),
+          flush=True)
+    require(counts == want_launches,
+            f"{label} launches {want_launches}: {counts}")
+    require(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale,
+            f"{label}, card vs CPU: {err} (max|cpu| {scale})")
+    return res
+
+
+def encdec_vlm_block_parity(torch, wcfg, qcfg) -> dict:
+    """19(e): Whisper's first encoder block (non-causal) over 1 x
+    WHISPER_ENC_LEN frames, its first decoder block (causal self and
+    cross attention) over 1 x WHISPER_PROMPT positions against a random
+    encoder output, and Qwen2-VL's first block under the
+    QWEN2VL_BLOCK_LAYOUT M-RoPE positions, each in float32 with weights
+    drawn on the CPU, on the card and the CPU."""
+    from repro_torch.models.transformer import attention as A
+    from repro_torch.models.transformer import model as M
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    w32, q32 = wcfg.replace(**f32), qcfg.replace(**f32)
+    gen = torch.Generator().manual_seed(3)
+
+    def x(*shape):
+        return torch.randn(shape, generator=gen)
+
+    Se, Sd = WHISPER_ENC_LEN, WHISPER_PROMPT
+    out = {}
+    enc_p = M._init_encdec_layer(w32, gen, torch.float32, "cpu", cross=False)
+    out["whisper_encoder_block"] = _card_vs_cpu(
+        torch, f"{wcfg.name}'s first encoder block, 1 x {Se}",
+        lambda p, h, pos: M._dense_body(w32, h, p, pos, causal=False),
+        enc_p, (x(1, Se, w32.d_model), torch.arange(Se)[None]),
+        {"flash_attention_fp32": 1})
+
+    def dec(p, h, pos, enc):
+        xk, xv = A._kv(w32, p["xattn"], enc)
+        return M._dec_body(w32, h, p, pos, xk, xv)[0]
+
+    dec_p = M._init_encdec_layer(w32, gen, torch.float32, "cpu", cross=True)
+    out["whisper_decoder_block"] = _card_vs_cpu(
+        torch, f"{wcfg.name}'s first decoder block, 1 x {Sd} over {Se} "
+        f"frames", dec, dec_p, (x(1, Sd, w32.d_model),
+                                torch.arange(Sd)[None],
+                                x(1, Se, w32.d_model)),
+        {"flash_attention_fp32": 2})
+    pos = mrope_positions(torch, 1, *QWEN2VL_BLOCK_LAYOUT, "cpu")
+    q_p = M._init_dense_layer(q32, gen, torch.float32, "cpu")
+    out["qwen2vl_block"] = _card_vs_cpu(
+        torch, f"{qcfg.name}'s first block, 1 x {pos.shape[-1]}, M-RoPE "
+        f"layout {QWEN2VL_BLOCK_LAYOUT}",
+        lambda p, h, ps: M._dense_body(q32, h, p, ps), q_p,
+        (x(1, pos.shape[-1], q32.d_model), pos), {"flash_attention_fp32": 1})
+    return out
+
+
+@phase("19. serve Whisper-tiny (encdec) and Qwen2-VL-7B (vlm) at full "
+       "width, bf16")
+def phase_encdec_vlm(torch, results):
+    """The encdec and vlm families through K7: (a) K7 at their new call
+    shapes (:func:`encdec_vlm_k7_cases`); (b) Whisper-tiny in bf16 at
+    full size (``serve_full_depth``): 1 500 frames and a 224-token
+    prompt, K7 exactly 12 times a prefill (4 encoder, 4 causal decoder, 4
+    cross) and 4 times a decode step (cross attention; self attention
+    decodes in plain PyTorch, as the reference); (c) Qwen2-VL-7B in bf16
+    at full depth, its prompt's M-RoPE positions in Qwen2-VL's image
+    layout (QWEN2VL_LAYOUT), K7 exactly once a layer in a prefill and
+    never in decode, the prefill profiled by kind; (d) float32 prefill
+    against the decode-only loop (:func:`encdec_vlm_gap`); (e) card
+    against CPU (:func:`encdec_vlm_block_parity`)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.prefill_gap import stub_inputs
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wcfg = LM_CONFIGS.get(WHISPER) or get_config(WHISPER)
+    qcfg = LM_CONFIGS.get(QWEN2VL) or get_config(QWEN2VL)
+    out: dict = {}
+
+    # (a) K7 at the new shapes
+    out["k7"] = encdec_vlm_k7_cases(torch, wcfg, qcfg, results)
+    torch.cuda.empty_cache()
+
+    # (b) Whisper-tiny, bf16, full size
+    nl, ne = wcfg.num_layers, wcfg.encoder_layers
+    out["whisper"] = serve_full_depth(
+        torch, wcfg, WHISPER,
+        stub_inputs(wcfg, LM_BATCH, WHISPER_PROMPT, gen, dev,
+                    enc_len=WHISPER_ENC_LEN),
+        {"flash_attention": ne + 2 * nl}, results,
+        decode_expected={"flash_attention": nl})
+
+    # (c) Qwen2-VL-7B, bf16, full depth, the image layout's positions
+    batch = dict(stub_inputs(qcfg, LM_BATCH, LM_PROMPT, gen, dev),
+                 positions=mrope_positions(torch, LM_BATCH, *QWEN2VL_LAYOUT,
+                                           dev))
+    require(batch["positions"].shape[-1] == LM_PROMPT,
+            f"the M-RoPE layout {QWEN2VL_LAYOUT} covers {LM_PROMPT}")
+
+    def profile(params, cache, tok, served):
+        from repro_torch.models.transformer import model as M
+        return lm_profile(torch, "one prefill", lambda: M.prefill(
+            qcfg, params, batch), served["prefill_ms"] / 1e3)
+
+    out["qwen2vl"] = serve_full_depth(
+        torch, qcfg, QWEN2VL, batch, {"flash_attention": qcfg.num_layers},
+        results, profile=profile)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (d) float32 prefill against the decode-only loop
+    reduced = {a: ["--reduced"] if a in LM_CONFIGS else []
+               for a in (WHISPER, QWEN2VL)}
+    gap_w = get_config(WHISPER).reduced() if reduced[WHISPER] else \
+        get_config(WHISPER)
+    S_cmp = min(ENCDEC_VLM_CMP, LM_PROMPT)
+    # prefill: 12; the loop: a prefill over the first token (12), then 4
+    # cross attentions a step
+    n_w = gap_w.encoder_layers + 2 * gap_w.num_layers
+    out["whisper_gap"] = encdec_vlm_gap(
+        torch, WHISPER, wcfg.name, 0,
+        {"flash_attention_fp32": 2 * n_w + gap_w.num_layers * (S_cmp - 1)},
+        reduced[WHISPER], results)
+    out["qwen2vl_gap"] = encdec_vlm_gap(
+        torch, QWEN2VL, qcfg.name, QWEN2VL_FP32_LAYERS,
+        {"flash_attention_fp32": QWEN2VL_FP32_LAYERS}, reduced[QWEN2VL],
+        results)
+
+    # (e) card against CPU
+    out["cpu"] = encdec_vlm_block_parity(torch, wcfg, qcfg)
+    results["lm.encdec_vlm"] = out
 
 
 def ep_inputs(torch, dev, batch, seq):
@@ -4473,7 +4811,8 @@ def kernels_line(results) -> dict:
     through K1-K5 and K3's VJP, K6 runs in phase 5's dcoef case, the
     reference's _fused_bwd; phases 9 and 10 serve through K7 and K8;
     the float32 routes of K7 and K8 run in the float32 prefills of phases
-    9 and 10; K7 at hd 80 and K8 at N 64 in phase 15).  K6's row is the
+    9 and 10; K7 at hd 80 and K8 at N 64 in phase 15; K7 at Whisper's
+    and Qwen2-VL's shapes in phase 19).  K6's row is the
     single-head dcoef, with GAT's 4 x 64 and 4 x 10 beside it.  K3's row
     is the served inner block, with GAT's whole graph at 4 x 64 and 4 x
     10 beside it; its VJP's row is 4 x 64, with 4 x 10 beside it.  K1's row is the served inner block, with the whole graph
@@ -4555,6 +4894,22 @@ def kernels_line(results) -> dict:
                                        "library_ms")},
                     launches=results.get(f"launches.{lkey}.{arch}",
                                          {}).get(name, 0))
+            # phase 19: Whisper's encoder and cross attention (launches:
+            # all of K7's in 19(b)'s prefill, or one decode step's; in
+            # float32, 19(d)'s two paths) and Qwen2-VL's prefill
+            for key, path in (("whisper.encoder", f"{lkey}.{WHISPER}"),
+                              ("whisper.cross_prefill", f"{lkey}.{WHISPER}"),
+                              ("whisper.cross_decode",
+                               f"lm_decode.{WHISPER}" if lkey == "lm"
+                               else f"lm_fp32.{WHISPER}"),
+                              (QWEN2VL, f"{lkey}.{QWEN2VL}")):
+                r = results[f"{name}.{key}"]
+                rows[-1][f"at_{key}"] = dict(
+                    {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                    launches=results.get(f"launches.{path}", {}).get(
+                        name, 0))
         if name == "ssd_chunk_state_fp32_cuda_core":
             # the reduced configs' widths; no path launches it (the
             # serving launcher's loop is decode-only)
@@ -4684,6 +5039,8 @@ def main() -> int:
     phase_granite(torch, results)
     torch.cuda.empty_cache()
     phase_deepseek(torch, results)
+    torch.cuda.empty_cache()
+    phase_encdec_vlm(torch, results)
     torch.cuda.empty_cache()
     phase_examples(torch, results)
     phase_distributed(torch, g, g_gat, results)

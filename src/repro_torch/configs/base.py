@@ -2,9 +2,10 @@
 ``configs/base.py``; nothing of the reference is imported).
 
 Every architecture has a module ``repro_torch/configs/<id>.py`` exposing
-``CONFIG`` (a :class:`ModelConfig` with the published numbers) once it is
-ported.  :func:`get_config` names the ROADMAP.md item of an architecture
-whose config or family the port does not have yet.
+``CONFIG`` (a :class:`ModelConfig` with the published numbers).
+:func:`get_config` names the ROADMAP.md item of an architecture whose
+config or family the port does not have (none now: every config of the
+reference is ported).
 """
 from __future__ import annotations
 
@@ -56,16 +57,15 @@ ARCH_FAMILIES = {
 #: the configs the port carries (``repro_torch/configs/<id>.py``)
 PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
                   "gemma_7b", "glm4_9b", "zamba2_2_7b",
-                  "granite_moe_1b_a400m", "deepseek_v3_671b")
+                  "granite_moe_1b_a400m", "deepseek_v3_671b",
+                  "whisper_tiny", "qwen2_vl_7b")
 #: the families the port's model runs
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "mla_moe")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "mla_moe", "encdec",
+                   "vlm")
 
 #: ROADMAP.md queue 1 items of what is not ported yet
 ROADMAP_ITEMS = {
-    "encdec": "10d (the encdec and vlm families)",
-    "vlm": "10d (the encdec and vlm families)",
-    # a config whose family is ported but whose file is not (none now:
-    # every config still refused belongs to an unported family)
+    # a config whose family is ported but whose file is not (none now)
     "configs": "10f (the zoo's configs)",
 }
 
@@ -88,10 +88,8 @@ class ModelConfig:
 
     ``family`` selects the forward function:
       dense | moe | mla_moe | ssm | hybrid | encdec | vlm
-    (the port runs all but ``encdec`` and ``vlm``).  The fields are the
-    reference's that the port reads; those of the other families
-    (Whisper's encoder) come with their families,
-    and the reference's lowering and survey switches (``scan_unroll``,
+    The fields are the reference's that the port reads; the reference's
+    lowering and survey switches (``scan_unroll``,
     ``parallelism``, ``sync_mode``, ``coordination``) have nothing to
     switch on one card.
     """
@@ -143,6 +141,9 @@ class ModelConfig:
     ssm_conv: int = 4
     ssm_chunk: int = 64
     attn_every: int = 0                      # zamba2: shared block period
+
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0
 
     # --- serving ---
     sliding_window: int = 0                  # >0: ring-buffer KV cache variant
@@ -202,8 +203,10 @@ class ModelConfig:
             kw.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=16)
         if self.attn_every:
             kw.update(attn_every=1)
+        if self.encoder_layers:
+            kw.update(encoder_layers=2)
         if self.mrope_sections:
-            kw.update(mrope_sections=(8, 12, 12))
+            kw.update(mrope_sections=(8, 12, 12))  # sums to head_dim//2 = 32
         if self.sliding_window:
             kw.update(sliding_window=64)
         return self.replace(**kw)
@@ -237,14 +240,10 @@ def arch_module(arch: str) -> str:
 
 def get_config(arch: str) -> ModelConfig:
     """The config of ``arch`` (an id or its dashed alias).  An architecture
-    the port does not carry yet raises ``SystemExit`` naming its ROADMAP
-    item (its family's, when the family is not ported either); an unknown
-    one raises ``KeyError``."""
+    the port does not carry raises ``SystemExit`` naming its ROADMAP item
+    (none now); an unknown one raises ``KeyError``."""
     mod_name = arch_module(arch)
     if mod_name not in PORTED_CONFIGS:
-        family = ARCH_FAMILIES[mod_name]
-        if family not in PORTED_FAMILIES:
-            raise not_ported(f"the {family!r} family ({arch})", family)
         raise not_ported(f"the config of {arch!r}", "configs")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
-                                             _require_cuda, _stream)
+                                             _refuse_grad, _require_cuda,
+                                             _stream)
 
 #: launches of the kernel wrapper (a run resets and reads it), by route:
 #: bf16 (the served path) and float32 (the TF32 split route)
@@ -152,8 +153,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     alignment, :func:`launch_plan`); bf16 or float32, all one dtype; (hd,
     hd_v) in :data:`WIDTH_PAIRS`.  The output is a (B, H, Sq, hd_v) view
     of a (B, Sq, H, hd_v) tensor, the layout the model reshapes without a
-    copy."""
+    copy.  Forward only: an input that requires grad, with grad
+    enabled, raises ``NotImplementedError`` (``_refuse_grad``)."""
     dev = _require_cuda(q, "flash_attention_cuda")
+    _refuse_grad("flash_attention_cuda (K7)", q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Sq, hd), got {tuple(q.shape)}")
     B, H, Sq, hd = q.shape

@@ -91,15 +91,18 @@ def edge_dot(a, b, edge_src, order, row_ptr, heads: int = 1):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None):
-    """K7: causal / sliding-window GQA attention, queries aligned to the
-    end of the kv axis; q (B, H, Sq, hd), k (B, K, Skv, hd), v (B, K,
-    Skv, hd_v) -> (B, H, Sq, hd_v)."""
+    """K7: causal / sliding-window / non-causal GQA attention, queries
+    aligned to the end of the kv axis (where a mask reads it); q (B, H,
+    Sq, hd), k (B, K, Skv, hd), v (B, K, Skv, hd_v) -> (B, H, Sq, hd_v).
+    Forward only on the card: an input that requires grad raises there
+    (ROADMAP item 10e); the plain version is differentiable."""
     fn = _ss.pick(_fa.flash_attention_cuda, _fa.flash_attention_plain, q)
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def ssd_chunk_state(x, dt, A, Bm):
-    """K8: the Mamba2 SSD per-chunk state (C, H, P, N) in float32."""
+    """K8: the Mamba2 SSD per-chunk state (C, H, P, N) in float32.
+    Forward only on the card, as K7."""
     fn = _ss.pick(_ssd.ssd_chunk_state_cuda, _ssd.ssd_chunk_state_plain, x)
     return fn(x, dt, A, Bm)
 

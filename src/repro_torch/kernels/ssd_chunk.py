@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
-                                             _require_cuda, _stream)
+                                             _refuse_grad, _require_cuda,
+                                             _stream)
 
 #: launches of the kernel wrapper (a run resets and reads it), by route:
 #: the tensor cores at the tile's widths in bf16 (the served path) and in
@@ -120,8 +121,11 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """K8 on the card (``csrc/ssd_chunk.cu``, ``ssd_chunk_state_fwd``).
     x and Bm: bf16 or float32 (one dtype), strided views allowed with the
     last dim contiguous; dt contiguous float32; A float32; the shapes and
-    alignment each route takes are :func:`launch_plan`'s."""
+    alignment each route takes are :func:`launch_plan`'s.  Forward only:
+    an input that requires grad, with grad enabled, raises
+    ``NotImplementedError`` (``_refuse_grad``)."""
     dev = _require_cuda(x, "ssd_chunk_state_cuda")
+    _refuse_grad("ssd_chunk_state_cuda (K8)", x, dt, A, Bm)
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x (C, L, H, P) and Bm (C, L, G, N) must be 4-D, "
                          f"got {tuple(x.shape)} and {tuple(Bm.shape)}")

@@ -24,6 +24,21 @@ reads the prompt with the token at ``POS`` changed, which gives the gap
 that a one-token difference makes.  Weights and prompts come from torch
 generators seeded by ``--seed``; ``--device`` defaults to ``cuda``.
 Prints one JSON object.
+
+The stub-frontend families take their inputs from the same generator.
+``vlm`` (Qwen2-VL) reads embeddings (B, S, d_model) drawn from N(0, 1)
+at text-style positions (0..S-1 in all three M-RoPE streams), the only
+layout one-token decode reproduces: decode rotates at the cache slot
+(as the reference's does); ``--flip`` redraws that position's
+embedding.  ``encdec`` (Whisper) reads encoder frames (B, ``--enc-len``,
+d_model) from N(0, 1) and decoder tokens; its decode-only loop takes the
+cross cache, which only ``prefill`` builds, from a prefill over the
+first token, then decodes positions 1..S-1.
+
+  PYTHONPATH=src python -m repro_torch.launch.prefill_gap \\
+      --arch whisper-tiny --reduced --enc-len 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.prefill_gap \\
+      --arch qwen2-vl-7b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -38,17 +53,53 @@ from repro_torch.configs.base import get_config
 from repro_torch.models.transformer import model as M
 
 
-def decode_loop(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    """The serving launcher's decode-only loop over ``tokens`` (B, S): the
-    logits (B, padded_vocab) at the last position."""
-    cache = M.init_cache(cfg, tokens.shape[0], tokens.shape[1],
-                         device=tokens.device)
-    logits = None
-    for t in range(tokens.shape[1]):
+def decode_loop(cfg, params, batch) -> torch.Tensor:
+    """The serving launcher's decode-only loop over a prompt: the logits
+    (B, padded_vocab) at its last position.  ``batch`` is ``prefill``'s
+    (a (B, S) token tensor stands for ``{"tokens": it}``).  ``vlm`` feeds
+    its embeddings one position at a time (its M-RoPE positions are not
+    read: decode rotates at the slot, so compare text-style positions
+    only); ``encdec`` takes its cross cache and the first self slot from
+    a prefill over the first token, then decodes positions 1..S-1 in a
+    self cache of S slots."""
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    key, step_key = (("embeds", "embeds") if cfg.family == "vlm"
+                     else ("tokens", "token"))
+    feed = batch[key]
+    B, S = feed.shape[:2]
+    cache = M.init_cache(cfg, B, S, device=feed.device)
+    logits, start = None, 0
+    if cfg.family == "encdec":
+        logits, first = M.prefill(cfg, params, {
+            "enc_embeds": batch["enc_embeds"], "tokens": feed[:, :1]})
+        cache["cross"] = first["cross"]
+        for name in ("k", "v"):
+            cache["self"][name][:, :, :1] = first["self"][name]
+        start = 1
+    for t in range(start, S):
         logits, cache = M.decode_step(cfg, params, cache,
-                                      {"token": tokens[:, t:t + 1],
-                                       "pos": t})
+                                      {step_key: feed[:, t:t + 1], "pos": t})
     return logits
+
+
+def stub_inputs(cfg, B: int, S: int, gen: torch.Generator, dev, *,
+                enc_len: int = 0) -> dict:
+    """``prefill``'s batch of S positions drawn from ``gen``: tokens;
+    ``vlm``'s embeddings from N(0, 1) at text-style positions (all three
+    M-RoPE streams 0..S-1); ``encdec``'s encoder frames (B, enc_len,
+    d_model) from N(0, 1) beside the tokens."""
+    if cfg.family == "vlm":
+        embeds = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        positions = torch.arange(S, device=dev).expand(3, B, S)
+        return {"embeds": embeds, "positions": positions}
+    batch = {}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((B, enc_len, cfg.d_model),
+                                          generator=gen, device=dev)
+    batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev)
+    return batch
 
 
 def gap(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -90,9 +141,12 @@ def parse_args(argv=None):
                          "(default: the config's)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--enc-len", type=int, default=1500,
+                    help="encdec: encoder frames (default 1500, Whisper's "
+                         "30-s window after its stride-2 conv stem)")
     ap.add_argument("--flip", type=int, default=None,
-                    help="control: change the decode loop's token at this "
-                         "prompt position")
+                    help="control: change the decode loop's token (vlm: "
+                         "embedding) at this prompt position")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises when CUDA is "
@@ -122,20 +176,29 @@ def run(argv=None) -> dict:
         raise ValueError(f"--flip {args.flip} outside a prompt of {S}")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
-    prompts = torch.randint(0, V, (B, S), generator=gen, device=dev)
-    read = prompts.clone()
+    enc_len = args.enc_len if cfg.family == "encdec" else 0
+    batch = stub_inputs(cfg, B, S, gen, dev, enc_len=enc_len)
+    read = dict(batch)
     if args.flip is not None:
-        read[:, args.flip] = (read[:, args.flip] + 1) % V
+        if cfg.family == "vlm":
+            read["embeds"] = batch["embeds"].clone()
+            read["embeds"][:, args.flip] = torch.randn(
+                (B, cfg.d_model), generator=gen, device=dev)
+        else:
+            read["tokens"] = batch["tokens"].clone()
+            read["tokens"][:, args.flip] = (batch["tokens"][:, args.flip]
+                                            + 1) % V
     t0 = time.perf_counter()
     with torch.inference_mode():
-        lg, _ = M.prefill(cfg, params, {"tokens": prompts})
+        lg, _ = M.prefill(cfg, params, batch)
         dl = decode_loop(cfg, params, read)
     res = gap(lg[:, :V], dl[:, :V])
     res.update(arch=cfg.name, dtype=cfg.compute_dtype, layers=cfg.num_layers,
                d_model=cfg.d_model, batch=B, prompt_len=S, flip=args.flip,
                capacity_factor=(cfg.moe_capacity_factor
                                 if cfg.num_experts else None),
-               device=str(dev), seconds=time.perf_counter() - t0)
+               enc_len=enc_len or None, device=str(dev),
+               seconds=time.perf_counter() - t0)
     return res
 
 

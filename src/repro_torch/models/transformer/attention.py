@@ -1,17 +1,20 @@
 """Attention variants (PyTorch port of the reference's
 ``models/transformer/attention.py``): GQA with a KV cache or a
-sliding-window ring cache, and DeepSeek-V3's MLA (multi-head latent
-attention) with its absorbed-matmul decode.
+sliding-window ring cache (causal, or non-causal for Whisper's encoder;
+M-RoPE's three position streams for Qwen2-VL), Whisper's cross
+attention over the encoder's keys and values, and DeepSeek-V3's MLA
+(multi-head latent attention) with its absorbed-matmul decode.
 
-Full-sequence attention goes through :func:`layers.attention` (K7 on
-the card): GQA at its head width, MLA with q and k ``qk_nope_head_dim +
-qk_rope_head_dim`` wide (192 at DeepSeek-V3's widths) and v
-``v_head_dim`` (128).  One-token decode keeps the reference's softmax
-over the whole cache in plain PyTorch (XLA in the reference, not a
-Pallas kernel): GQA over per-head keys and values, MLA in the latent
-space, its cache the normalized latent ``c`` and the rotary key ``kr``
-(never per-head keys and values).  Decode writes into the cache in
-place.
+Full-sequence attention and cross attention (over a prompt, or one
+decode token against the encoder's keys) go through
+:func:`layers.attention` (K7 on the card): GQA at its head width, MLA
+with q and k ``qk_nope_head_dim + qk_rope_head_dim`` wide (192 at
+DeepSeek-V3's widths) and v ``v_head_dim`` (128).  One-token decode
+keeps the reference's softmax over the whole cache in plain PyTorch (XLA
+in the reference, not a Pallas kernel): GQA over per-head keys and
+values, MLA in the latent space, its cache the normalized latent ``c``
+and the rotary key ``kr`` (never per-head keys and values).  Decode
+writes into the cache in place.
 """
 from __future__ import annotations
 
@@ -40,18 +43,27 @@ def init_gqa(cfg, gen, dtype, device):
     return p
 
 
-def _qkv(cfg, p, x):
+def _q(cfg, p, x):
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+
+
+def _kv(cfg, p, x):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
-    return q, k, v
+        k, v = k + p["bk"], v + p["bv"]
+    return (k.reshape(B, S, cfg.num_kv_heads, hd),
+            v.reshape(B, S, cfg.num_kv_heads, hd))
+
+
+def _qkv(cfg, p, x):
+    return (_q(cfg, p, x),) + _kv(cfg, p, x)
 
 
 def _rope_qk(cfg, q, k, positions):
@@ -64,11 +76,13 @@ def _rope_qk(cfg, q, k, positions):
     return q, k
 
 
-def gqa_forward(cfg, p, x, positions, *, window=0, return_kv=False):
-    """Full-sequence causal attention (prefill).  positions: (B, S)."""
+def gqa_forward(cfg, p, x, positions, *, causal=True, window=0,
+                return_kv=False):
+    """Full-sequence attention (prefill; Whisper's encoder with
+    ``causal=False``).  positions: (B, S), or (3, B, S) under M-RoPE."""
     q, k, v = _qkv(cfg, p, x)
     q, k = _rope_qk(cfg, q, k, positions)
-    out = L.attention(q, k, v, causal=True, q_offset=0, window=window,
+    out = L.attention(q, k, v, causal=causal, q_offset=0, window=window,
                       q_chunk=cfg.attn_q_chunk)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
     if return_kv:
@@ -81,12 +95,18 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, *, window=0):
 
     cache_[kv]: (B, C, K, hd), C the capacity (full) or the window (ring
     buffer); the token's key and value are written into slot ``pos`` (or
-    ``pos % C``) in place.  Returns (out, cache_k, cache_v)."""
+    ``pos % C``) in place.  Under M-RoPE all three position streams take
+    ``pos``, the slot index, as in the reference (so after an image
+    prompt, whose M-RoPE positions run below its length, decode rotates
+    at the slot, not at the last position + 1).  Returns (out, cache_k,
+    cache_v)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(cfg, p, x)
     if cfg.pos_emb == "rope":
         pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        if cfg.mrope_sections is not None:
+            pos_arr = pos_arr.expand(3, B, 1)
         q, k = _rope_qk(cfg, q, k, pos_arr)
 
     C = cache_k.shape[1]
@@ -115,6 +135,17 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, *, window=0):
     out = torch.einsum("bkgqs,bskh->bqkgh", w, cache_v.float())
     out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
     return out, cache_k, cache_v
+
+
+def cross_attention(cfg, p, x, k, v):
+    """Cross attention (Whisper's decoder): queries from ``x`` (B, S, D)
+    over the encoder's keys and values (B, Se, K, hd; :func:`_kv` of the
+    encoder output, which the reference computes beside a q it drops),
+    non-causal, no rotary; K7 on the card for a prompt and for one decode
+    token alike."""
+    q = _q(cfg, p, x)
+    o = L.attention(q, k, v, causal=False, q_offset=0)
+    return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
 
 
 # ===========================================================================

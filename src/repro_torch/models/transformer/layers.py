@@ -16,7 +16,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import not_ported
 from repro_torch.kernels import ops, segment_sum
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -88,7 +87,7 @@ def init_norm(cfg, dim: int, device):
 
 
 # ---------------------------------------------------------------------------
-# rotary embeddings (standard / partial)
+# rotary embeddings (standard / partial / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -97,17 +96,31 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                rotary_frac: float = 1.0, mrope_sections=None) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S).  The first
-    ``hd * rotary_frac`` (rounded down to even) dims rotate."""
-    if mrope_sections is not None:
-        raise not_ported("M-RoPE (Qwen2-VL)", "vlm", NotImplementedError)
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE.  The
+    first ``hd * rotary_frac`` (rounded down to even) dims rotate.  With
+    ``mrope_sections`` (Qwen2-VL's (t, h, w) band counts, summing to the
+    rotated dims' half) the frequency bands split into three sections in
+    order, each rotating by its own position stream."""
     hd = x.shape[-1]
     rot = int(hd * rotary_frac)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     freqs = torch.from_numpy(np.asarray(rope_freqs(rot, theta), np.float32)
                              ).to(x.device)
-    angles = positions[..., None].float() * freqs              # (B,S,rot/2)
+    if mrope_sections is not None:
+        if sum(mrope_sections) != rot // 2 or positions.dim() != 3 or \
+                positions.shape[0] != 3:
+            raise ValueError(
+                f"M-RoPE sections {tuple(mrope_sections)} over {rot // 2} "
+                f"bands with positions {tuple(positions.shape)}: the "
+                f"sections must sum to the bands, positions be (3, B, S)")
+        # each band's position stream: (B, S, rot/2)
+        pos = torch.cat([positions[i][..., None].expand(
+            positions.shape[1:] + (n,)) for i, n in
+            enumerate(mrope_sections)], dim=-1)
+        angles = pos.float() * freqs
+    else:
+        angles = positions[..., None].float() * freqs         # (B,S,rot/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x_rot.float().chunk(2, dim=-1)
@@ -196,16 +209,24 @@ def _attention_plain(qs, k, v, *, causal, q_offset, window, kv_valid_len,
 def _attention_card(qs, k, v, *, causal, q_offset, window, kv_valid_len,
                     q_chunk):
     """The CUDA branch of :func:`attention`: K7 with ``scale=1`` on the
-    pre-scaled q, for ``q_offset == Skv - Sq`` and no ``kv_valid_len``;
-    any other call raises.  v passes at its own width (MLA's 128 beside
-    q and k's 192; K7 raises for a pair it does not take).  K7 tiles the
-    queries itself (no ``q_chunk``)."""
+    pre-scaled q.  K7 aligns the queries to the end of the kv axis, and
+    only its causal and window masks read that offset: a masked call
+    needs ``q_offset == Skv - Sq``, a non-causal call without a window
+    (Whisper's encoder, cross attention) takes any ``q_offset``, which
+    nothing then reads.  A misaligned masked call or a ``kv_valid_len``
+    (no caller of the reference passes one) raises.  v passes at its own
+    width (MLA's 128 beside q and k's 192; K7 raises for a pair it does
+    not take).  K7 tiles the queries itself (no ``q_chunk``)."""
     Sq, Skv = qs.shape[1], k.shape[1]
-    if kv_valid_len is not None or int(q_offset) != Skv - Sq:
-        raise not_ported(
-            "attention on the card with a ragged cache or queries not "
-            "aligned to the end of the kv axis (cross attention)",
-            "encdec", NotImplementedError)
+    if kv_valid_len is not None:
+        raise NotImplementedError(
+            "attention with kv_valid_len on the card: K7 takes no ragged "
+            "cache, and no caller passes one")
+    if (causal or window) and int(q_offset) != Skv - Sq:
+        raise NotImplementedError(
+            f"masked attention on the card with q_offset {int(q_offset)}: "
+            f"K7's causal and window masks align the queries to the end "
+            f"of the kv axis (q_offset {Skv - Sq})")
     out = ops.flash_attention(qs.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window, scale=1.0)

@@ -1,7 +1,7 @@
-"""The transformer zoo's serving path, ``dense``, ``ssm``, ``hybrid``,
-``moe`` and ``mla_moe`` families (PyTorch port of the reference's
-``models/transformer/model.py``): init, forward, prefill (forward +
-cache) and one-token decode.
+"""The transformer zoo's serving path, all seven families of the
+reference's ``models/transformer/model.py`` (``dense``, ``ssm``,
+``hybrid``, ``moe``, ``mla_moe``, ``encdec``, ``vlm``), in PyTorch:
+init, forward, prefill (forward + cache) and one-token decode.
 
 Params are nested dicts with the reference's keys; ``params["layers"]``
 is a list of per-layer dicts (the reference stacks a leading layer axis
@@ -23,14 +23,22 @@ prefill through K7 at q/k 192 and v 128 on the card; the absorbed
 (``params["dense_layers"]``), the rest with the experts
 (``params["moe_layers"]``); its cache is the latent one, ``{"dense":
 {"c", "kr"}, "moe": {"c", "kr"}}``, ``(n_layers, B, C, kv_lora_rank)``
-and ``(n_layers, B, C, qk_rope_head_dim)``.
+and ``(n_layers, B, C, qk_rope_head_dim)``.  The ``vlm`` family
+(Qwen2-VL) is the dense one fed precomputed embeddings (its vision
+tower stubbed, as in the reference) with M-RoPE's (3, B, S) positions.
+The ``encdec`` family (Whisper) runs ``params["enc_layers"]``
+(non-causal dense blocks over the frame embeddings plus ``enc_pos``,
+then ``ln_enc``) and ``params["dec_layers"]`` (causal self attention,
+cross attention over the encoder output, the MLP; tokens plus
+``dec_pos``); its cache is ``{"self": {"k", "v"}, "cross": {"k",
+"v"}}``, the cross keys and values computed once by :func:`prefill`.
 
 Batch conventions:
   forward / prefill:  {"tokens": (B, S) int}
+                      vlm:    {"embeds": (B, S, D), "positions": (3, B, S)}
+                      encdec: {"enc_embeds": (B, Se, D), "tokens": (B, S)}
   decode:             {"token": (B, 1) int, "pos": int}
-
-The other families (``encdec``, ``vlm``) raise ``NotImplementedError``
-naming their ROADMAP.md item.
+                      vlm:    {"embeds": (B, 1, D), "pos": int}
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import PORTED_FAMILIES, not_ported
+from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.models.transformer import attention as A
 from repro_torch.models.transformer import layers as L
 from repro_torch.models.transformer import moe as MOE
@@ -48,9 +56,6 @@ from repro_torch.models.transformer import ssm as S
 
 def _require_family(cfg) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        if cfg.family in ("encdec", "vlm"):
-            raise not_ported(f"the {cfg.family!r} family ({cfg.name})",
-                             cfg.family, NotImplementedError)
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid":
         _hybrid_groups(cfg)
@@ -108,15 +113,41 @@ def _init_ssm_layer(cfg, gen, dtype, device):
             "ln": L.init_norm(cfg, cfg.d_model, device)}
 
 
-def init_params(cfg, gen: torch.Generator, *,
+def _init_encdec_layer(cfg, gen, dtype, device, cross: bool):
+    p = _init_dense_layer(cfg, gen, dtype, device)
+    if cross:
+        p["xattn"] = A.init_gqa(cfg, gen, dtype, device)
+        p["ln_x"] = L.init_norm(cfg, cfg.d_model, device)
+    return p
+
+
+#: the reference's default length of Whisper's learned position tables
+MAX_SEQ = 4096
+
+
+def init_params(cfg, gen: torch.Generator, *, max_seq: int = MAX_SEQ,
                 device: Union[str, torch.device] = "cuda") -> Dict[str, Any]:
     """Random params with the reference's distributions, drawn from
-    ``gen`` (a generator on ``device``)."""
+    ``gen`` (a generator on ``device``).  ``max_seq``: the rows of the
+    ``encdec`` family's learned position tables ``enc_pos`` and
+    ``dec_pos`` (the longest encoder input and decoder sequence)."""
     _require_family(cfg)
     device = torch.device(device)
     dtype = L.dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {"embed": L.init_embed(cfg, gen, dtype, device),
                               "ln_f": L.init_norm(cfg, cfg.d_model, device)}
+    if cfg.family == "encdec":
+        params["enc_layers"] = [
+            _init_encdec_layer(cfg, gen, dtype, device, cross=False)
+            for _ in range(cfg.encoder_layers)]
+        params["dec_layers"] = [
+            _init_encdec_layer(cfg, gen, dtype, device, cross=True)
+            for _ in range(cfg.num_layers)]
+        params["ln_enc"] = L.init_norm(cfg, cfg.d_model, device)
+        for name in ("enc_pos", "dec_pos"):
+            params[name] = L.normal(gen, (max_seq, cfg.d_model), device,
+                                    0.02, dtype)
+        return params
     if cfg.family == "mla_moe":
         nd = cfg.first_dense_layers
         params["dense_layers"] = [_init_mla_dense_layer(cfg, gen, dtype,
@@ -125,8 +156,8 @@ def init_params(cfg, gen: torch.Generator, *,
         params["moe_layers"] = [_init_mla_moe_layer(cfg, gen, dtype, device)
                                 for _ in range(cfg.num_layers - nd)]
         return params
-    layer = {"dense": _init_dense_layer, "moe": _init_moe_layer}.get(
-        cfg.family, _init_ssm_layer)
+    layer = {"dense": _init_dense_layer, "vlm": _init_dense_layer,
+             "moe": _init_moe_layer}.get(cfg.family, _init_ssm_layer)
     params["layers"] = [layer(cfg, gen, dtype, device)
                         for _ in range(cfg.num_layers)]
     if cfg.family == "hybrid":
@@ -151,7 +182,8 @@ def param_count(params) -> int:
 
 #: the param keys that hold a list of layers (a stacked leading axis in
 #: the reference)
-STACKS = frozenset({"layers", "dense_layers", "moe_layers"})
+STACKS = frozenset({"layers", "dense_layers", "moe_layers", "enc_layers",
+                    "dec_layers"})
 
 
 def _map(fn, want, given):
@@ -163,11 +195,19 @@ def _map(fn, want, given):
     return [_map(fn, w, g) for w, g in zip(want, given)]
 
 
+def _max_seq(tree) -> int:
+    """The ``max_seq`` a param tree was drawn at: its learned position
+    tables' rows (``encdec``), else the default."""
+    return int(np.shape(tree["enc_pos"])[0]) if "enc_pos" in tree \
+        else MAX_SEQ
+
+
 def cast_params(cfg, params) -> Dict[str, Any]:
     """``params`` (of another dtype config of the same architecture) with
     each leaf in the dtype ``init_params(cfg)`` gives it: weights in
     ``cfg.param_dtype``, norms and SSM scalars in float32."""
-    skeleton = init_params(cfg, torch.Generator(), device="meta")
+    skeleton = init_params(cfg, torch.Generator(), device="meta",
+                           max_seq=_max_seq(params))
     return _map(lambda w, g: g.to(w.dtype), skeleton, params)
 
 
@@ -176,10 +216,13 @@ def params_from_numpy(cfg, tree: Mapping, device: Union[str, torch.device]
     """The port's params holding the reference's: ``tree`` is the
     reference's ``init_params`` pytree mapped to numpy, with stacked
     ``(n_layers, ...)`` leaves under ``layers`` (or, in ``mla_moe``,
-    ``dense_layers`` and ``moe_layers``; the hybrid's ``shared_attn`` is
-    one unstacked layer).  Keys and shapes must match the port's own;
-    each leaf takes the port's dtype for it."""
-    skeleton = init_params(cfg, torch.Generator(), device="meta")
+    ``dense_layers`` and ``moe_layers``, in ``encdec`` ``enc_layers`` and
+    ``dec_layers``; the hybrid's ``shared_attn`` is one unstacked layer),
+    drawn at any ``max_seq`` (read from ``enc_pos``).  Keys and shapes
+    must match the port's own; each leaf takes the port's dtype for
+    it."""
+    skeleton = init_params(cfg, torch.Generator(), device="meta",
+                           max_seq=_max_seq(tree))
     device = torch.device(device)
 
     def convert(want, given, path):
@@ -240,9 +283,9 @@ def _ffn(cfg, p, h):
     return L.mlp(cfg, h, p["mlp"])
 
 
-def _dense_body(cfg, x, p, positions):
+def _dense_body(cfg, x, p, positions, *, causal=True):
     h = L.apply_norm(cfg, x, p["ln1"])
-    x = x + A.gqa_forward(cfg, p["attn"], h, positions)
+    x = x + A.gqa_forward(cfg, p["attn"], h, positions, causal=causal)
     h = L.apply_norm(cfg, x, p["ln2"])
     return x + _ffn(cfg, p, h)
 
@@ -305,9 +348,81 @@ def _mla_prefill(cfg, x, p, positions, cache, i):
     return x
 
 
-def _positions(tokens):
-    B, Ssz = tokens.shape
-    return torch.arange(Ssz, device=tokens.device)[None].expand(B, Ssz)
+def _positions(B, Ssz, device):
+    return torch.arange(Ssz, device=device)[None].expand(B, Ssz)
+
+
+def _inputs(cfg, params, batch):
+    """The first block's input (B, S, D) and the positions: ``vlm``'s
+    embeddings and M-RoPE positions (3, B, S) as given, else the token
+    embeddings and 0..S-1."""
+    if cfg.family == "vlm":
+        x = batch["embeds"].to(L.dtype_of(cfg.compute_dtype))
+        return x, batch["positions"]
+    x = L.embed(cfg, params["embed"], batch["tokens"])
+    return x, _positions(x.shape[0], x.shape[1], x.device)
+
+
+def _learned(table, n: int):
+    """The first ``n`` rows of a learned position table (``enc_pos``,
+    ``dec_pos``); ``IndexError`` past its ``max_seq`` rows (where the
+    reference fails in a shape mismatch, or clamps an index)."""
+    if not 0 <= n <= table.shape[0]:
+        raise IndexError(f"{n} positions outside a learned position table "
+                         f"of {table.shape[0]} rows (init_params' max_seq)")
+    return table[:n]
+
+
+def _encode(cfg, params, enc_embeds):
+    """Whisper's encoder: the frame embeddings plus ``enc_pos``, the
+    non-causal dense blocks, ``ln_enc``; (B, Se, D) in the compute
+    dtype."""
+    dt = L.dtype_of(cfg.compute_dtype)
+    enc = enc_embeds.to(dt)
+    B, Se = enc.shape[:2]
+    enc = enc + _learned(params["enc_pos"], Se).to(dt)
+    positions = _positions(B, Se, enc.device)
+    for p in params["enc_layers"]:
+        enc = _dense_body(cfg, enc, p, positions, causal=False)
+    return L.apply_norm(cfg, enc, params["ln_enc"])
+
+
+def _dec_body(cfg, x, p, positions, xk, xv):
+    """One Whisper decoder block over a prompt: causal self attention,
+    cross attention over the encoder's keys and values ``xk``, ``xv``
+    (``attention._kv`` of the encoder output), the MLP.  Returns (x, (k,
+    v)), the self attention's keys and values beside."""
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, kv = A.gqa_forward(cfg, p["attn"], hh, positions, causal=True,
+                          return_kv=True)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln_x"])
+    x = x + A.cross_attention(cfg, p["xattn"], hh, xk, xv)
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, hh, p["mlp"]), kv
+
+
+def _encdec(cfg, params, batch, cache=None):
+    """Whisper's encoder over ``batch["enc_embeds"]``, then its decoder
+    over ``batch["tokens"]`` (plus ``dec_pos``): each block's causal self
+    attention, cross attention over the encoder output, the MLP.  Returns
+    the last block's output (B, S, D); with ``cache`` (``{"self",
+    "cross"}`` of the prompt's and the encoder's lengths) each block's
+    self and cross keys and values are written into it."""
+    enc = _encode(cfg, params, batch["enc_embeds"])
+    tokens = batch["tokens"]
+    B, Sd = tokens.shape
+    x = L.embed(cfg, params["embed"], tokens) + _learned(
+        params["dec_pos"], Sd).to(enc.dtype)
+    positions = _positions(B, Sd, x.device)
+    for i, p in enumerate(params["dec_layers"]):
+        xk, xv = A._kv(cfg, p["xattn"], enc)
+        x, (k, v) = _dec_body(cfg, x, p, positions, xk, xv)
+        if cache is not None:
+            for name, t in (("self", (k, v)), ("cross", (xk, xv))):
+                cache[name]["k"][i].copy_(t[0])
+                cache[name]["v"][i].copy_(t[1])
+    return x
 
 
 # ===========================================================================
@@ -315,13 +430,17 @@ def _positions(tokens):
 # ===========================================================================
 
 def forward(cfg, params, batch) -> torch.Tensor:
-    """Logits (B, S, padded_vocab) of ``batch["tokens"]``.  Attention is
-    causal over the whole sequence (as the reference's ``forward`` with
-    its default ``window=0``, sliding-window configs included)."""
+    """Logits (B, S, padded_vocab) of the batch (the module's batch
+    conventions).  Attention is causal over the whole sequence (as the
+    reference's ``forward`` with its default ``window=0``, sliding-window
+    configs included); Whisper's encoder is non-causal."""
     _require_family(cfg)
-    x = L.embed(cfg, params["embed"], batch["tokens"])
-    positions = _positions(batch["tokens"])
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "encdec":
+        x = _encdec(cfg, params, batch)
+        x = L.apply_norm(cfg, x, params["ln_f"])
+        return L.unembed(cfg, params["embed"], x)
+    x, positions = _inputs(cfg, params, batch)
+    if cfg.family in ("dense", "moe", "vlm"):
         for p in params["layers"]:
             x = _dense_body(cfg, x, p, positions)
     elif cfg.family == "mla_moe":
@@ -340,15 +459,22 @@ def forward(cfg, params, batch) -> torch.Tensor:
 # caches
 # ===========================================================================
 
-def init_cache(cfg, batch_size: int, cache_len: int, *,
+def init_cache(cfg, batch_size: int, cache_len: int, *, enc_len: int = 0,
                device: Union[str, torch.device] = "cuda"):
     """Zero cache for decode: keys and values for ``cache_len`` positions
     (a ring of ``sliding_window`` slots when that is smaller), the SSM
     state and conv window, or (hybrid) both: ``{"ssm": ..., "attn":
     ...}`` with one K/V slot per group of ``attn_every`` layers, or
     (mla_moe) the latent cache of each stack, ``{"dense": {"c", "kr"},
-    "moe": {"c", "kr"}}``."""
+    "moe": {"c", "kr"}}``, or (encdec) ``{"self": ..., "cross": ...}``,
+    the decoder's keys and values and the encoder's ``enc_len``
+    positions (which :func:`prefill` fills)."""
     _require_family(cfg)
+    if cfg.family == "encdec":
+        return {"self": _kv_cache(cfg, cfg.num_layers, batch_size,
+                                  cache_len, device),
+                "cross": _kv_cache(cfg, cfg.num_layers, batch_size, enc_len,
+                                   device, ring=False)}
     if cfg.family == "mla_moe":
         nd = cfg.first_dense_layers
         return {"dense": _latent_cache(cfg, nd, batch_size, cache_len,
@@ -370,10 +496,13 @@ def _capacity(cfg, cache_len):
             else cache_len)
 
 
-def _kv_cache(cfg, n_layers, batch_size, cache_len, device):
+def _kv_cache(cfg, n_layers, batch_size, cache_len, device, *, ring=True):
+    """Zero keys and values (n_layers, B, C, K, hd): C the ring's
+    capacity (:func:`_capacity`), or with ``ring=False`` ``cache_len``."""
     dt = L.cache_dtype_of(cfg)
-    shape = (n_layers, batch_size, _capacity(cfg, cache_len),
-             cfg.num_kv_heads, cfg.resolved_head_dim)
+    C = _capacity(cfg, cache_len) if ring else cache_len
+    shape = (n_layers, batch_size, C, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -405,12 +534,22 @@ def _ssm_cache(cfg, n_layers, batch_size, device):
 # ===========================================================================
 
 def decode_step(cfg, params, cache, batch):
-    """batch: {"token": (B, 1), "pos": int}.  Returns (logits (B,
-    padded_vocab), cache), the cache updated in place."""
+    """batch: {"token": (B, 1), "pos": int} (vlm: {"embeds": (B, 1, D),
+    "pos"}).  Returns (logits (B, padded_vocab), cache), the cache updated
+    in place.  encdec adds ``dec_pos[pos]`` (``IndexError`` past its
+    rows) and attends over the cross cache that :func:`prefill` built."""
     _require_family(cfg)
     pos = int(batch["pos"])
-    x = L.embed(cfg, params["embed"], batch["token"])
-    if cfg.family in ("dense", "moe"):
+    if cfg.family == "vlm":
+        x = batch["embeds"].to(L.dtype_of(cfg.compute_dtype))
+    else:
+        x = L.embed(cfg, params["embed"], batch["token"])
+    if cfg.family == "encdec":
+        # row pos of dec_pos (IndexError past its max_seq rows)
+        x = x + _learned(params["dec_pos"], pos + 1)[pos].to(x.dtype)
+        for i, p in enumerate(params["dec_layers"]):
+            x = _encdec_decode(cfg, x, p, cache, i, pos)
+    elif cfg.family in ("dense", "moe", "vlm"):
         for i, p in enumerate(params["layers"]):
             x = _dense_decode(cfg, x, p, cache, i, pos)
     elif cfg.family == "mla_moe":
@@ -438,6 +577,22 @@ def _dense_decode(cfg, x, p, cache, i, pos):
     x = x + o
     hh = L.apply_norm(cfg, x, p["ln2"])
     return x + _ffn(cfg, p, hh)
+
+
+def _encdec_decode(cfg, x, p, cache, i, pos):
+    """One Whisper decoder block on one token: its self key and value into
+    slot ``i`` of ``cache["self"]`` in place, cross attention over slot
+    ``i`` of ``cache["cross"]``."""
+    hh = L.apply_norm(cfg, x, p["ln1"])
+    o, _, _ = A.gqa_decode(cfg, p["attn"], hh, cache["self"]["k"][i],
+                           cache["self"]["v"][i], pos,
+                           window=cfg.sliding_window)
+    x = x + o
+    hh = L.apply_norm(cfg, x, p["ln_x"])
+    x = x + A.cross_attention(cfg, p["xattn"], hh, cache["cross"]["k"][i],
+                              cache["cross"]["v"][i])
+    hh = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, hh, p["mlp"])
 
 
 def _mla_decode(cfg, x, p, cache, i, pos):
@@ -470,26 +625,36 @@ def prefill(cfg, params, batch):
     """Processes a full prompt and returns (last-token logits (B,
     padded_vocab), cache).  The cache holds the prompt's S positions, as
     the reference's does; sliding-window configs keep a ring of the last
-    ``window`` positions, position p in slot p % C."""
+    ``window`` positions, position p in slot p % C.  encdec's holds the
+    decoder's S positions under ``"self"`` and the encoder's keys and
+    values under ``"cross"``."""
     _require_family(cfg)
-    tokens = batch["tokens"]
-    B, Ssz = tokens.shape
-    x = L.embed(cfg, params["embed"], tokens)
-
-    positions = _positions(tokens)
-    if cfg.family in ("dense", "moe"):
-        cache = init_cache(cfg, B, Ssz, device=tokens.device)
+    if cfg.family == "encdec":
+        B, Sd = batch["tokens"].shape
+        dev = batch["tokens"].device
+        Se = batch["enc_embeds"].shape[1]
+        cache = {"self": _kv_cache(cfg, cfg.num_layers, B, Sd, dev,
+                                   ring=False),
+                 "cross": _kv_cache(cfg, cfg.num_layers, B, Se, dev,
+                                    ring=False)}
+        x = _encdec(cfg, params, batch, cache)[:, -1:]
+        x = L.apply_norm(cfg, x, params["ln_f"])
+        return L.unembed(cfg, params["embed"], x)[:, 0], cache
+    x, positions = _inputs(cfg, params, batch)
+    B, Ssz, dev = x.shape[0], x.shape[1], x.device
+    if cfg.family in ("dense", "moe", "vlm"):
+        cache = init_cache(cfg, B, Ssz, device=dev)
         for i, p in enumerate(params["layers"]):
             x = _dense_prefill(cfg, x, p, positions, cache, i)
     elif cfg.family == "mla_moe":
-        cache = init_cache(cfg, B, Ssz, device=tokens.device)
+        cache = init_cache(cfg, B, Ssz, device=dev)
         for stack, i, p in _mla_layers(params):
             x = _mla_prefill(cfg, x, p, positions, cache[stack], i)
     else:
         states, convs = [], []
         if cfg.family == "hybrid":
             n_groups = _hybrid_groups(cfg)
-            kv = _kv_cache(cfg, n_groups, B, Ssz, tokens.device)
+            kv = _kv_cache(cfg, n_groups, B, Ssz, dev)
         for i, p in enumerate(params["layers"]):
             hh = L.apply_norm(cfg, x, p["ln"])
             o, (st, cv) = S.ssm_forward(cfg, p["ssm"], hh, return_cache=True)

@@ -53,7 +53,8 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'examples.quickstart', 'examples.serve_gnn',\n"
         "             'examples.serve_batched',\n"
         "             'examples.distributed_gnn',\n"
-        "             'configs.deepseek_v3_671b'):\n"
+        "             'configs.deepseek_v3_671b',\n"
+        "             'configs.whisper_tiny', 'configs.qwen2_vl_7b'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

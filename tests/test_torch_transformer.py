@@ -93,26 +93,6 @@ def test_config_copies_the_published_numbers(arch):
                                  for k, v in ref_base.INPUT_SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper_tiny", "10d"), ("qwen2_vl_7b", "10d"),
-    ("whisper-tiny", "10d"), ("qwen2-vl-7b", "10d")])
-def test_unported_archs_name_their_roadmap_item(arch, item):
-    with pytest.raises(SystemExit, match=f"item {item}"):
-        base.get_config(arch)
-    with pytest.raises(KeyError):
-        base.get_config("no-such-model")
-
-
-def test_unported_family_in_the_model_names_its_item():
-    cfg = base.get_config("phi3-mini-3.8b").reduced().replace(
-        family="encdec")
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        M.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        L.apply_rope(torch.zeros(1, 2, 1, 8), torch.zeros(1, 2), 1e4,
-                     mrope_sections=(1, 1, 2))
-
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
