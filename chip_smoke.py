@@ -10,15 +10,16 @@ Phases, in order; any failure makes the exit code nonzero:
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all in parallel) and time the build; ptxas's registers and
    spills per kernel, and the ``HGMMA`` instructions in each K7 kernel's
-   SASS and in K8's (``cuobjdump -sass``: nonzero in each of the ten K7
-   kernels, bf16 and float32 at each tile width pair, (64, 64), (96,
-   96), (128, 128), (256, 256) and MLA's (192, 128), in K8's two bf16
-   kernels, N 64 and 128, and in its float32 kernel, which takes both,
-   with no spills in any of them); each width pair of ``WIDTH_PAIRS`` and
-   each K8 width in each dtype runs on one of those instances (hd 80 on
-   the hd-96 one, printed per pair with its HGMMA count); each
-   ``launch_plan``'s shared memory equals what its kernel asks for, hd
-   80's and (192, 128)'s included;
+   SASS and in K8's (``cuobjdump -sass``: nonzero in each of the twelve
+   K7 kernels, bf16 and float32 at each tile width pair, (64, 64), (96,
+   96), (128, 128), (256, 256), MLA's (192, 128) and (192, 192), in K8's
+   two bf16 kernels, N 64 and 128, and in its float32 kernel, which takes
+   both, with no spills in any of them); each width pair of
+   ``WIDTH_PAIRS`` and each K8 width in each dtype runs on one of those
+   instances (hd 80 on the hd-96 one, printed per pair with its HGMMA
+   count); each ``launch_plan``'s shared memory equals what its kernel
+   asks for, hd 80's and (192, 128)'s included, and so do the VJPs'
+   plans (K7's dQ and dK/dV kernels at every pair, K8's at its widths);
 2. each forward kernel (K1 gather-scale-segment-sum, K2 segment-sum, K3
    GAT attention) at the full-width shapes of the GraphSAGE-Reddit
    serving path plus edge cases: max abs error against its plain PyTorch
@@ -79,7 +80,7 @@ Phases, in order; any failure makes the exit code nonzero:
    phase 5's whole-graph cases of K1 (602, 256, 41), K1ᵀ (256), K3 and
    its VJP (4 x 64) and K5 (602, src layout) on them, checked and timed
    as in phase 5, one line a policy beside phase 5's times; (b)
-   full-batch SAGE and GAT under ``--reorder bfs`` and ``rcm``: phase 6's
+   full-batch SAGE under ``--reorder bfs`` and GAT under ``rcm``: phase 6's
    launches, each epoch's loss within 1e-4 (relative) of phase 6's, and
    phase 6's predictions but for near ties; (c) SAGE served under
    ``--reorder bfs``: every request answered in the workload's original
@@ -136,8 +137,9 @@ Phases, in order; any failure makes the exit code nonzero:
    8 x 32, N 16, chunk 16, timed; a chunk of 300) off the tensor-core
    tile on the CUDA-core route, each case's route printed and every
    launch counted under its route's counter; the calls K7 does not
-   compute raise on the card, and K7 and K8 refuse an input that
-   requires grad (naming ROADMAP item 10e) but run under no_grad;
+   compute raise on the card; the raw K7 and K8 wrappers refuse an input
+   that requires grad (naming their autograd Functions), which ``ops``
+   runs instead, and under no_grad ``ops`` runs the forward alone;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
    serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
    through the decode-only loop, 32 generated), tok/s and peak memory, no
@@ -257,7 +259,36 @@ Phases, in order; any failure makes the exit code nonzero:
    its first decoder block (self and cross attention) and Qwen2-VL's
    first block under the image layout, float32, card against CPU within
    1e-4 of the largest output;
-17. (run after 19, before 14) the port's four examples as ``python -m
+20. (run after 19, before 17) the transformer trainer
+   (``repro_torch.launch.train``) with K7's and K8's VJPs
+   (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_chunk_bwd.cu``): (a)
+   K7 with lse written against lse null at every width pair in both
+   dtypes (outputs bitwise equal, lse within 1e-4), K7's forward at
+   (192, 192) timed, then the ``FlashAttention`` Function's gradients
+   (K7 with lse, the dQ kernel, the dK/dV kernel) against autograd
+   through the plain version at every width pair in bf16 (element by
+   element: one bf16 ulp plus the term the bf16 output's D moves, plus
+   1e-5 of the largest) and float32 (1e-4 of the largest), at the
+   training shapes (Qwen2.5-14B 4 x 1024, 40 / 8 x 128; Granite's hd 64,
+   Zamba2's hd 80, Phi-3's 96, Gemma's 256, (192, 192), (192, 128);
+   timed, each kernel and the pair, beside their bounds, the plain VJP
+   and SDPA's backward), a window of 256, non-causal 64 x 64, Whisper's
+   224 x 1500 cross attention and ragged tiles; ``SSDChunkState``'s
+   (dx, ddt, dA, dBm) at Mamba2's, Zamba2's and the reduced widths,
+   G 2 and a ragged chunk, against autograd through the plain version
+   on float32 leaves; every VJP bitwise repeatable; (b) Qwen2.5-14B at
+   full width on a 4-layer cut, B 4 x S 1024, 6 steps: exactly 4 K7
+   launches and 4 of each backward kernel a step, finite losses and grad
+   norms, the loss falling, ms a step, tok/s, peak memory, a profile
+   split; (c) Mamba2-780m at full depth, B 2 x S 1024, 4 steps: exactly
+   48 K8 and 48 K8-VJP launches a step, the rest as (b); (d) one step each of
+   Phi-3-mini, Gemma-7B, GLM-4-9B, Granite-MoE (2-layer cuts) and
+   Zamba2-2.7B (6 layers) at full width with exact K7 / K8 and VJP
+   launches; (e) every trained family's reduced config, float32, card
+   against CPU: losses and gradients under AdamW, parameters after 3
+   SGD steps, within 1e-4; (f) ``train_lm_100m`` (220 steps; its loss
+   falls, the unigram-entropy floor beside) and ``whisper_vlm_smoke``;
+17. (run after 20, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
    seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
    side, then ``distributed_gnn``: three runs in a world of 8 ranks,
@@ -346,8 +377,8 @@ MB_BATCH = 1024
 # phase 7's runs and phase 11(e)'s layer-wise samplers: a fixed number of
 # steps (reduced from the epoch's 227 for time: int8's steps are 0.37-0.46
 # s of host encoding; cut to 60, then 40, then 30 as phases 16-18 came,
-# PERF.md section 7)
-MB_STEPS = 30
+# then 15 for phase 20, PERF.md section 7)
+MB_STEPS = 15
 
 failures: list = []
 # seconds each phase took, by name (written to chiprun_out/chip_smoke.json
@@ -559,8 +590,8 @@ def phase_build(torch, results):
     results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
     tc = {k: n for k, n in hgmma.items()
           if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32"))}
-    require(len(tc) == 13 and all(tc.values()),
-            f"HGMMA in each of the ten K7 kernels, K8's two bf16 kernels "
+    require(len(tc) == 15 and all(tc.values()),
+            f"HGMMA in each of the twelve K7 kernels, K8's two bf16 kernels "
             f"and its float32 kernel: {tc}")
     spills = {k: v for k, v in ptxas.items() if k in tc and any(
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
@@ -609,6 +640,23 @@ def phase_build(torch, results):
     require(all(i in tc and i not in spills for i, _ in k8.values()),
             f"every K8 width runs on a built tensor-core instance with "
             f"HGMMA and no spills: {k8}")
+    # the VJPs' plans (CUDA-core kernels, no HGMMA): K7's two kernels at
+    # every width pair, K8's at each width it takes (at Mamba2's and
+    # Zamba2's heads a group over 256-position chunks)
+    lib_bwd = build.library("flash_attention_bwd")
+    for hd, hd_v in fa.WIDTH_PAIRS:
+        q = torch.zeros(1, 1, 64, hd)
+        plan = fa.bwd_launch_plan(q, q, torch.zeros(1, 1, 64, hd_v))
+        for which, key in ((0, "smem_dq"), (1, "smem_dkdv")):
+            smem[f"flash_attention_bwd[{hd}, {hd_v}, {key}]"] = (
+                plan[key], lib_bwd.flash_attention_bwd_smem(hd, hd_v, which))
+    for (P, N), R, L in (((64, 128), 48, 256), ((64, 64), 80, 256),
+                         ((32, 16), 16, 16)):
+        plan = sc.bwd_launch_plan(torch.zeros(1, L, R, P),
+                                  torch.zeros(1, L, 1, N))
+        smem[f"ssd_chunk_state_bwd[{P}, {N}, R {R}, L {L}]"] = (
+            plan["smem_bytes"], build.library(
+                "ssd_chunk_bwd").ssd_chunk_state_bwd_smem(P, N, R, L))
     results["build"]["smem_plan_vs_library"] = smem
     require(all(a == b for a, b in smem.values()),
             f"launch_plan's shared memory is the kernel's: {smem}")
@@ -1589,15 +1637,15 @@ def phase_minibatch(torch, results):
                    * 1e3,
                    "cache_hit_ratio": res["cache_hit_ratio"],
                    "fetched_mib": res["fetched_bytes"] / 2**20,
-                   "loss_first10": float(np.mean(losses[:10])),
-                   "loss_last10": float(np.mean(losses[-10:])),
+                   "loss_first5": float(np.mean(losses[:5])),
+                   "loss_last5": float(np.mean(losses[-5:])),
                    "launches": counts}
         print(f"   minibatch sage {codec}: " + json.dumps(summary),
               flush=True)
         results[f"minibatch.{codec}"] = summary
         results[f"launches.minibatch.{codec}"] = counts
         require(bool(np.isfinite(losses).all())
-                and summary["loss_last10"] < summary["loss_first10"],
+                and summary["loss_last5"] < summary["loss_first5"],
                 f"{codec}: finite, falling loss")
         k4 = counts.get("gather_scale_segment_sum_q", 0)
         require(k4 == (steps if codec == "int8" else 0),
@@ -1629,8 +1677,9 @@ REORDER_CASES = ("k1.full.602", f"k1.full.{HIDDEN}", f"k1.full.{CLASSES}",
 UPDATE_EVENTS = 2000
 # ImportanceSampler walks 8 x 2 steps in Python per destination (about
 # 0.9-2.8 s a batch of 1024 on a CPU core): phase 11(e) runs it one epoch
-# over a sixteenth of the nodes, at the same widths and degree
-IMPORTANCE_NODES = NODES // 16
+# over a 32nd of the nodes (a 16th before phase 20), at the same widths
+# and degree
+IMPORTANCE_NODES = NODES // 32
 
 
 def packed(g):
@@ -1729,8 +1778,9 @@ def final_logits(torch, arch, classes, model, g):
 
 @phase("11b. full-batch SAGE and GAT over the packed graph")
 def phase_reorder_train(torch, results):
-    """SAGE and GAT full-batch through ``train_gnn --reorder bfs`` and
-    ``rcm``: launches as phase 6's and each epoch's loss within 1e-4
+    """SAGE full-batch through ``train_gnn --reorder bfs`` and GAT through
+    ``--reorder rcm`` (each arch under both policies before phase 20 came,
+    cut for time): launches as phase 6's and each epoch's loss within 1e-4
     (relative) of phase 6's unpacked run of the same arch (training is
     invariant under the relabelling up to summation order).  The trained
     models' predictions, mapped back to the original ids, agree with phase
@@ -1740,49 +1790,48 @@ def phase_reorder_train(torch, results):
     The accuracy difference is printed in nodes."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train_gnn
-    for arch in ("sage", "gat"):
+    for arch, policy in (("sage", "bfs"), ("gat", "rcm")):
         classes = GAT_CLASSES if arch == "gat" else CLASSES
         base = results[f"train.{arch}"]
         logits0 = final_logits(torch, arch, classes, *TRAINED[arch])
         pred0 = logits0.argmax(1)
         top2 = np.sort(logits0, 1)[:, -2:]
         margin0 = top2[:, 1] - top2[:, 0]
-        for policy in ("bfs", "rcm"):
-            ops.reset_launch_counts()
-            res = train_gnn.main(train_args(arch, classes, [
-                "--epochs", str(TRAIN_EPOCHS), "--reorder", policy]))
-            torch.cuda.synchronize()
-            counts = {k: v for k, v in ops.launch_counts().items() if v}
-            rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(res["losses"], base["losses"]))
-            logits = final_logits(torch, arch, classes, res["model"],
-                                  res["graph"])[res["reorder"]["inv"]]
-            flipped = logits.argmax(1) != pred0
-            near = 1e-3 * float(np.abs(logits0).max())
-            summary = {
-                "losses": res["losses"], "max_rel_loss_diff": rel,
-                "accuracy": res["accuracy"],
-                "accuracy_diff_nodes": round(abs(res["accuracy"]
-                                                 - base["accuracy"]) * NODES),
-                "max_abs_logit_diff": float(np.abs(logits - logits0).max()),
-                "predictions_differing": int(flipped.sum()),
-                "their_max_margin": float(margin0[flipped].max())
-                if flipped.any() else 0.0, "near_tie_bound": near,
-                "median_epoch_ms": float(np.median(res["epoch_s"][1:]))
-                * 1e3, "unpacked_median_epoch_ms": base["median_epoch_ms"],
-                "reorder_s": res["reorder"]["seconds"], "launches": counts}
-            print(f"   {arch} --reorder {policy}: " + json.dumps(summary),
-                  flush=True)
-            results[f"reorder.train.{arch}.{policy}"] = summary
-            want = _expected(arch, TRAIN_EPOCHS)
-            require(counts == want, f"{arch} {policy}: launches {counts}, "
-                    f"by design {want}")
-            require(len(res["losses"]) == len(base["losses"])
-                    and rel <= 1e-4, f"{arch} {policy}: losses within 1e-4 "
-                    f"of the unpacked run ({rel})")
-            require(summary["their_max_margin"] <= near,
-                    f"{arch} {policy}: predictions that differ from the "
-                    f"unpacked run's are near ties ({summary})")
+        ops.reset_launch_counts()
+        res = train_gnn.main(train_args(arch, classes, [
+            "--epochs", str(TRAIN_EPOCHS), "--reorder", policy]))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(res["losses"], base["losses"]))
+        logits = final_logits(torch, arch, classes, res["model"],
+                              res["graph"])[res["reorder"]["inv"]]
+        flipped = logits.argmax(1) != pred0
+        near = 1e-3 * float(np.abs(logits0).max())
+        summary = {
+            "losses": res["losses"], "max_rel_loss_diff": rel,
+            "accuracy": res["accuracy"],
+            "accuracy_diff_nodes": round(abs(res["accuracy"]
+                                             - base["accuracy"]) * NODES),
+            "max_abs_logit_diff": float(np.abs(logits - logits0).max()),
+            "predictions_differing": int(flipped.sum()),
+            "their_max_margin": float(margin0[flipped].max())
+            if flipped.any() else 0.0, "near_tie_bound": near,
+            "median_epoch_ms": float(np.median(res["epoch_s"][1:]))
+            * 1e3, "unpacked_median_epoch_ms": base["median_epoch_ms"],
+            "reorder_s": res["reorder"]["seconds"], "launches": counts}
+        print(f"   {arch} --reorder {policy}: " + json.dumps(summary),
+              flush=True)
+        results[f"reorder.train.{arch}.{policy}"] = summary
+        want = _expected(arch, TRAIN_EPOCHS)
+        require(counts == want, f"{arch} {policy}: launches {counts}, "
+                f"by design {want}")
+        require(len(res["losses"]) == len(base["losses"])
+                and rel <= 1e-4, f"{arch} {policy}: losses within 1e-4 "
+                f"of the unpacked run ({rel})")
+        require(summary["their_max_margin"] <= near,
+                f"{arch} {policy}: predictions that differ from the "
+                f"unpacked run's are near ties ({summary})")
 
 
 def serve_args(extra=()):
@@ -1961,8 +2010,8 @@ def phase_samplers(torch, results):
         summary = {"nodes": nodes, "steps": steps,
                    "wall_s": time.perf_counter() - t0,
                    "median_step_ms": float(np.median(res["step_s"])) * 1e3,
-                   "loss_first10": float(np.mean(losses[:10])),
-                   "loss_last10": float(np.mean(losses[-10:])),
+                   "loss_first5": float(np.mean(losses[:5])),
+                   "loss_last5": float(np.mean(losses[-5:])),
                    "launches": counts,
                    "k1_plan_searches": ss._gss_plan.cache_info().misses
                    - searches,
@@ -1974,7 +2023,7 @@ def phase_samplers(torch, results):
               + json.dumps(summary), flush=True)
         results[f"sampler.{sampler}"] = summary
         require(bool(np.isfinite(losses).all())
-                and summary["loss_last10"] < summary["loss_first10"],
+                and summary["loss_last5"] < summary["loss_first5"],
                 f"{sampler}: finite, falling loss")
         want = {"gather_scale_segment_sum": 2 * steps,
                 "gather_scale_segment_sum_t": steps}
@@ -2570,23 +2619,33 @@ def phase_lm_kernels(torch, results):
         else:
             raise RuntimeError(f"check failed: attention with {what} ran "
                                f"on the card")
-    # K7 and K8 are forward only: an input that requires grad (grad
-    # enabled) raises, naming ROADMAP item 10e; under no_grad they run
+    # the raw K7 and K8 wrappers are forward only: an input that requires
+    # grad (grad enabled) raises, naming the autograd Function, which ops
+    # runs instead (phase 20 checks its gradients); under no_grad ops runs
+    # the forward alone
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
     q = c.randn(1, 4, 128, 64).to(torch.bfloat16).requires_grad_()
     x = c.randn(2, 64, 4, 64).requires_grad_()
     dt, A_, Bm = c.randn(2, 64, 4).abs(), -c.randn(4).abs(), c.randn(2, 64, 1,
                                                                      64)
-    for what, call in (("K7", lambda: ops.flash_attention(q, q, q)),
-                       ("K8", lambda: ops.ssd_chunk_state(x, dt, A_, Bm))):
+    for what, raw, call, fn in (
+            ("K7", lambda: fa.flash_attention_cuda(q, q, q),
+             lambda: ops.flash_attention(q, q, q), "FlashAttention"),
+            ("K8", lambda: sc.ssd_chunk_state_cuda(x, dt, A_, Bm),
+             lambda: ops.ssd_chunk_state(x, dt, A_, Bm), "SSDChunkState")):
         try:
-            call()
+            raw()
         except NotImplementedError as e:
-            require("item 10e" in str(e), f"{what}'s refusal names 10e: {e}")
-            print(f"   {what} on an input that requires grad refused: {e}")
+            require(fn in str(e), f"{what}'s refusal names {fn}: {e}")
+            print(f"   raw {what} on an input that requires grad refused: "
+                  f"{e}")
         else:
-            raise RuntimeError(f"check failed: {what} ran on an input that "
-                               f"requires grad")
+            raise RuntimeError(f"check failed: raw {what} ran on an input "
+                               f"that requires grad")
+        require(call().grad_fn is not None and fn in type(
+            call().grad_fn).__name__, f"ops runs {what} through {fn}")
         with torch.no_grad():
             require(not call().requires_grad, f"{what} runs under no_grad")
 
@@ -3990,8 +4049,8 @@ DIST_FAULTS = ("bf16_gather", "rank_gradient_dropped")
 # (f) the distributed mini-batch launcher: SAGE at batch 1024 (a global
 # batch, about 256 seeds a rank), fp32 and int8, a fixed number of steps
 # each (reduced from the epoch's 227, as phase 7's int8 run; from 40 for
-# phase 18's time)
-DIST_MB_STEPS = 20
+# phase 18's time, from 20 for phase 20's)
+DIST_MB_STEPS = 10
 # (g) each arch, 10 SGD steps on the same global seed batches on 4 ranks
 # and on the single card (GAT on its 40-class graph); SAGE also under
 # AdamW, and two wrong paths: the last rank's gradient left out (judged
@@ -4443,8 +4502,8 @@ def _mb_steps_summary(res) -> dict:
             "trained": res["trained"], "traffic": res["traffic"],
             "halo_hit_ratio": res["stats"]["halo_hit_ratio"],
             "setup_s": max(r["setup_s"] for r in res["ranks"]),
-            "loss_first10": float(np.mean(res["losses"][:10])),
-            "loss_last10": float(np.mean(res["losses"][-10:]))}
+            "loss_first5": float(np.mean(res["losses"][:5])),
+            "loss_last5": float(np.mean(res["losses"][-5:]))}
 
 
 def _dist_minibatch_checks(torch, g, g_gat, out, results):
@@ -4461,7 +4520,7 @@ def _dist_minibatch_checks(torch, g, g_gat, out, results):
         results[f"dist.mb_{codec}"] = summary
         mb[codec] = summary
         require(bool(np.isfinite(res["losses"]).all())
-                and summary["loss_last10"] < summary["loss_first10"],
+                and summary["loss_last5"] < summary["loss_first5"],
                 f"minibatch {codec}: finite, falling loss")
         require(summary["ranks_bitwise_equal"],
                 f"minibatch {codec}: every rank's parameters bitwise equal")
@@ -4805,6 +4864,594 @@ def phase_distributed(torch, g, g_gat, results):
     _ep_checks(torch, out["moe_ep"], results)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the transformer trainer (repro_torch.launch.train) and K7's and
+# K8's VJPs
+# ---------------------------------------------------------------------------
+
+QWEN14 = "qwen2.5-14b"
+# 20(a): K7's VJP at every width pair the trainer meets, (key, label,
+# (B, H, K, Sq, Skv, hd, hd_v), kw, timed): the width pairs' training
+# shapes (timed; 20(b)'s Qwen2.5-14B step first), then the masks and
+# shapes that only change which tiles a block walks
+K7_BWD_CASES = (
+    ("qwen", "Qwen2.5-14B training step (B 4, S 1024, 40 / 8 x 128, "
+     "causal)", (4, 40, 8, 1024, 1024, 128, 128), {}, True),
+    ("hd64", "Granite-MoE (B 2, S 1024, 16 / 8 x 64, causal)",
+     (2, 16, 8, 1024, 1024, 64, 64), {}, True),
+    ("hd80", "Zamba2-2.7B (B 2, S 1024, 32 / 32 x 80, causal)",
+     (2, 32, 32, 1024, 1024, 80, 80), {}, True),
+    ("hd96", "Phi-3-mini (B 2, S 1024, 32 / 32 x 96, causal)",
+     (2, 32, 32, 1024, 1024, 96, 96), {}, True),
+    ("hd256", "Gemma-7B (B 2, S 1024, 16 / 16 x 256, causal)",
+     (2, 16, 16, 1024, 1024, 256, 256), {}, True),
+    ("192_192", "train_lm_100m (B 4, S 192, 4 / 2 x (192, 192), causal)",
+     (4, 4, 2, 192, 192, 192, 192), {}, True),
+    ("192_128", "MLA widths (B 1, S 1024, 16 / 16 x (192, 128), causal)",
+     (1, 16, 16, 1024, 1024, 192, 128), {}, True),
+    ("window", "window 256 (B 1, S 1024, 8 / 2 x 64)",
+     (1, 8, 2, 1024, 1024, 64, 64), {"window": 256}, False),
+    ("noncausal", "non-causal 64 x 64 (whisper_vlm_smoke; B 4, 4 / 2 x 64)",
+     (4, 4, 2, 64, 64, 64, 64), {"causal": False}, False),
+    ("whisper_cross", "Whisper cross attention (B 2, Sq 224 x Skv 1500, "
+     "6 / 6 x 64, non-causal)", (2, 6, 6, 224, 1500, 64, 64),
+     {"causal": False}, False),
+    ("ragged", "ragged tiles (B 1, S 1000, 8 / 2 x 128, causal)",
+     (1, 8, 2, 1000, 1000, 128, 128), {}, False),
+    ("ragged_offset", "ragged, Sq 37 x Skv 101 (B 2, 6 / 3 x 96, causal)",
+     (2, 6, 3, 37, 101, 96, 96), {}, False))
+# 20(a): K8's VJP, (key, label, (C, L, H, P, G, N), timed)
+K8_BWD_CASES = (
+    ("mamba2", "Mamba2-780m (8 chunks of 256, 48 x 64, N 128, G 1)",
+     (8, 256, 48, 64, 1, 128), True),
+    ("zamba2", "Zamba2-2.7B (8 chunks of 256, 80 x 64, N 64, G 1)",
+     (8, 256, 80, 64, 1, 64), True),
+    ("reduced", "the reduced configs (64 chunks of 16, 16 x 32, N 16)",
+     (64, 16, 16, 32, 1, 16), True),
+    ("g2", "G 2 (2 chunks of 256, 48 x 64, N 128)",
+     (2, 256, 48, 64, 2, 128), False),
+    ("ragged", "a ragged chunk of 100 (3 chunks, 48 x 64, N 128)",
+     (3, 100, 48, 64, 1, 128), False))
+
+
+def _grad_err(torch, got, ref, *, bf16, elem_abs=None) -> dict:
+    """One gradient against its reference: float32 within 1e-4 of the
+    reference's largest element; bf16 element by element within one bf16
+    ulp of the reference (2**-7 of it) plus ``elem_abs`` plus 1e-5 of the
+    largest, as phase 8 holds K7's bf16 forward."""
+    diff = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item() if ref.numel() else 0.0
+    if bf16:
+        over = diff - BF16_ULP_REL * ref.float().abs()
+        if elem_abs is not None:
+            over = over - elem_abs
+        err, rel = max(over.max().item(), 0.0), BF16_ATOL_REL
+    else:
+        err, rel = diff.max().item(), 1e-4
+    return {"shape": list(got.shape), "max_abs_err": diff.max().item(),
+            "max_abs_ref": scale, "excess" if bf16 else "err": err,
+            "bound_rel": rel, "finite": bool(torch.isfinite(got).all()),
+            "ok": bool(torch.isfinite(got).all()) and err <= rel * scale}
+
+
+def k7_bwd_d_terms(torch, q, k, v, do, out, causal, window):
+    """bf16: the backward reads the forward's bf16 output o, so D = <dO,
+    o> differs from the plain version's float32 D by dD a row; that moves
+    dq_i by at most scale |dD_i| (P|k|)_i and dk_j by scale sum_i P_ij
+    |dD_i| |q_i| (over the group's heads), the element-wise terms added
+    to those two gradients' bounds (dv reads no D)."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Sq, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    scale = 1.0 / float(np.sqrt(hd))
+    kw = dict(causal=causal, window=window)
+    o32 = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    dof = do.float()
+    dD = ((dof * out.float()).sum(-1) - (dof * o32).sum(-1)).abs()
+    pk = fa.flash_attention_plain(q.float(), k.float(), k.float().abs(), **kw)
+    logits, _ = fa._logits(q, k, causal, window, None)
+    p = torch.softmax(logits, dim=-1)
+    dk = scale * torch.einsum("bkgqs,bkgq,bkgqh->bksh", p,
+                              dD.reshape(B, K, G, Sq),
+                              q.float().abs().reshape(B, K, G, Sq, hd))
+    return scale * dD[..., None] * pk, dk
+
+
+def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
+                dtype, timed, causal=True, window=0) -> dict:
+    """K7's VJP: the FlashAttention Function's gradients (K7 with lse,
+    then the dq and dk/dv kernels) against autograd through the plain
+    version on the same inputs and output cotangent, on the views the
+    model passes; the backward kernels bitwise repeatable on the saved
+    tensors, and the Function's gradients bitwise theirs.  Timed: each
+    kernel alone (median of 25, L2 flushed) and both in one call, the
+    plain VJP and SDPA's backward (its backend named), beside each
+    kernel's bound: dq needs the products S, dP and dS K, dk/dv S, dP,
+    P^T dO and dS^T Q, over the pairs the mask keeps, against the
+    tensors each reads and writes once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = dtype == torch.bfloat16
+    kw = dict(causal=causal, window=window)
+    q = c.randn(B, Sq, H, hd).to(dtype).transpose(1, 2)
+    k = c.randn(B, Skv, K, hd).to(dtype).transpose(1, 2)
+    v = c.randn(B, Skv, K, hd_v).to(dtype).transpose(1, 2)
+    do = c.randn(B, Sq, H, hd_v).to(dtype).transpose(1, 2)
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+
+    ins = leaves()
+    got = torch.autograd.grad(
+        fa.FlashAttention.apply(*ins, causal, window, None), ins, do)
+    ins = leaves()
+    ref = torch.autograd.grad(fa.flash_attention_plain(*ins, **kw), ins, do)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    g1 = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    g2 = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    terms = (k7_bwd_d_terms(torch, q, k, v, do, out, causal, window)
+             if bf16 else (None, None))
+    grads = {name: _grad_err(torch, a, r, bf16=bf16, elem_abs=t)
+             for name, a, r, t in zip(("dq", "dk", "dv"), got, ref,
+                                      (*terms, None))}
+    bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    same = all(torch.equal(a, b) for a, b in zip(g1, got))
+    ok = bitwise and same and all(g["ok"] for g in grads.values())
+    res = {"case": f"K7 VJP {label}, {'bf16' if bf16 else 'float32'}",
+           "grads": grads, "bitwise_repeatable": bitwise,
+           "function_is_the_kernels": same, "ok": ok,
+           "max_abs_err": max(g["max_abs_err"] for g in grads.values())}
+    if timed:
+        mask = fa._mask(Sq, Skv, causal, window, c.dev)
+        pairs = int(mask.sum()) * B * H
+        e = q.element_size()
+        qo = B * H * Sq * e
+        kv = B * K * Skv * e
+        # dq: q, k, v, o, dO and lse read, D and dq written
+        dq_bytes = qo * (2 * hd + 2 * hd_v) + kv * (hd + hd_v) + 8 * B * H * Sq
+        # dk/dv: q, k, v, dO, lse and D read, dk and dv written
+        dkdv_bytes = (qo * (hd + hd_v) + 2 * kv * (hd + hd_v)
+                      + 8 * B * H * Sq)
+        peak = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
+        plan, _, args = fa._bwd_prepare(q, k, v, out, do, lse, causal,
+                                        window, None)
+        fa._bwd_launch(fa.BWD_ENTRIES[0], plan["counters"][0], args)
+        for name, fn, counter, nbytes, flops in (
+                ("dq", fa.BWD_ENTRIES[0], plan["counters"][0], dq_bytes,
+                 2.0 * pairs * (2 * hd + hd_v)),
+                ("dkdv", fa.BWD_ENTRIES[1], plan["counters"][1], dkdv_bytes,
+                 2.0 * pairs * (2 * hd + 2 * hd_v))):
+            res[f"{name}_ms"] = median_ms(
+                torch, functools.partial(fa._bwd_launch, fn, counter, args),
+                c.flush)
+            res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bound(
+                nbytes, flops, peak)
+        res["ms"] = median_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, out, do, lse, **kw), c.flush)
+        res["plain_ms"] = median_ms(torch, lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, do, lse, **kw), c.flush)
+        res["bound_ms"], res["bound_by"] = bound(
+            qo * (2 * hd + 2 * hd_v) + 2 * kv * (hd + hd_v) + 4 * B * H * Sq,
+            2.0 * pairs * (3 * hd + 2 * hd_v), peak)
+        sdpa_kw = ({} if not causal and not window else
+                   {"is_causal": True} if causal and not window and Sq == Skv
+                   else {"attn_mask": mask})
+        ls = leaves()
+        try:
+            o_lib = F.scaled_dot_product_attention(
+                *ls, enable_gqa=H != K, **sdpa_kw)
+            res["library_ms"] = median_bwd_ms(torch, o_lib, ls, do, c.flush)
+            res["sdpa_backward"] = sdpa_backend(
+                torch, lambda: torch.autograd.grad(o_lib, ls, do,
+                                                   retain_graph=True))
+        except RuntimeError as e:
+            res["library_ms"] = None
+            res["sdpa_backward"] = f"not timed: {str(e)[:160]}"
+    print("   " + json.dumps(res), flush=True)
+    if not ok:
+        failures.append(f"{res['case']}: {grads}, bitwise {bitwise}, "
+                        f"function {same}")
+    return res
+
+
+def k8_bwd_case(torch, c, key, label, C, L, H, P, G, N, *, dtype,
+                timed) -> dict:
+    """K8's VJP: the SSDChunkState Function's gradients (dx, ddt, dA,
+    dBm) against autograd through the plain version on the same inputs
+    (x and Bm as float32 leaves) and state cotangent, x and Bm views of
+    one (C, L, conv_dim) tensor as the model passes them; A in [-16, -1]
+    and dt = softplus(N(0,1) - 5), Mamba2's ranges.  bf16's dx and dBm
+    element by element within one bf16 ulp plus 1e-5 of the largest, the
+    rest within 1e-4 of the largest.  The kernel bitwise repeatable.
+    Timed beside its bound (u and v, 4 C H L P N flops) and autograd
+    through the reference's einsum."""
+    from repro_torch.kernels import ssd_chunk as sc
+    bf16 = dtype == torch.bfloat16
+    xBC = c.randn(C, L, H * P + 2 * G * N).to(dtype)
+    x = xBC[..., :H * P].reshape(C, L, H, P)
+    Bm = xBC[..., H * P:H * P + G * N].reshape(C, L, G, N)
+    dt = torch.nn.functional.softplus(c.randn(C, L, H) - 5.0)
+    A = -(1.0 + 15.0 * torch.rand(H, generator=c.gen)).to(c.dev)
+    gs = c.randn(C, H, P, N)
+
+    def leaves():
+        return [t.detach().clone().requires_grad_(True) for t in (x, dt, A, Bm)]
+
+    ins = leaves()
+    got = torch.autograd.grad(sc.SSDChunkState.apply(*ins), ins, gs)
+    # the reference takes x and Bm as float32 leaves (the same values):
+    # through bf16 leaves autograd would round each head's dBm to bf16
+    # and sum the group's heads in bf16 (repeat_interleave's backward),
+    # where the kernel sums them in float32
+    ins = [t.float().detach().requires_grad_(True) for t in leaves()]
+    ref = torch.autograd.grad(sc.ssd_chunk_state_plain(*ins), ins, gs)
+    g1 = sc.ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gs)
+    g2 = sc.ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gs)
+    torch.cuda.synchronize()
+    grads = {name: _grad_err(torch, a, r, bf16=bf16 and name in ("dx", "dBm"))
+             for name, a, r in zip(("dx", "ddt", "dA", "dBm"), got, ref)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    ok = bitwise and all(g["ok"] for g in grads.values())
+    res = {"case": f"K8 VJP {label}, {'bf16' if bf16 else 'float32'}",
+           "grads": grads, "bitwise_repeatable": bitwise, "ok": ok,
+           "max_abs_err": max(g["max_abs_err"] for g in grads.values()),
+           "plan": sc.bwd_launch_plan(x, Bm)}
+    if timed:
+        e = x.element_size()
+        res["ms"] = median_ms(torch, lambda: sc.ssd_chunk_state_bwd_cuda(
+            x, dt, A, Bm, gs), c.flush)
+        res["plain_ms"] = median_ms(torch, lambda: sc.ssd_chunk_state_bwd_plain(
+            x, dt, A, Bm, gs), c.flush)
+        res["bound_ms"], res["bound_by"] = bound(
+            e * 2 * (C * L * H * P + C * L * G * N)
+            + 4 * (2 * C * L * H + C * H * P * N + 2 * H + C * H),
+            4.0 * C * H * L * P * N,
+            BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S)
+        lx, ldt, lA, lB = leaves()
+        cum = torch.cumsum(ldt * lA, dim=1)
+        st = torch.einsum("blhn,blh,blhp->bhpn",
+                          lB.repeat_interleave(H // G, dim=2).float(),
+                          torch.exp(cum[:, -1:, :] - cum),
+                          lx.float() * ldt[..., None])
+        res["library_ms"] = median_bwd_ms(torch, st, [lx, ldt, lA, lB], gs,
+                                          c.flush)
+    print("   " + json.dumps(res), flush=True)
+    if not ok:
+        failures.append(f"{res['case']}: {grads}, bitwise {bitwise}")
+    return res
+
+
+def k7_lse_cases(torch, c, results) -> dict:
+    """K7 with lse written against K7 with lse null, at every width pair in
+    both dtypes (B 2, S 200, G 2, causal): the outputs bitwise equal (the
+    served path's output does not move), and lse within 1e-4 of the
+    plain version's largest value."""
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for hd, hd_v in fa.WIDTH_PAIRS:
+        for dname, dtype in (("bf16", torch.bfloat16),
+                             ("float32", torch.float32)):
+            q = c.randn(2, 200, 4, hd).to(dtype).transpose(1, 2)
+            k = c.randn(2, 200, 2, hd).to(dtype).transpose(1, 2)
+            v = c.randn(2, 200, 2, hd_v).to(dtype).transpose(1, 2)
+            o_null = fa.flash_attention_cuda(q, k, v)
+            o_lse, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            _, ref = fa.flash_attention_plain(q, k, v, return_lse=True)
+            torch.cuda.synchronize()
+            err = (lse - ref).abs().max().item()
+            r = {"same_output": torch.equal(o_null, o_lse), "lse_err": err,
+                 "lse_max": ref.abs().max().item()}
+            r["ok"] = r["same_output"] and err <= 1e-4 * r["lse_max"]
+            out[f"({hd}, {hd_v}) {dname}"] = r
+            if not r["ok"]:
+                failures.append(f"K7 lse at ({hd}, {hd_v}) {dname}: {r}")
+    print("   K7 with lse against lse null, per width pair: "
+          + json.dumps(out), flush=True)
+    results["k7_lse"] = out
+    return out
+
+
+@phase("20a. K7's and K8's VJPs against autograd through the plain versions")
+def phase_lm_vjps(torch, results):
+    c = Checker(torch, seed=20)
+    k7_lse_cases(torch, c, results)
+    # K7's forward at (192, 192): train_lm_100m's attention
+    for dname, dtype, counter in (("bf16", torch.bfloat16, "flash_attention"),
+                                  ("float32", torch.float32,
+                                   "flash_attention_fp32")):
+        results[f"{counter}.192_192"] = k7_case(
+            torch, c, f"K7 (192, 192) train_lm_100m (B 4, S 192, 4 / 2 "
+            f"heads), {dname}", 4, 4, 2, 192, 192, 192, dtype=dtype)
+    for dname, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        for key, label, shape, kw, timed in K7_BWD_CASES:
+            results[f"k7_vjp.{key}.{dname}"] = k7_bwd_case(
+                torch, c, key, label, *shape, dtype=dtype, timed=timed, **kw)
+        for key, label, shape, timed in K8_BWD_CASES:
+            results[f"k8_vjp.{key}.{dname}"] = k8_bwd_case(
+                torch, c, key, label, *shape, dtype=dtype, timed=timed)
+        torch.cuda.empty_cache()
+
+
+# 20(b)-(d): the trainer's runs, (key, label, argv, the kernel launches of
+# every step).  Full widths in the configs' bf16; depth cut where stated
+# (the 'reduced' of PERF.md section 4): Qwen2.5-14B to 4 of its 48 layers
+# (~2.7 B parameters with its two 152 064-row embeddings, ~32 GB with
+# AdamW's float32 moments), Mamba2-780m at full depth, 20(d)'s models to 2
+# layers (Zamba2-2.7B to 6: one group of attn_every SSM layers and one
+# application of the shared attention block).  A peak learning rate of
+# 3e-4 after 2 warm-up steps: at the launcher's default 3e-3 Qwen2.5-14B's
+# third loss jumped to 22.7 from 12.4 (H100 80GB HBM3, 700 W).
+# Qwen2.5-14B takes 6 steps, Mamba2-780m 4 (host-bound: 0.78-0.90 s a
+# step on the same card)
+TRAIN_STEPS = {QWEN14: 6, MAMBA2: 4}
+TRAIN_LR = ["--lr", "3e-4", "--warmup", "2"]
+TRAIN_RUNS = (
+    (QWEN14, "20b. Qwen2.5-14B, 4 layers, B 4 x S 1024",
+     ["--arch", QWEN14, "--layers", "4", "--batch", "4", "--seq", "1024",
+      "--steps", str(TRAIN_STEPS[QWEN14]), *TRAIN_LR],
+     {"flash_attention": 4, "flash_attention_bwd_dq": 4,
+      "flash_attention_bwd_dkdv": 4}),
+    (MAMBA2, "20c. Mamba2-780m, 48 layers, B 2 x S 1024",
+     ["--arch", MAMBA2, "--batch", "2", "--seq", "1024",
+      "--steps", str(TRAIN_STEPS[MAMBA2]), *TRAIN_LR],
+     {"ssd_chunk_state": 48, "ssd_chunk_state_bwd": 48}))
+TRAIN_CUTS = tuple(
+    (arch, f"20d. {arch}, {n} layers, B 2 x S 1024",
+     ["--arch", arch, "--layers", str(n), "--batch", "2", "--seq", "1024",
+      "--steps", "1"], want)
+    for arch, n, want in (
+        (PHI3, 2, {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                   "flash_attention_bwd_dkdv": 2}),
+        ("gemma-7b", 2, {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                         "flash_attention_bwd_dkdv": 2}),
+        ("glm4-9b", 2, {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                        "flash_attention_bwd_dkdv": 2}),
+        (GRANITE, 2, {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                      "flash_attention_bwd_dkdv": 2}),
+        (ZAMBA2, 6, {"flash_attention": 1, "flash_attention_bwd_dq": 1,
+                     "flash_attention_bwd_dkdv": 1, "ssd_chunk_state": 6,
+                     "ssd_chunk_state_bwd": 6})))
+# 20(e): every family the trainer runs on the card, at its reduced config
+# in float32, card against CPU: (arch, batch, seq)
+TRAIN_PARITY = tuple((a, 2, 64) for a in (
+    QWEN14, PHI3, "gemma-7b", "glm4-9b", GRANITE, MAMBA2, ZAMBA2))
+TRAIN_PARITY_STEPS = 3
+TRAIN_EXAMPLE_STEPS = 220
+
+
+def train_kind(key: str) -> str:
+    """A training step's device kernel by kind: K7's forward and VJP,
+    K8's forward and VJP, else :func:`kernel_kind`'s."""
+    k = key.lower()
+    for name, kind in (("flash_fwd", "K7 forward"), ("flash_bwd", "K7 VJP"),
+                       ("ssd_bwd_kernel", "K8 VJP"),
+                       ("ssd_state", "K8 forward")):
+        if name in k:
+            return kind
+    return kernel_kind(key)
+
+
+def train_run(torch, key, label, argv, want, results, *, profile) -> dict:
+    """One run of ``repro_torch.launch.train`` (its ``run``, the launcher's
+    main path) from zeroed launch counts: every step launches exactly
+    ``want`` and nothing else of the port's, every loss and grad norm is
+    finite and, over several steps, the last loss lies below the first;
+    ms a step (the median after the first), tok/s, peak device memory,
+    and optionally a profile of one more step split by kind."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models.transformer import model as M
+    args = T.parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = T.run(args)
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    steps = len(out["losses"])
+    ms = float(np.median(out["step_seconds"][1:] or out["step_seconds"])
+               ) * 1e3
+    res = {"case": label, "argv": argv, "launches": launches,
+           "launches_per_step": out["step_launches"][0],
+           "losses": out["losses"], "grad_norms": out["grad_norms"],
+           "step_ms": [t * 1e3 for t in out["step_seconds"]],
+           "ms_per_step": ms,
+           "tok_per_s": args.batch * args.seq / (ms / 1e3),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "params": M.param_count(out["params"])}
+    print(f"   {label}: " + json.dumps(
+        {k: res[k] for k in ("losses", "grad_norms", "ms_per_step",
+                             "tok_per_s", "peak_gib", "params",
+                             "launches_per_step")}), flush=True)
+    results[f"train.{key}"] = res
+    results[f"launches.train.{key}"] = launches
+    require(all(s == want for s in out["step_launches"]),
+            f"{label}: every step launches exactly {want}: "
+            f"{out['step_launches']}")
+    require(all(np.isfinite(out["losses"] + out["grad_norms"])),
+            f"{label}: finite losses and grad norms")
+    if steps > 1:
+        require(out["losses"][-1] < out["losses"][0],
+                f"{label}: the loss falls: {out['losses']}")
+    if profile:
+        # one profiling session, its active step after a profiled warm-up
+        # step (the run's earlier profiled phases paid CUPTI's start-up;
+        # a second session, as profile_active_step takes, cost about 15 s
+        # at Mamba2's 48 layers on an H100 80GB HBM3, 700 W)
+        from torch.profiler import ProfilerActivity, profile as prof_, \
+            schedule
+        step_fn, params, batch = out["step_fn"], out["params"], \
+            out["batches"][-1]
+        with prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1,
+                                     repeat=1)) as prof:
+            for _ in range(2):
+                step_fn(params, batch)
+                torch.cuda.synchronize()
+                prof.step()
+        rows = device_rows(prof)
+        split = {}
+        for e in rows:
+            split[train_kind(e.key)] = split.get(train_kind(e.key), 0.0) + \
+                dev_us(e) / 1e3
+        res["profile_split_ms"] = split
+        res["profile_device_ms"] = sum(split.values())
+        res["profile_top"] = [{"kernel": e.key[:90], "count": e.count,
+                               "ms": dev_us(e) / 1e3} for e in rows[:12]]
+        print(f"   {label} profiled: device {res['profile_device_ms']:.3f} "
+              f"ms a step of {ms:.3f} ms wall; split (ms): "
+              + json.dumps(split), flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_lm(torch, results):
+    """20(b)-(d), a phase each run (one that fails leaves the rest to
+    run)."""
+    for runs, profile in ((TRAIN_RUNS, True), (TRAIN_CUTS, False)):
+        for key, label, argv, want in runs:
+            phase(label)(train_run)(torch, key, label, argv, want, results,
+                                    profile=profile)
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) pairs of a param tree, in ``M._leaves``'s order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _rel_errs(got, want) -> list:
+    """|got - want| / max|want| per tensor (want on the CPU)."""
+    out = []
+    for x, y in zip(got, want):
+        scale = float(y.abs().max()) if y.numel() else 0.0
+        err = float((x.cpu() - y).abs().max()) if y.numel() else 0.0
+        out.append(err / scale if scale else err)
+    return out
+
+
+@phase("20e. the trainer's step, card against CPU, float32")
+def phase_train_parity(torch, results):
+    """For each family the trainer runs on the card, at its reduced config
+    in float32 from the same CPU-drawn weights and the same batches,
+    card against CPU, each within 1e-4 of its tensor's largest element on
+    the CPU: under the launcher's AdamW, the TRAIN_PARITY_STEPS losses and
+    every gradient of the first step; under SGD (lr 0.01), every parameter
+    after TRAIN_PARITY_STEPS steps (at lr 0.1 the reduced models' unclipped
+    steps, gradient norms up to 16, let float32 trajectories separate by
+    themselves: Zamba2's parameters 5.3e-4 apart after 3 steps, with its
+    first gradients 1.3e-5 apart).  AdamW's parameters after those steps
+    are printed beside, worst tensor named, and not held to 1e-4: Adam
+    divides each gradient element by its own magnitude, so an element whose
+    gradient is roundoff moves by +-lr on either device in a direction the
+    roundoff picks (the key bias of Qwen2.5 and GLM-4 has a gradient that
+    is zero but for roundoff, since softmax ignores a shift shared by a
+    row's keys: 5.2e-2 and 7.5e-2 of its largest value apart after 3 steps
+    on an H100 80GB HBM3 at 700 W; embedding rows summed in another
+    order, 1.8e-4 in Phi-3), as the CPU tests hold GIN and GGNN under
+    SGD."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import model as M
+    from repro_torch.optim import AdamW, Sgd, cosine_schedule
+    out = {}
+    ops.reset_launch_counts()
+    for arch, B, S in TRAIN_PARITY:
+        cfg = get_config(arch).reduced()
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(27),
+                            max_seq=S, device="cpu")
+        names = [n for n, _ in _named_leaves(cpu)]
+        it = SyntheticLMDataset(cfg.vocab_size, S, seed=27).batches(B)
+        batches = [{k: torch.from_numpy(v) for k, v in next(it).items()}
+                   for _ in range(TRAIN_PARITY_STEPS)]
+        runs = {}
+        for opt_name in ("adamw", "sgd"):
+            for dev in ("cpu", "cuda"):
+                params = _to_cuda(cpu) if dev == "cuda" else \
+                    M._map(lambda w, g: g.clone(), cpu, cpu)
+                leaves = M.trainable(params)
+                opt = (AdamW(leaves, lr=cosine_schedule(
+                    3e-3, 20, TRAIN_PARITY_STEPS), weight_decay=0.01)
+                    if opt_name == "adamw" else Sgd(leaves, lr=0.01))
+                step = M.make_train_step(cfg, opt)
+                losses, grads = [], None
+                for i, b in enumerate(batches):
+                    m = step(params, {k: v.to(dev) for k, v in b.items()})
+                    losses.append(float(m["loss"]))
+                    if i == 0:
+                        grads = [p.grad.detach().clone() for p in leaves]
+                runs[opt_name, dev] = (losses, grads,
+                                       [p.detach() for p in leaves])
+        (lc, gc, pc), (lg, gg, pg) = runs["adamw", "cpu"], \
+            runs["adamw", "cuda"]
+        adam_params = _rel_errs(pg, pc)
+        worst = int(np.argmax(adam_params))
+        sgd = runs["sgd", "cpu"], runs["sgd", "cuda"]
+        sgd_params = _rel_errs(sgd[1][2], sgd[0][2])
+        r = {"loss_cpu": lc, "loss_card": lg,
+             "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(lg, lc)),
+             "grad_rel": max(_rel_errs(gg, gc)),
+             "sgd_loss_rel": max(abs(a - b) / abs(b)
+                                 for a, b in zip(sgd[1][0], sgd[0][0])),
+             "sgd_param_rel": max(sgd_params),
+             "sgd_param_worst": names[int(np.argmax(sgd_params))],
+             "adamw_param_rel": adam_params[worst],
+             "adamw_param_worst": names[worst]}
+        r["ok"] = max(r["loss_rel"], r["grad_rel"], r["sgd_loss_rel"],
+                      r["sgd_param_rel"]) <= 1e-4
+        out[arch] = r
+        print(f"   {arch} (reduced, float32): " + json.dumps(r), flush=True)
+        if not r["ok"]:
+            failures.append(f"20e {arch}: card vs CPU {r}")
+    results["train_parity"] = out
+    results["launches.train.parity"] = {
+        k: n for k, n in ops.launch_counts().items() if n}
+
+
+@phase("20f. the trainer's examples on the card")
+def phase_train_examples(torch, results):
+    """``train_lm_100m`` at its default steps (losses, the unigram-entropy
+    floor and whether the last loss lies below it; the loss must fall)
+    and ``whisper_vlm_smoke`` as it stands, in this process, from zeroed
+    launch counts."""
+    from repro_torch.examples import train_lm_100m, whisper_vlm_smoke
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = train_lm_100m.main(["--steps", str(TRAIN_EXAMPLE_STEPS)])
+    losses = out["losses"]
+    ms = float(np.median(out["step_seconds"][1:])) * 1e3
+    r = {"losses_every_20": losses[::20] + [losses[-1]],
+         "first": losses[0], "last": losses[-1],
+         "unigram_entropy": out["unigram_entropy"],
+         "last_below_floor": losses[-1] < out["unigram_entropy"],
+         "ms_per_step": ms,
+         "launches": {k: n for k, n in ops.launch_counts().items() if n}}
+    results["launches.train.train_lm_100m"] = r["launches"]
+    print("   train_lm_100m: " + json.dumps(r), flush=True)
+    require(losses[-1] < losses[0], f"train_lm_100m's loss falls: {r}")
+    del out
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    smoke = whisper_vlm_smoke.main([])
+    r["whisper_vlm_smoke"] = {a: v["losses"] for a, v in smoke.items()}
+    results["launches.train.whisper_vlm_smoke"] = {
+        k: n for k, n in ops.launch_counts().items() if n}
+    print("   whisper_vlm_smoke: " + json.dumps(r["whisper_vlm_smoke"])
+          + " launches " + json.dumps(
+              results["launches.train.whisper_vlm_smoke"]), flush=True)
+    results["train_examples"] = r
+
+
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
@@ -4977,6 +5624,15 @@ def kernels_line(results) -> dict:
                     launches_per_rank=results.get(
                         f"launches.dist.{lkey}", {}).get(
                             name, {}).get(F, 0))
+        if name in ("flash_attention", "flash_attention_fp32"):
+            # (192, 192), train_lm_100m's pair (20(a)), with its launches
+            # in 20(f) (float32; no bf16 path runs it)
+            r = results[f"{name}.192_192"]
+            rows[-1]["at_192_192"] = dict(
+                {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+                launches=results.get("launches.train.train_lm_100m",
+                                     {}).get(name, 0))
         if name == "flash_attention":
             # phase 13's configs: the case at each prefill shape (phase 8)
             # and its launches in that config's prefill (phase 13)
@@ -4987,7 +5643,65 @@ def kernels_line(results) -> dict:
                                        "bound_ms", "bound_by",
                                        "library_ms")},
                     launches=results[f"launches.lm.{arch}"].get(name, 0))
+    rows.extend(vjp_rows(results))
     return {"kernels": rows}
+
+
+def vjp_rows(results) -> list:
+    """Phase 20's kernels, K7's and K8's VJPs, which replace no TPU kernel.
+    K7's two kernels are timed apart (each with its own bound); plain and
+    library times are the whole VJP's (the plain FlashAttention-2
+    backward, SDPA's backward), as is ``vjp_ms``.  bf16 rows: 20(a)'s
+    Qwen2.5-14B case and 20(b)'s launches; float32: train_lm_100m's (192,
+    192) and 20(f)'s launches.  K8's bf16 row: Mamba2-780m (20(c)); its
+    float32 row the reduced configs' widths (20(e)'s launches).  The
+    other timed width pairs and widths stand beside each row."""
+    rows = []
+    k7_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    k7_none = ("none: the reference differentiates L.attention "
+               "(src/repro/models/transformer/layers.py:152) in XLA")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for name, part, dname, main_key, path in (
+            ("flash_attention_bwd_dq", "dq", "bf16", "qwen", QWEN14),
+            ("flash_attention_bwd_dkdv", "dkdv", "bf16", "qwen", QWEN14),
+            ("flash_attention_bwd_dq_fp32", "dq", "float32", "192_192",
+             "train_lm_100m"),
+            ("flash_attention_bwd_dkdv_fp32", "dkdv", "float32", "192_192",
+             "train_lm_100m")):
+        def part_of(r):
+            return {"max_abs_err": r["max_abs_err"], "ms": r[f"{part}_ms"],
+                    "plain_ms": r["plain_ms"],
+                    "bound_ms": r[f"{part}_bound_ms"],
+                    "bound_by": r[f"{part}_bound_by"],
+                    "library_ms": r["library_ms"], "vjp_ms": r["ms"],
+                    "vjp_bound_ms": r["bound_ms"]}
+        row = {"name": name, "route": "cuda", "source": k7_src,
+               "replaces": k7_none,
+               "launches": results.get(f"launches.train.{path}", {}).get(
+                   name, 0),
+               **part_of(results[f"k7_vjp.{main_key}.{dname}"])}
+        for key, _, _, _, timed in K7_BWD_CASES:
+            if timed and key != main_key:
+                row[f"at_{key}"] = part_of(results[f"k7_vjp.{key}.{dname}"])
+        rows.append(row)
+    for name, dname, main_key, path in (
+            ("ssd_chunk_state_bwd", "bf16", "mamba2", MAMBA2),
+            ("ssd_chunk_state_bwd_fp32", "float32", "reduced", "parity")):
+        r = results[f"k8_vjp.{main_key}.{dname}"]
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+               "replaces": "none: the reference differentiates its states "
+                           "einsum (src/repro/models/transformer/ssm.py:109) "
+                           "in XLA",
+               "launches": results.get(f"launches.train.{path}", {}).get(
+                   name, 0), **{k: r[k] for k in keys}}
+        for key, _, _, timed in K8_BWD_CASES:
+            if timed and key != main_key:
+                row[f"at_{key}"] = {k: results[f"k8_vjp.{key}.{dname}"][k]
+                                    for k in keys}
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -5041,6 +5755,12 @@ def main() -> int:
     phase_deepseek(torch, results)
     torch.cuda.empty_cache()
     phase_encdec_vlm(torch, results)
+    torch.cuda.empty_cache()
+    phase_lm_vjps(torch, results)
+    torch.cuda.empty_cache()
+    phase_train_lm(torch, results)
+    phase_train_parity(torch, results)
+    phase_train_examples(torch, results)
     torch.cuda.empty_cache()
     phase_examples(torch, results)
     phase_distributed(torch, g, g_gat, results)

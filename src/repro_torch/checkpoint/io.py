@@ -4,10 +4,12 @@ Layout (one directory per step):
   <dir>/step_<n>/manifest.json   — leaf key paths, shapes, dtypes, meta
   <dir>/step_<n>/arrays.npz      — the leaves, copied to the host
 
-A tree is a nested dict whose leaves are tensors, such as
-``{"params": module.state_dict()}``.  Leaves are flattened in sorted
-key-path order, the order ``jax.tree_util`` gives dict keys, and the
-manifest records each leaf's key path.  bf16 leaves are stored as their
+A tree is a nested dict (or list) whose leaves are tensors, such as
+``{"params": module.state_dict()}`` or the transformer's params with
+their lists of layers.  Leaves are flattened in sorted key-path order,
+the order ``jax.tree_util`` gives dict keys (a list's items in order,
+keyed by their index), and the manifest records each leaf's key path.
+bf16 leaves are stored as their
 ``uint16`` bits under the manifest dtype ``"bfloat16"`` and round-trip
 bitwise; every other dtype is stored as numpy stores it.
 
@@ -41,11 +43,17 @@ _BF16 = "bfloat16"
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[tuple, object]]:
-    """``(key path, leaf)`` pairs of a nested dict, keys sorted per level."""
+    """``(key path, leaf)`` pairs of a nested dict (keys sorted per level)
+    or list (items in order, keyed by index)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], prefix + (k,))
+        return out
+    if isinstance(tree, list):
+        out = []
+        for i, v in enumerate(tree):
+            out += _flatten(v, prefix + (i,))
         return out
     return [(prefix, tree)]
 
@@ -54,6 +62,9 @@ def _unflatten(template, leaves: dict, prefix=()):
     if isinstance(template, dict):
         return {k: _unflatten(v, leaves, prefix + (k,))
                 for k, v in template.items()}
+    if isinstance(template, list):
+        return [_unflatten(v, leaves, prefix + (i,))
+                for i, v in enumerate(template)]
     return leaves[prefix]
 
 

@@ -56,14 +56,28 @@ SIGNATURES = {
     },
     # the strides arrive as a pointer to a host array of int64
     "flash_attention": {
-        "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _I, _P],
+        # q, k, v, o, lse (null when serving), strides
+        "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _I, _P],
         "flash_attention_smem": [_I, _I, _I],
+    },
+    # K7's VJP: q, k, v, o, dO, lse, D, dq, dk, dv, strides, then B, H, K,
+    # Sq, Skv, hd, hd_v, causal, window, scale, is_bf16, stream
+    "flash_attention_bwd": {
+        "flash_attention_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
+        "flash_attention_bwd_dkdv": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
+        "flash_attention_bwd_smem": [_I, _I, _I],
     },
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
         "ssd_chunk_state_smem": [_I, _I],
+    },
+    # K8's VJP: x, dt, A, Bm, d state, dx, dBm, ddt, dA partials, strides,
+    # then C, L, H, P, G, N, is_bf16, stream
+    "ssd_chunk_bwd": {
+        "ssd_chunk_state_bwd": [_P] * 10 + [_I] * 7 + [_P],
+        "ssd_chunk_state_bwd_smem": [_I, _I, _I, _I],
     },
 }
 

@@ -131,6 +131,17 @@
 // GB of q, k, v and out in bf16 (0.40 ms at 3.35 TB/s) against 344
 // GFLOP (0.35 ms at 989 TFLOP/s): bound by bytes.
 //
+// (192, 192): q, k and v 192 wide (train_lm_100m's reduced Qwen2.5 at
+// d_model 768 over 4 heads).  bf16: two stages of 128-key K and V tiles
+// would take 192 KB beside Q's 48 KB, past the 227 KB a block may use, so
+// the tiles hold 64 keys (145 KB), as at hd 256; P V is wgmma m64n192k16.
+// float32: 32-key tiles as at (192, 128), 217 KB, one block an SM.
+//
+// For training, the caller passes an lse tensor and each row's
+// log-sum-exp, m ln 2 + ln l (m the row max in log2 units), is written
+// beside O: flash_attention_bwd.cu recomputes P from it.  Serving passes
+// null and the kernels write nothing more.
+//
 // Sums run in a fixed order in both: bitwise repeatable.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -167,7 +178,9 @@ constexpr int TC_STAGES = 2;      // K/V tiles in flight
 // MLA's (192, 128)
 template <int HD, int HDV>
 struct Tile {
-  static constexpr int BK = HD <= 192 ? 128 : 64;     // keys per kv tile
+  // keys per kv tile: 128, but 64 at hd 256 and at (192, 192), whose two
+  // stages of 128-key K and V tiles (192 KB) leave no room for Q
+  static constexpr int BK = HD <= 192 && HD + HDV <= 320 ? 128 : 64;
   static constexpr int SW = HD % 64 == 0 ? 128 : 64;  // swizzle = bytes of a chunk row
   static constexpr int CW = SW / 2;                   // bf16 columns per chunk
   static constexpr int NC = HD / CW;                  // chunks of a Q or K row
@@ -182,6 +195,17 @@ struct Tile {
   static constexpr int SMEM = 1024 + Q_BYTES + TC_STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 3 * TC_STAGES);
 };
 
+// the row log-sum-exp (natural units) for the backward, (B, H, Sq)
+// float32: one lane of each quad writes rows `row` and `row + 8` from the
+// row max m (log2 units) and the quad's summed l
+__device__ __forceinline__ void write_lse(float* lse, int h, int b, int H, int Sq, int row,
+                                          int lane, float m0, float m1, float l0, float l1) {
+  if (lane & 3) return;
+  float* dst = lse + ((long long)b * H + h) * Sq;
+  if (row < Sq) dst[row] = m0 * 0.6931471805599453f + logf(l0);
+  if (row + 8 < Sq) dst[row + 8] = m1 * 0.6931471805599453f + logf(l1);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -194,8 +218,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap to, int G, int Sq, int Skv,
-                       int causal, int window, float scale_log2) {
+                       const __grid_constant__ CUtensorMap to, float* __restrict__ lse,
+                       int G, int Sq, int Skv, int causal, int window, float scale_log2) {
   using T = Tile<HD, HDV>;
   constexpr int BK = T::BK, SW = T::SW, CW = T::CW, NC = T::NC, NCV = T::NCV;
   extern __shared__ uint8_t smem_raw[];
@@ -375,6 +399,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_rs_n96(o, pa[kk], db);
       else if constexpr (HDV == 128)
         hopper::wgmma_rs_n128(o, pa[kk], db);
+      else if constexpr (HDV == 192)
+        hopper::wgmma_rs_n192(o, pa[kk], db);
       else
         hopper::wgmma_rs_n256(o, pa[kk], db);
     }
@@ -392,6 +418,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr) write_lse(lse, h, b, gridDim.x, Sq, q0 + cw * TC_ROWS + r, lane, m0, m1, l0, l1);
   uint8_t* sO = sQ + cw * TC_ROWS * SW;
 #pragma unroll
   for (int jn = 0; jn < HDV / 8; ++jn) {
@@ -484,8 +511,8 @@ __global__ void __launch_bounds__(F_THREADS, TileF<HD, HDV>::BLOCKS)
 flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap to, int G, int Sq, int Skv, int causal,
-                      int window, float scale_log2) {
+                      const __grid_constant__ CUtensorMap to, float* __restrict__ lse, int G,
+                      int Sq, int Skv, int causal, int window, float scale_log2) {
   using T = TileF<HD, HDV>;
   constexpr int BK = T::BK, NC = T::NC, NCV = T::NCV;
   extern __shared__ uint8_t smem_raw[];
@@ -703,6 +730,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_tf32_rs_n128(o, ph[kk], vh);
         hopper::wgmma_tf32_rs_n128(o, ph[kk], vl);
         hopper::wgmma_tf32_rs_n128(o, pl[kk], vh);
+      } else if constexpr (HDV == 192) {
+        hopper::wgmma_tf32_rs_n192(o, ph[kk], vh);
+        hopper::wgmma_tf32_rs_n192(o, ph[kk], vl);
+        hopper::wgmma_tf32_rs_n192(o, pl[kk], vh);
       } else {
         hopper::wgmma_tf32_rs_n256(o, ph[kk], vh);
         hopper::wgmma_tf32_rs_n256(o, ph[kk], vl);
@@ -721,6 +752,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr) write_lse(lse, h, b, gridDim.y, Sq, q0 + r, lane, m0, m1, l0, l1);
   hopper::named_barrier(1, 128);   // every warp's products are done reading Q hi
 #pragma unroll
   for (int jn = 0; jn < HDV / 8; ++jn) {
@@ -747,9 +779,9 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 // (the maps' head axis): TMA fills a box's columns past hd with zeros and
 // the store clips them
 template <int HD, int HDV>
-int launch_tf32(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-                int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse,
+                const long long* st, int B, int H, int K, int Sq, int Skv, int hd, int hd_v,
+                int causal, int window, float scale, cudaStream_t stream) {
   using T = TileF<HD, HDV>;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap mq, mk, mv, mo;
@@ -763,15 +795,15 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, const long
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
   flash_fwd_tf32_kernel<HD, HDV><<<grid, F_THREADS, T::SMEM, stream>>>(
-      mq, mk, mv, mo, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
+      mq, mk, mv, mo, lse, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 // HD and HDV as in launch_tf32
 template <int HD, int HDV>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, const long long* st,
-                 int B, int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window,
-                 float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                 const long long* st, int B, int H, int K, int Sq, int Skv, int hd, int hd_v,
+                 int causal, int window, float scale, cudaStream_t stream) {
   using T = Tile<HD, HDV>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv, mo;
@@ -785,7 +817,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (Sq + TC_BQ - 1) / TC_BQ);
   flash_fwd_wgmma_kernel<HD, HDV><<<grid, TC_THREADS, T::SMEM, stream>>>(
-      mq, mk, mv, mo, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
+      mq, mk, mv, mo, lse, H / K, Sq, Skv, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -793,15 +825,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, const lon
 // widths 64, 80 (on the 96-wide tiles: the third chunk holds 16 zeros),
 // 96, 128 and 256, and MLA's (192, 128)
 template <bool BF16>
-int dispatch(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-             int H, int K, int Sq, int Skv, int hd, int hd_v, int causal, int window, float scale,
-             cudaStream_t s) {
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             const long long* st, int B, int H, int K, int Sq, int Skv, int hd, int hd_v,
+             int causal, int window, float scale, cudaStream_t s) {
 #define K7_LAUNCH(HD, HDV)                                                                   \
-  return BF16 ? launch_wgmma<HD, HDV>(q, k, v, o, st, B, H, K, Sq, Skv, hd, hd_v, causal,   \
-                                      window, scale, s)                                      \
-              : launch_tf32<HD, HDV>(q, k, v, o, st, B, H, K, Sq, Skv, hd, hd_v, causal,    \
-                                     window, scale, s)
+  return BF16 ? launch_wgmma<HD, HDV>(q, k, v, o, lse, st, B, H, K, Sq, Skv, hd, hd_v,      \
+                                      causal, window, scale, s)                              \
+              : launch_tf32<HD, HDV>(q, k, v, o, lse, st, B, H, K, Sq, Skv, hd, hd_v,       \
+                                     causal, window, scale, s)
   if (hd == 192 && hd_v == 128) K7_LAUNCH(192, 128);
+  if (hd == 192 && hd_v == 192) K7_LAUNCH(192, 192);
   if (hd != hd_v) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 64: K7_LAUNCH(64, 64);
@@ -819,17 +852,20 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const long lo
 // strides: 12 element strides, (batch, head, position) of q, k, v, o in
 // turn; hd is q's and k's width, hd_v v's and o's; is_bf16 selects bf16
 // tensors and the bf16 kernel (else float32 and the TF32 split kernel).
-// Returns cudaGetLastError() after the launch, or
-// hopper::TENSOR_MAP_ERROR + a CUresult if a TMA map was refused.
+// lse: null (serving), or a contiguous (B, H, Sq) float32 tensor that
+// takes each row's log-sum-exp for the backward.  Returns
+// cudaGetLastError() after the launch, or hopper::TENSOR_MAP_ERROR + a
+// CUresult if a TMA map was refused.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   const long long* strides, int B, int H, int K, int Sq,
-                                   int Skv, int hd, int hd_v, int causal, int window, float scale,
-                                   int is_bf16, void* stream) {
+                                   void* lse, const long long* strides, int B, int H, int K,
+                                   int Sq, int Skv, int hd, int hd_v, int causal, int window,
+                                   float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (Sq == 0 || B == 0 || H == 0) return 0;
-  return is_bf16 ? dispatch<true>(q, k, v, o, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
+  return is_bf16 ? dispatch<true>(q, k, v, o, l, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
                                   window, scale, s)
-                 : dispatch<false>(q, k, v, o, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
+                 : dispatch<false>(q, k, v, o, l, strides, B, H, K, Sq, Skv, hd, hd_v, causal,
                                    window, scale, s);
 }
 
@@ -838,6 +874,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // chip_smoke.py holds the two together
 extern "C" int flash_attention_smem(int hd, int hd_v, int is_bf16) {
   if (hd == 192 && hd_v == 128) return is_bf16 ? Tile<192, 128>::SMEM : TileF<192, 128>::SMEM;
+  if (hd == 192 && hd_v == 192) return is_bf16 ? Tile<192, 192>::SMEM : TileF<192, 192>::SMEM;
   if (hd != hd_v) return 0;
   switch (hd) {
     case 64: return is_bf16 ? Tile<64, 64>::SMEM : TileF<64, 64>::SMEM;

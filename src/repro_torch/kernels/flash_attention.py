@@ -1,4 +1,4 @@
-"""K7: flash attention (causal / sliding-window, GQA), forward only.
+"""K7: flash attention (causal / sliding-window, GQA) and its VJP.
 
 :func:`flash_attention_cuda` launches a hand-written Hopper kernel
 (``csrc/flash_attention.cu``), the counterpart of the reference's Pallas
@@ -21,7 +21,19 @@ wide (128 decompressed + 64 rotary columns) and v 128
 (:data:`WIDTH_PAIRS`); the reference's Pallas kernel takes one width,
 and its MLA reaches ``L.attention`` in XLA, which reads hd_v from v.  ``scale`` defaults to ``1/sqrt(hd)`` and multiplies q in float32
 (the model path pre-scales q in its own dtype, as the reference's
-``attention`` does, and passes ``scale=1``).
+``attention`` does, and passes ``scale=1``).  (192, 192) is
+``examples/train_lm_100m``'s reduced Qwen2.5 at d_model 768 over 4 heads.
+
+The VJP: :class:`FlashAttention` runs K7 with each row's log-sum-exp
+written beside the output (``return_lse``) and, in its backward,
+:func:`flash_attention_bwd_cuda`: two hand-written kernels
+(``csrc/flash_attention_bwd.cu``), dQ (which first writes D = <dO, o> a
+row) and then dK/dV, both on the CUDA cores, no atomics.  They replace
+no TPU kernel: the reference trains through XLA's autodiff of
+``L.attention``.  :func:`flash_attention_bwd_plain` is the same
+FlashAttention-2 formulas in PyTorch, in float32.  The raw
+:func:`flash_attention_cuda` stays forward-only: called with grad on an
+input that requires it, it raises and names the Function.
 """
 from __future__ import annotations
 
@@ -36,14 +48,19 @@ from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
                                              _refuse_grad, _require_cuda,
                                              _stream)
 
-#: launches of the kernel wrapper (a run resets and reads it), by route:
-#: bf16 (the served path) and float32 (the TF32 split route)
-launches = {"flash_attention": 0, "flash_attention_fp32": 0}
+#: launches of the kernel wrappers (a run resets and reads them), by
+#: route: the forward in bf16 (the served path) and float32 (the TF32
+#: split route), and the backward's two kernels in each dtype
+launches = {"flash_attention": 0, "flash_attention_fp32": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+            "flash_attention_bwd_dq_fp32": 0,
+            "flash_attention_bwd_dkdv_fp32": 0}
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
 #: the (q/k width, v width) pairs the kernel takes: each width of
-#: HEAD_DIMS with itself, and MLA's (192, 128) (DeepSeek-V3's prefill)
-WIDTH_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+#: HEAD_DIMS with itself, MLA's (192, 128) (DeepSeek-V3's prefill) and
+#: (192, 192) (train_lm_100m's 768-wide reduced Qwen2.5 over 4 heads)
+WIDTH_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (192, 192))
 #: head widths that run on a wider kernel instance: hd 80 (Zamba2-2.7B)
 #: on the hd-96 tiles, whose third 32-column chunk TMA fills with 16
 #: columns of zeros past the tensor's 80 (an exact zero term in every Q·Kᵀ
@@ -86,15 +103,17 @@ def launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:data:`TILE_WIDTH`; ``tile_width`` and ``tile_width_v`` say which).
     Shared memory counts K's tiles at the q/k width and V's at the v
     width (MLA's (192, 128): 214 072 bytes in bf16, 197 656 in
-    float32); ``smem_bytes`` is the dynamic shared memory a block asks
-    for, within :data:`SMEM_PER_BLOCK` at every pair."""
+    float32; (192, 192) takes 64-key tiles in bf16, 148 536 bytes, and
+    222 232 in float32); ``smem_bytes`` is the dynamic shared memory a
+    block asks for, within :data:`SMEM_PER_BLOCK` at every pair."""
     check_widths(q.shape[-1], v.shape[-1])
     hd = TILE_WIDTH.get(q.shape[-1], q.shape[-1])
     hd_v = TILE_WIDTH.get(v.shape[-1], v.shape[-1])
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_tma(t, name, ("batch", "head", "position"))
     if q.dtype == torch.bfloat16:
-        block_k = 128 if hd <= 192 else 64
+        # (192, 192)'s two stages of 128-key tiles and Q would take 241 KB
+        block_k = 128 if hd <= 192 and hd + hd_v <= 320 else 64
         stages = 2
         # the 1024-byte alignment slack, Q, the K and V ring, barriers
         smem = 1024 + 128 * hd * 2 + stages * block_k * (hd + hd_v) * 2 + \
@@ -121,42 +140,66 @@ def _scale(hd: int, scale: Optional[float]) -> float:
     return 1.0 / np.sqrt(hd) if scale is None else float(scale)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """Dense softmax attention in float32 (``ref.flash_attention``); the
-    output takes v's width."""
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device
+          ) -> torch.Tensor:
+    """(Sq, Skv): True where query i sees key j, the queries aligned to
+    the end of the kv axis."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Skv - Sq)
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _logits(q, k, causal, window, scale):
+    """The masked float32 scores (B, K, G, Sq, Skv), masked entries
+    NEG_INF, and the mask."""
     B, H, Sq, hd = q.shape
     K, Skv = k.shape[1], k.shape[2]
-    G = H // K
-    qg = q.reshape(B, K, G, Sq, hd).float()
+    qg = q.reshape(B, K, H // K, Sq, hd).float()
     logits = torch.einsum("bkgqh,bksh->bkgqs", qg * _scale(hd, scale),
                           k.float())
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos + (Skv - Sq)
-    if window:
-        mask &= kpos > qpos + (Skv - Sq) - window
-    logits = logits.masked_fill(~mask, NEG_INF)
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    return logits.masked_fill(~mask, NEG_INF), mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """Dense softmax attention in float32 (``ref.flash_attention``); the
+    output takes v's width.  With ``return_lse`` also each row's
+    log-sum-exp, (B, H, Sq) float32, as the kernel writes it."""
+    B, H, Sq, _ = q.shape
+    logits, _ = _logits(q, k, causal, window, scale)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksh->bkgqh", w, v.float())
-    return out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+    out = out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1).reshape(B, H, Sq)
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """K7 on the card (``csrc/flash_attention.cu``, ``flash_attention_fwd``).
     q, k, v may be strided views (the last dim contiguous, and TMA's
     alignment, :func:`launch_plan`); bf16 or float32, all one dtype; (hd,
     hd_v) in :data:`WIDTH_PAIRS`.  The output is a (B, H, Sq, hd_v) view
     of a (B, Sq, H, hd_v) tensor, the layout the model reshapes without a
-    copy.  Forward only: an input that requires grad, with grad
-    enabled, raises ``NotImplementedError`` (``_refuse_grad``)."""
+    copy.  With ``return_lse``, returns ``(out, lse)``: the kernel also
+    writes each row's log-sum-exp, (B, H, Sq) float32 (serving passes
+    none).  Forward only: an input that requires grad, with grad
+    enabled, raises ``NotImplementedError`` naming
+    :class:`FlashAttention` (``_refuse_grad``)."""
     dev = _require_cuda(q, "flash_attention_cuda")
-    _refuse_grad("flash_attention_cuda (K7)", q, k, v)
+    _refuse_grad("flash_attention_cuda (K7)",
+                 "kernels.flash_attention.FlashAttention", q, k, v)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Sq, hd), got {tuple(q.shape)}")
     B, H, Sq, hd = q.shape
@@ -180,8 +223,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window {window} < 0")
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=dev
                       ).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if Skv == 0:
         raise ValueError("Skv 0: no key to attend to")
     plan = launch_plan(q, k, v, out)
@@ -189,9 +234,194 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *(t.stride(i) for t in (q, k, v, out) for i in range(3)))
     lib = build.library("flash_attention")
     build.check(lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), strides,
         B, H, K, Sq, Skv, hd, hd_v, int(bool(causal)), int(window),
         _scale(hd, scale), int(q.dtype == torch.bfloat16), _stream()),
         "flash_attention_fwd")
     launches[plan["counter"]] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------------
+# the VJP
+# ---------------------------------------------------------------------------
+
+#: the backward kernels' walked tile (keys in dQ, queries in dK/dV), rows
+BWD_WALK = 32
+#: their blocks' threads
+BWD_THREADS = 256
+
+
+def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> dict:
+    """How :func:`flash_attention_bwd_cuda` launches K7's VJP on these
+    tensors, on any device (pure Python: the CPU tests rehearse it).  A
+    width pair outside :data:`WIDTH_PAIRS` raises ``ValueError``.  Both
+    kernels run at the tensors' own widths (hd 80 included: the register
+    tiles are 16 columns wide) on the CUDA cores, 256 threads a block:
+    ``flash_bwd_dq_kernel`` over (query tiles of ``block_rows``, H, B),
+    ``flash_bwd_dkdv_kernel`` over (key tiles of ``block_rows``, K, B),
+    each walking tiles of :data:`BWD_WALK` rows of the other axis;
+    ``block_rows`` is 64 up to width 128 and 32 above.  Shared memory
+    holds every tile in float32, rows padded to an odd stride (width +
+    1); ``smem_dq`` / ``smem_dkdv`` are what the kernels ask for
+    (``BwdTile`` in the source)."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    check_widths(hd, hd_v)
+    B, H, Sq = q.shape[0], q.shape[1], q.shape[2]
+    K, Skv = k.shape[1], k.shape[2]
+    tb, ts = (64 if hd <= 128 else 32), BWD_WALK
+    ldk, ldv = hd + 1, hd_v + 1
+    smem_dkdv = 4 * ((tb + ts) * (ldk + ldv) + 2 * ts * (tb + 1) + 2 * ts)
+    smem_dq = 4 * ((tb + ts) * (ldk + ldv) + tb * (ts + 1) + 2 * tb)
+    fp32 = "" if q.dtype == torch.bfloat16 else "_fp32"
+    return {"route": "cuda_core",
+            "kernels": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+            "counters": (f"flash_attention_bwd_dq{fp32}",
+                         f"flash_attention_bwd_dkdv{fp32}"),
+            "block_rows": tb, "walk_rows": ts, "threads": BWD_THREADS,
+            "grid_dq": (-(-Sq // tb), H, B),
+            "grid_dkdv": (-(-Skv // tb), K, B),
+            "smem_dq": smem_dq, "smem_dkdv": smem_dkdv}
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              window: int = 0, scale: Optional[float] = None):
+    """FlashAttention-2's backward in float32: P recomputed from ``lse``
+    under the forward's masks, ``D = <dO, o>`` a row, ``dS = P (dO V^T -
+    D)``, ``dV = P^T dO``, ``dK = scale dS^T Q``, ``dQ = scale dS K``,
+    GQA's groups summed into their kv head.  Returns ``(dq, dk, dv)`` in
+    the inputs' dtypes."""
+    B, H, Sq, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    s = _scale(hd, scale)
+    logits, mask = _logits(q, k, causal, window, scale)
+    p = torch.exp(logits - lse.float().reshape(B, K, G, Sq, 1))
+    p = p.masked_fill(~mask, 0.0)
+    dog = do.float().reshape(B, K, G, Sq, -1)
+    dp = torch.einsum("bkgqh,bksh->bkgqs", dog, v.float())
+    D = (dog * o.float().reshape(B, K, G, Sq, -1)).sum(-1, keepdim=True)
+    ds = p * (dp - D)
+    dv = torch.einsum("bkgqs,bkgqh->bksh", p, dog)
+    dk = s * torch.einsum("bkgqs,bkgqh->bksh", ds,
+                          q.float().reshape(B, K, G, Sq, hd))
+    dq = s * torch.einsum("bkgqs,bksh->bkgqh", ds, k.float())
+    return (dq.reshape(B, H, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None):
+    """K7's VJP on the card (``csrc/flash_attention_bwd.cu``): the dQ
+    kernel (which writes D first), then the dK/dV kernel, on the current
+    stream.  q, k, v, o (the forward's output) and do may be strided views
+    with the last dim contiguous, all one dtype (bf16 or float32); lse is
+    the forward's, (B, H, Sq) float32.  Returns ``(dq, dk, dv)``, each a
+    (B, heads, S, width) view of a (B, S, heads, width) tensor, in the
+    inputs' dtype.  Each launch counts under :func:`bwd_launch_plan`'s
+    counter; a refused launch raises."""
+    plan, grads, args = _bwd_prepare(q, k, v, o, do, lse, causal, window,
+                                     scale)
+    if args is not None:
+        for fn, counter in zip(BWD_ENTRIES, plan["counters"]):
+            _bwd_launch(fn, counter, args)
+    return grads
+
+
+#: the C entry points of the two backward kernels, in launch order
+BWD_ENTRIES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+
+
+def _bwd_prepare(q, k, v, o, do, lse, causal, window, scale):
+    """Check the VJP's inputs and allocate its outputs and D: ``(plan,
+    (dq, dk, dv), args)``, ``args`` the C arguments of both kernels (None
+    when there is nothing to launch)."""
+    dev = _require_cuda(q, "flash_attention_bwd_cuda")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be 4-D, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    K, Skv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q has dtype {q.dtype}; the kernels take bf16 or "
+                        f"float32")
+    for name, t, shape in (("q", q, (B, H, Sq, hd)), ("k", k, (B, K, Skv, hd)),
+                           ("v", v, (B, K, Skv, hd_v)),
+                           ("o", o, (B, H, Sq, hd_v)),
+                           ("do", do, (B, H, Sq, hd_v))):
+        _check_view(t, name, q.dtype, dev, shape)
+    _check_view(lse, "lse", torch.float32, dev, (B, H, Sq))
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    if K == 0 or H % K:
+        raise ValueError(f"{H} query heads do not group over {K} kv heads")
+    if causal and Sq > Skv:
+        raise ValueError(f"causal attention with Sq {Sq} > Skv {Skv} leaves "
+                         f"rows with no key")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    plan = bwd_launch_plan(q, k, v)
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev
+                     ).transpose(1, 2)
+    dk = torch.empty((B, Skv, K, hd), dtype=q.dtype, device=dev
+                     ).transpose(1, 2)
+    dv = torch.empty((B, Skv, K, hd_v), dtype=q.dtype, device=dev
+                     ).transpose(1, 2)
+    if dq.numel() == 0 or Skv == 0:
+        return plan, (dq.zero_(), dk.zero_(), dv.zero_()), None
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(
+        *(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in range(3)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), strides, B, H, K, Sq, Skv, hd,
+            hd_v, int(bool(causal)), int(window), _scale(hd, scale),
+            int(q.dtype == torch.bfloat16), _stream())
+    # D lives as long as the arguments that point at it
+    return plan, (dq, dk, dv), args + (D,)
+
+
+def _bwd_launch(fn: str, counter: str, args) -> None:
+    """One backward kernel on ``_bwd_prepare``'s arguments, counted."""
+    lib = build.library("flash_attention_bwd")
+    build.check(getattr(lib, fn)(*args[:-1]), fn)
+    launches[counter] += 1
+
+
+class FlashAttention(torch.autograd.Function):
+    """K7 with its VJP: the forward launches K7 with the row log-sum-exp
+    and saves q, k, v, the output and lse; the backward launches
+    :func:`flash_attention_bwd_cuda`.  Both look the wrappers up at call
+    time (the CPU tests stand the plain versions in for them)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                              **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_card(q, k, v, *, causal: bool = True, window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """K7 on a CUDA tensor as ``ops`` runs it: through
+    :class:`FlashAttention` where autograd records the call (grad enabled
+    and an input that requires grad), else the forward alone, with no
+    lse written or saved."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale)

@@ -1,6 +1,6 @@
 """Device dispatch for the hand-written kernels (the aggregations K1-K6,
-K3's VJP, flash attention K7, the SSD chunk state K8), and the
-differentiable entry points built on the aggregations.
+K3's VJP, flash attention K7, the SSD chunk state K8, and K7's and K8's
+VJPs), and the differentiable entry points built on them.
 
 Each kernel entry point looks at the device of its first tensor: a CUDA
 tensor goes to the hand-written Hopper kernel, a CPU tensor to the
@@ -10,7 +10,10 @@ back: a build or launch failure on the card is an error.
 The autograd Functions (:class:`GatherScaleSegmentSum`,
 :class:`SegmentSum`, :class:`GatherRows`, :class:`GatAttention`) call
 these entry points in their forward and backward, so the same backward
-formulas run on both devices.
+formulas run on both devices.  K7 and K8 on the card go through their
+own Functions (``FlashAttention``, ``SSDChunkState``) where autograd
+records the call; on the CPU their plain versions are differentiable as
+they stand.
 
 The reference's TPU capacity dispatch (``fused_fits``, ``VMEM_BUDGET``
 and the unfused / multi-pass fallbacks) has no counterpart here: the
@@ -94,16 +97,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """K7: causal / sliding-window / non-causal GQA attention, queries
     aligned to the end of the kv axis (where a mask reads it); q (B, H,
     Sq, hd), k (B, K, Skv, hd), v (B, K, Skv, hd_v) -> (B, H, Sq, hd_v).
-    Forward only on the card: an input that requires grad raises there
-    (ROADMAP item 10e); the plain version is differentiable."""
-    fn = _ss.pick(_fa.flash_attention_cuda, _fa.flash_attention_plain, q)
+    Differentiable on both devices: on the card through
+    ``FlashAttention`` (K7 with its lse, then the backward kernels) when
+    autograd records the call, else the forward alone."""
+    fn = _ss.pick(_fa.flash_attention_card, _fa.flash_attention_plain, q)
     return fn(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def ssd_chunk_state(x, dt, A, Bm):
     """K8: the Mamba2 SSD per-chunk state (C, H, P, N) in float32.
-    Forward only on the card, as K7."""
-    fn = _ss.pick(_ssd.ssd_chunk_state_cuda, _ssd.ssd_chunk_state_plain, x)
+    Differentiable on both devices, as K7 (``SSDChunkState``)."""
+    fn = _ss.pick(_ssd.ssd_chunk_state_card, _ssd.ssd_chunk_state_plain, x)
     return fn(x, dt, A, Bm)
 
 

@@ -176,20 +176,19 @@ def _require_cuda(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
-def _refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+def _refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` where autograd would record a call of
-    a forward-only kernel (K7, K8): grad enabled and a floating input that
-    requires it.  The kernels write a fresh tensor with no graph, and
-    their backward kernels come with the transformer trainer; their plain
-    versions stay differentiable."""
+    a raw forward kernel wrapper (K7's, K8's): grad enabled and a floating
+    input that requires it.  The wrapper writes a fresh tensor with no
+    graph; its autograd Function ``function`` (which ``ops`` calls on the
+    card) saves what the backward kernels need."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tensors if t.is_floating_point()):
         raise NotImplementedError(
-            f"{what} has no backward: an input requires grad, and the "
-            f"kernel's output would carry no gradient.  Its backward "
-            f"kernel comes with ROADMAP.md queue 1, item 10e (the "
-            f"transformer trainer); run under torch.no_grad() or "
-            f"torch.inference_mode()")
+            f"{what} has no backward of its own: an input requires grad, "
+            f"and the kernel's output would carry no gradient.  Call it "
+            f"through {function} (what ops calls on the card), or run "
+            f"under torch.no_grad() or torch.inference_mode()")
 
 
 def _stream() -> int:

@@ -1,4 +1,4 @@
-"""K8: the Mamba2 SSD per-chunk state, forward only.
+"""K8: the Mamba2 SSD per-chunk state, and its VJP.
 
 ``state[c, h, p, n] = sum_l exp(cumA_L - cumA_l) * dt_l * x[c,l,h,p] *
 Bm[c,l,h // (H/G),n]`` with ``cumA`` the running sum of ``dt * A[h]`` over
@@ -23,6 +23,15 @@ CUDA cores.  The routes count apart (``ssd_chunk_state``,
 :func:`ssd_chunk_state_plain` is the reference's oracle
 (``src/repro/kernels/ref.py:40``) in PyTorch.  Both take x (C, L, H, P),
 dt (C, L, H), A (H,), Bm (C, L, G, N) and return (C, H, P, N) float32.
+
+The VJP: :class:`SSDChunkState` runs K8 and, in its backward,
+:func:`ssd_chunk_state_bwd_cuda` (``csrc/ssd_chunk_bwd.cu``: one block a
+(chunk, group) walking the group's heads, on the CUDA cores, no atomics)
+at P 64 with N 64 or 128 (Mamba2-780m, Zamba2-2.7B) and the reduced
+configs' P 32, N 16, in bf16 or float32.  It replaces no TPU kernel: the
+reference trains through XLA's autodiff of its ``states`` einsum.
+:func:`ssd_chunk_state_bwd_plain` is the same formulas in PyTorch.  The
+raw :func:`ssd_chunk_state_cuda` stays forward-only.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import SMEM_PER_BLOCK
 from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
                                              _refuse_grad, _require_cuda,
                                              _stream)
@@ -40,7 +50,8 @@ from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
 #: float32, the CUDA cores (other widths) in float32 and in bf16
 launches = {"ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
             "ssd_chunk_state_fp32_cuda_core": 0,
-            "ssd_chunk_state_bf16_cuda_core": 0}
+            "ssd_chunk_state_bf16_cuda_core": 0,
+            "ssd_chunk_state_bwd": 0, "ssd_chunk_state_bwd_fp32": 0}
 
 #: the tensor-core route's tile: one warpgroup's m64nN product, N one of
 #: TC_NS, over a chunk of at most TC_L positions
@@ -123,9 +134,11 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     last dim contiguous; dt contiguous float32; A float32; the shapes and
     alignment each route takes are :func:`launch_plan`'s.  Forward only:
     an input that requires grad, with grad enabled, raises
-    ``NotImplementedError`` (``_refuse_grad``)."""
+    ``NotImplementedError`` naming :class:`SSDChunkState`
+    (``_refuse_grad``)."""
     dev = _require_cuda(x, "ssd_chunk_state_cuda")
-    _refuse_grad("ssd_chunk_state_cuda (K8)", x, dt, A, Bm)
+    _refuse_grad("ssd_chunk_state_cuda (K8)",
+                 "kernels.ssd_chunk.SSDChunkState", x, dt, A, Bm)
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x (C, L, H, P) and Bm (C, L, G, N) must be 4-D, "
                          f"got {tuple(x.shape)} and {tuple(Bm.shape)}")
@@ -157,3 +170,156 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         _stream()), "ssd_chunk_state_fwd")
     launches[plan["counter"]] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the VJP
+# ---------------------------------------------------------------------------
+
+#: the (P, N) widths the backward kernel takes: Mamba2-780m's, Zamba2's,
+#: and the reduced configs'
+BWD_WIDTHS = ((64, 128), (64, 64), (32, 16))
+#: positions a backward tile holds, and its threads
+BWD_TL, BWD_THREADS = 64, 256
+
+
+def bwd_smem(P: int, N: int, R: int, L: int) -> int:
+    """Dynamic shared memory of a backward block (``smem_bytes`` in
+    ``csrc/ssd_chunk_bwd.cu``): the Bm and x tiles, one head's state
+    cotangent (rows padded to an odd stride), the dw partials, four
+    per-position rows, then the R x L running sums of dt * A and two
+    floats a head."""
+    fixed = (BWD_TL * (N + 1) + BWD_TL * (P + 1) + P * (N + 1)
+             + BWD_TL * 16 + 4 * BWD_TL)
+    return 4 * (fixed + R * L + 2 * R)
+
+
+def bwd_launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
+    """How :func:`ssd_chunk_state_bwd_cuda` launches K8's VJP on these
+    tensors, on any device (pure Python: the CPU tests rehearse it): one
+    block of 256 threads a (chunk, group), walking the chunk in tiles of
+    64 positions and the group's R = H / G heads inside each.  A (P, N)
+    outside :data:`BWD_WIDTHS`, or R x L running sums that overflow the
+    block's shared memory, raise ``ValueError``."""
+    C, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (P, N) not in BWD_WIDTHS:
+        raise ValueError(f"K8's backward takes (P, N) in {BWD_WIDTHS}, "
+                         f"got ({P}, {N})")
+    if G == 0 or H % G:
+        raise ValueError(f"{H} heads do not split over {G} groups")
+    smem = bwd_smem(P, N, H // G, L)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{H // G} heads a group over chunks of {L} need "
+                         f"{smem} bytes of shared memory, past "
+                         f"{SMEM_PER_BLOCK}")
+    return {"route": "cuda_core", "kernel": "ssd_bwd_kernel",
+            "counter": ("ssd_chunk_state_bwd" if x.dtype == torch.bfloat16
+                        else "ssd_chunk_state_bwd_fp32"),
+            "grid": (C, G), "threads": BWD_THREADS, "tile": BWD_TL,
+            "heads_a_block": H // G, "smem_bytes": smem}
+
+
+def ssd_chunk_state_bwd_plain(x, dt, A, Bm, gstate):
+    """The VJP of :func:`ssd_chunk_state_plain` at the state cotangent
+    ``gstate`` (C, H, P, N), in float32: with ``w_l = exp(cumA_L -
+    cumA_l) dt_l`` and ``u = Bm G^T``, ``dx = w u``, ``dBm = sum over the
+    group's heads of w x G``, ``dw = sum_p x u``, ``ddt_j = dw_j
+    exp(cumA_L - cumA_j) + A sum_{l<j} dw_l w_l`` and the chunk's part of
+    ``dA``, ``sum_j dt_j sum_{l<j} dw_l w_l``.  Returns ``(dx, ddt,
+    dA_part, dBm)``: dx and dBm in x's and Bm's dtypes, ddt (C, L, H) and
+    the per-chunk ``dA_part`` (C, H) in float32 (their sum over chunks is
+    dA)."""
+    C, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf = x.float()
+    Bh = Bm.float().repeat_interleave(rep, dim=2)
+    g = gstate.float()
+    cum = torch.cumsum(dt.float() * A, dim=1)
+    e = torch.exp(cum[:, -1:, :] - cum)
+    w = e * dt.float()
+    u = torch.einsum("clhn,chpn->clhp", Bh, g)
+    dw = (xf * u).sum(-1)
+    dBh = w[..., None] * torch.einsum("clhp,chpn->clhn", xf, g)
+    q = dw * w
+    pre = torch.cumsum(q, dim=1) - q
+    ddt = dw * e + A * pre
+    dA_part = (dt.float() * pre).sum(1)
+    dBm = dBh.reshape(C, L, G, rep, N).sum(3)
+    return ((w[..., None] * u).to(x.dtype), ddt, dA_part,
+            dBm.to(Bm.dtype))
+
+
+def ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gstate):
+    """K8's VJP on the card (``csrc/ssd_chunk_bwd.cu``,
+    ``ssd_chunk_state_bwd``): the inputs as :func:`ssd_chunk_state_cuda`
+    takes them, ``gstate`` (C, H, P, N) float32 contiguous.  Returns
+    :func:`ssd_chunk_state_bwd_plain`'s ``(dx, ddt, dA_part, dBm)``,
+    dx and dBm contiguous.  The launch counts under
+    :func:`bwd_launch_plan`'s counter; a refused launch raises."""
+    dev = _require_cuda(x, "ssd_chunk_state_bwd_cuda")
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"x (C, L, H, P) and Bm (C, L, G, N) must be 4-D, "
+                         f"got {tuple(x.shape)} and {tuple(Bm.shape)}")
+    C, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x has dtype {x.dtype}; the kernel takes bf16 or "
+                        f"float32")
+    _check_view(x, "x", x.dtype, dev, (C, L, H, P))
+    _check_view(Bm, "Bm", x.dtype, dev, (C, L, G, N))
+    _check_view(dt, "dt", torch.float32, dev, (C, L, H))
+    _check_view(A, "A", torch.float32, dev, (H,))
+    _check_view(gstate, "gstate", torch.float32, dev, (C, H, P, N))
+    for name, t in (("dt", dt), ("A", A), ("gstate", gstate)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    plan = bwd_launch_plan(x, Bm)
+    dx = torch.empty((C, L, H, P), dtype=x.dtype, device=dev)
+    dBm = torch.empty((C, L, G, N), dtype=x.dtype, device=dev)
+    ddt = torch.empty((C, L, H), dtype=torch.float32, device=dev)
+    dA_part = torch.empty((C, H), dtype=torch.float32, device=dev)
+    if x.numel() == 0:
+        return dx, ddt.zero_(), dA_part.zero_(), dBm.zero_()
+    strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), x.stride(2),
+                                      Bm.stride(0), Bm.stride(1),
+                                      Bm.stride(2))
+    lib = build.library("ssd_chunk_bwd")
+    build.check(lib.ssd_chunk_state_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        gstate.data_ptr(), dx.data_ptr(), dBm.data_ptr(), ddt.data_ptr(),
+        dA_part.data_ptr(), strides, C, L, H, P, G, N,
+        int(x.dtype == torch.bfloat16), _stream()), "ssd_chunk_state_bwd")
+    launches[plan["counter"]] += 1
+    return dx, ddt, dA_part, dBm
+
+
+class SSDChunkState(torch.autograd.Function):
+    """K8 with its VJP: the forward launches K8 and saves its inputs; the
+    backward launches :func:`ssd_chunk_state_bwd_cuda` and sums dA's
+    per-chunk partials over the chunks (one reduction, a fixed order).
+    Both look the wrappers up at call time (the CPU tests stand the plain
+    versions in for them)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm):
+        ctx.save_for_backward(x, dt, A, Bm)
+        return ssd_chunk_state_cuda(x, dt, A, Bm)
+
+    @staticmethod
+    def backward(ctx, gstate):
+        x, dt, A, Bm = ctx.saved_tensors
+        dx, ddt, dA_part, dBm = ssd_chunk_state_bwd_cuda(
+            x, dt, A, Bm, gstate.float().contiguous())
+        return dx, ddt, dA_part.sum(0), dBm
+
+
+def ssd_chunk_state_card(x, dt, A, Bm) -> torch.Tensor:
+    """K8 on a CUDA tensor as ``ops`` runs it: through
+    :class:`SSDChunkState` where autograd records the call, else the
+    forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, Bm)):
+        return SSDChunkState.apply(x, dt, A, Bm)
+    return ssd_chunk_state_cuda(x, dt, A, Bm)

@@ -216,7 +216,9 @@ def _attention_card(qs, k, v, *, causal, q_offset, window, kv_valid_len,
     nothing then reads.  A misaligned masked call or a ``kv_valid_len``
     (no caller of the reference passes one) raises.  v passes at its own
     width (MLA's 128 beside q and k's 192; K7 raises for a pair it does
-    not take).  K7 tiles the queries itself (no ``q_chunk``)."""
+    not take).  K7 tiles the queries itself (no ``q_chunk``).  Where
+    autograd records the call (training), ``ops`` runs K7 through
+    ``FlashAttention``, whose backward is K7's VJP kernels."""
     Sq, Skv = qs.shape[1], k.shape[1]
     if kv_valid_len is not None:
         raise NotImplementedError(

@@ -1,7 +1,9 @@
-"""The transformer zoo's serving path, all seven families of the
-reference's ``models/transformer/model.py`` (``dense``, ``ssm``,
-``hybrid``, ``moe``, ``mla_moe``, ``encdec``, ``vlm``), in PyTorch:
-init, forward, prefill (forward + cache) and one-token decode.
+"""The transformer zoo, all seven families of the reference's
+``models/transformer/model.py`` (``dense``, ``ssm``, ``hybrid``,
+``moe``, ``mla_moe``, ``encdec``, ``vlm``), in PyTorch: init, forward,
+the loss and train step (:func:`loss_fn`, :func:`make_train_step`, on
+the card through K7's and K8's VJP kernels), prefill (forward + cache)
+and one-token decode.
 
 Params are nested dicts with the reference's keys; ``params["layers"]``
 is a list of per-layer dicts (the reference stacks a leading layer axis
@@ -453,6 +455,52 @@ def forward(cfg, params, batch) -> torch.Tensor:
                 x = _dense_body(cfg, x, params["shared_attn"], positions)
     x = L.apply_norm(cfg, x, params["ln_f"])
     return L.unembed(cfg, params["embed"], x)
+
+
+# ===========================================================================
+# loss / train step
+# ===========================================================================
+
+def loss_fn(cfg, params, batch) -> torch.Tensor:
+    """Mean next-token cross entropy (``model.py:300``): the logits cast
+    to float32, their log-sum-exp over the padded vocabulary minus the
+    gold logit of ``batch["labels"]`` (B, S)."""
+    logits = forward(cfg, params, batch).float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def trainable(params) -> list:
+    """The param tree's leaves, each set to require grad: what the
+    optimizer of :func:`make_train_step` steps over."""
+    return [t.requires_grad_(True) for t in _leaves(params)]
+
+
+def make_train_step(cfg, optimizer):
+    """``step(params, batch) -> {"loss", "grad_norm"}`` (``model.py:310``):
+    the loss and its gradients by autograd (on the card through K7's and
+    K8's backward kernels), the global norm of the float32 gradients
+    taken before the optimizer clips them, then one ``optimizer.step()``
+    (the port's AdamW clips to its own global norm, as the reference's
+    does).  ``params``' leaves are the optimizer's (:func:`trainable`);
+    the gradients stay in their ``.grad`` until the next step clears
+    them.  Both metrics are 0-d float32 tensors on the params' device."""
+
+    def step(params, batch):
+        leaves = list(_leaves(params))
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(cfg, params, batch)
+        loss.backward()
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
+                                   for p in leaves if p.grad is not None))
+        optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return step
 
 
 # ===========================================================================

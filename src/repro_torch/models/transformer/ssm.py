@@ -108,7 +108,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, return_final_state=False):
     scores = CB * Mdecay
     y_intra = torch.einsum("bmhij,bmjhp->bmihp", scores, xdt)
 
-    # --- per-chunk states: K8 on the (B*nc, L, H, P) view of the chunks ---
+    # --- per-chunk states: K8 on the (B*nc, L, H, P) view of the chunks
+    # (on the card, through SSDChunkState and K8's VJP when training) ---
     states = ops.ssd_chunk_state(
         x.reshape(Bsz * nc, Lc, H, P), dt.reshape(Bsz * nc, Lc, H), A,
         Bm.reshape(Bsz * nc, Lc, G, N)).reshape(Bsz, nc, H, P, N)

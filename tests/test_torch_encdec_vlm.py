@@ -4,8 +4,9 @@ inputs and parameters (``params_from_numpy``), at the reduced configs in
 float32: configs, init, M-RoPE, non-causal attention, forward, prefill
 with both caches, decode, prefill against the decode-only loop; then the
 card's dispatch rehearsed on the CPU (K7's launches, the gate that lets
-non-causal calls through at any ``q_offset``), and the guard that K7
-and K8 refuse a gradient they cannot give.
+non-causal calls through at any ``q_offset``), and K7's and K8's
+gradients through their autograd Functions (the raw wrappers refuse an
+input that requires grad).
 
 The reference computes attention in XLA, so no Pallas interpret mode is
 needed.  Tolerance: 1e-5 of the largest reference value.  Whisper's
@@ -401,23 +402,39 @@ def test_decode_past_its_tables_raises(what, models):
 def card(monkeypatch):
     """``pick`` choosing the kernel wrappers, stood in for by their plain
     versions behind the real autograd guard; returns each K7 call's
-    (Sq, Skv, causal) and launch plan."""
+    (Sq, Skv, causal), launch plan and whether it wrote lse, and (as
+    ``("k8",)``) each K8 call; the backward wrappers add ``("k7_bwd",)``
+    and ``("k8_bwd",)``."""
     seen = []
 
-    def k7(q, k, v, **kw):
-        segment_sum._refuse_grad("flash_attention_cuda (K7)", q, k, v)
-        out = fa.flash_attention_plain(q, k, v, **kw)
+    def k7(q, k, v, *, return_lse=False, **kw):
+        segment_sum._refuse_grad("flash_attention_cuda (K7)",
+                                 "FlashAttention", q, k, v)
+        out = fa.flash_attention_plain(q, k, v, return_lse=return_lse, **kw)
         seen.append((q.shape[2], k.shape[2], kw["causal"],
-                     fa.launch_plan(q, k, v, out)))
+                     fa.launch_plan(q, k, v, out[0] if return_lse else out),
+                     return_lse))
         return out
 
+    def k7_bwd(*args, **kw):
+        seen.append(("k7_bwd",))
+        return fa.flash_attention_bwd_plain(*args, **kw)
+
     def k8(x, dt, A_, Bm):
-        segment_sum._refuse_grad("ssd_chunk_state_cuda (K8)", x, dt, A_, Bm)
+        segment_sum._refuse_grad("ssd_chunk_state_cuda (K8)",
+                                 "SSDChunkState", x, dt, A_, Bm)
+        seen.append(("k8",))
         return ssd.ssd_chunk_state_plain(x, dt, A_, Bm)
+
+    def k8_bwd(*args):
+        seen.append(("k8_bwd",))
+        return ssd.ssd_chunk_state_bwd_plain(*args)
 
     monkeypatch.setattr(segment_sum, "pick", lambda card, plain, t: card)
     monkeypatch.setattr(fa, "flash_attention_cuda", k7)
+    monkeypatch.setattr(fa, "flash_attention_bwd_cuda", k7_bwd)
     monkeypatch.setattr(ssd, "ssd_chunk_state_cuda", k8)
+    monkeypatch.setattr(ssd, "ssd_chunk_state_bwd_cuda", k8_bwd)
     return seen
 
 
@@ -499,27 +516,49 @@ def _attn_inputs(requires_grad):
 
 @pytest.mark.parametrize("kernel", ["attention", "ssd_chunked"])
 @pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode"])
-def test_k7_and_k8_refuse_a_gradient_they_cannot_give(kernel, mode, card,
-                                                     monkeypatch):
-    """On the card (rehearsed), an input that requires grad with grad
-    enabled raises ``NotImplementedError`` naming ROADMAP item 10e;
-    under ``no_grad`` or ``inference_mode`` the same calls return the
-    plain values, which the CPU path (differentiable) also gives."""
+def test_k7_and_k8_give_their_gradient_through_the_functions(kernel, mode,
+                                                            card,
+                                                            monkeypatch):
+    """On the card (rehearsed), with grad on an input that requires it,
+    ``attention`` and ``ssd_chunked`` run K7 / K8 through their autograd
+    Functions (K7 writing its lse) and the backward through the VJP
+    wrappers, giving the plain path's gradient; the raw forward wrappers
+    still refuse such an input, naming the Function.  Under ``no_grad``
+    or ``inference_mode`` the same calls run the forward alone (no lse
+    written, so none saved) and return the plain path's values."""
     def run(requires_grad):
         if kernel == "attention":
             q, k = _attn_inputs(requires_grad)
-            return L.attention(q, k, k, causal=True, q_offset=0)
+            return q, L.attention(q, k, k, causal=True, q_offset=0)
         x, dt, A_, Bm, Cm = _ssd_inputs(requires_grad)
-        return S.ssd_chunked(x, dt, A_, Bm, Cm, chunk=8)
+        return x, S.ssd_chunked(x, dt, A_, Bm, Cm, chunk=8)
 
+    name = "k7" if kernel == "attention" else "k8"
     if mode == "grad":
-        with pytest.raises(NotImplementedError, match="item 10e"):
-            run(True)
-        return
-    ctx = torch.no_grad() if mode == "no_grad" else torch.inference_mode()
-    with ctx:
-        got = run(True)
+        leaf, got = run(True)
+        (g,) = torch.autograd.grad(got.square().sum(), leaf)
+        if kernel == "attention":
+            assert [c[4] for c in card if len(c) == 5] == [True]
+            with pytest.raises(NotImplementedError, match="FlashAttention"):
+                fa.flash_attention_cuda(leaf.transpose(1, 2),
+                                        leaf.transpose(1, 2),
+                                        leaf.transpose(1, 2))
+        else:
+            with pytest.raises(NotImplementedError, match="SSDChunkState"):
+                ssd.ssd_chunk_state_cuda(*_ssd_inputs(True)[:4])
+        assert ("k7_bwd",) in card or ("k8_bwd",) in card
+    else:
+        ctx = torch.no_grad() if mode == "no_grad" else \
+            torch.inference_mode()
+        with ctx:
+            got = run(True)[1]
+        assert not any(c[-1] is True for c in card if len(c) == 5)
+        assert ("k7_bwd",) not in card and ("k8_bwd",) not in card
+    assert card, f"{name} never ran"
     monkeypatch.setattr(segment_sum, "pick", lambda card, plain, t: plain)
-    want = run(True)
+    leaf, want = run(True)
     assert want.requires_grad           # the plain path keeps its graph
-    torch.testing.assert_close(got, want.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(got.detach(), want.detach(), rtol=0, atol=0)
+    if mode == "grad":
+        (w,) = torch.autograd.grad(want.square().sum(), leaf)
+        _close(g, w.numpy())

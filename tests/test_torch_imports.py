@@ -54,7 +54,10 @@ def test_every_submodule_imports_without_jax_or_reference():
         "             'examples.serve_batched',\n"
         "             'examples.distributed_gnn',\n"
         "             'configs.deepseek_v3_671b',\n"
-        "             'configs.whisper_tiny', 'configs.qwen2_vl_7b'):\n"
+        "             'configs.whisper_tiny', 'configs.qwen2_vl_7b',\n"
+        "             'data', 'data.pipeline', 'launch.train',\n"
+        "             'examples.train_lm_100m',\n"
+        "             'examples.whisper_vlm_smoke'):\n"
         "    assert 'repro_torch.' + want in names, (want, names)\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

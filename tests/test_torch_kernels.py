@@ -269,9 +269,12 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "segment_sum": 0, "gather_scale_segment_sum_q": 0,
         "gather_rows": 0, "edge_dot": 0, "gat_attention": 0,
         "gat_attention_backward": 0, "flash_attention": 0, "flash_attention_fp32": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkdv": 0,
+        "flash_attention_bwd_dq_fp32": 0, "flash_attention_bwd_dkdv_fp32": 0,
         "ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
         "ssd_chunk_state_fp32_cuda_core": 0,
-        "ssd_chunk_state_bf16_cuda_core": 0}
+        "ssd_chunk_state_bf16_cuda_core": 0, "ssd_chunk_state_bwd": 0,
+        "ssd_chunk_state_bwd_fp32": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -563,7 +563,12 @@ def test_launch_plan_routes_by_dtype_and_tiles_by_head_width(hd, block_k,
                                   + 5 * plan["block_k"] * tile * 4 + 24)
     assert plan["smem_bytes"] <= fa.SMEM_PER_BLOCK
     assert plan["blocks_per_sm"] == (2 if hd <= 96 else 1)
-    assert set(fa.launches) == {"flash_attention", "flash_attention_fp32"}
+    # the forward's two routes, and the VJP's two kernels in each dtype
+    assert set(fa.launches) == {"flash_attention", "flash_attention_fp32",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkdv",
+                                "flash_attention_bwd_dq_fp32",
+                                "flash_attention_bwd_dkdv_fp32"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -669,9 +674,12 @@ def test_k8_launch_plan_routes_by_dtype(G):
     assert ssd.launch_plan(x32, B32) == {
         "route": "cuda_core", "kernel": "ssd_state_kernel",
         "counter": "ssd_chunk_state_fp32_cuda_core"}
+    # the forward's four routes, and the VJP's kernel in each dtype
     assert set(ssd.launches) == {"ssd_chunk_state", "ssd_chunk_state_fp32",
                                  "ssd_chunk_state_fp32_cuda_core",
-                                 "ssd_chunk_state_bf16_cuda_core"}
+                                 "ssd_chunk_state_bf16_cuda_core",
+                                 "ssd_chunk_state_bwd",
+                                 "ssd_chunk_state_bwd_fp32"}
 
 
 def test_k8_tf32_route_states_its_shared_memory():
