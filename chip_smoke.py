@@ -541,6 +541,12 @@ def kernel_name(mangled: str) -> str:
         return mangled
     args = re.findall(r"Li(\d+)E", mangled[i:]) if mangled[i:i + 1] == "I" \
         else []
+    # a leading type argument (bf16 or float32) names the instance too
+    if mangled[i:i + 1] == "I":
+        first = mangled[i + 1:]
+        dtype = ("bf16" if first.startswith("13__nv_bfloat16") else
+                 "f32" if first.startswith("f") else None)
+        args = ([dtype] if dtype else []) + args
     return name + (f"[{','.join(args)}]" if args else "")
 
 
@@ -579,20 +585,27 @@ def phase_build(torch, results):
                   or "wgmma" in line.lower()):
                 print(f"   ptxas {name} {fn}: {line.strip()}")
                 ptxas.setdefault(fn, []).append(line.strip())
-    # every K7 kernel (bf16 and float32, five tile width pairs each), K8's
+    # every K7 kernel (bf16 and float32, six tile width pairs each), K8's
     # bf16 kernels (N 64 and 128) and its float32 kernel (both widths, 64
-    # state columns a block) run on the tensor cores: their SASS holds
-    # HGMMA, and ptxas spills nothing in them
-    hgmma = sass_counts(out_dir / "libflash_attention.so", "HGMMA")
-    hgmma.update(sass_counts(out_dir / "libssd_chunk.so", "HGMMA"))
-    print("   HGMMA instructions per K7 and K8 kernel (cuobjdump -sass): "
-          + json.dumps(hgmma), flush=True)
+    # state columns a block), K7's bf16 VJP (dq and dk/dv at six tile
+    # width pairs) and K8's VJP tile kernel (N 64 and 128, bf16 and
+    # float32) run on the tensor cores: their SASS holds HGMMA, and ptxas
+    # spills nothing in them
+    hgmma = {}
+    for lib in ("flash_attention", "ssd_chunk", "flash_attention_bwd",
+                "ssd_chunk_bwd"):
+        hgmma.update(sass_counts(out_dir / f"lib{lib}.so", "HGMMA"))
+    print("   HGMMA instructions per K7 and K8 kernel and VJP kernel "
+          "(cuobjdump -sass): " + json.dumps(hgmma), flush=True)
     results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
     tc = {k: n for k, n in hgmma.items()
-          if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32"))}
-    require(len(tc) == 15 and all(tc.values()),
+          if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32",
+                           "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
+                           "ssd_bwd_wgmma"))}
+    require(len(tc) == 31 and all(tc.values()),
             f"HGMMA in each of the twelve K7 kernels, K8's two bf16 kernels "
-            f"and its float32 kernel: {tc}")
+            f"and its float32 kernel, the twelve bf16 K7 VJP kernels and "
+            f"K8's four VJP tile kernels: {tc}")
     spills = {k: v for k, v in ptxas.items() if k in tc and any(
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
     require(not spills, f"no ptxas spills in the tensor-core kernels: "
@@ -640,23 +653,51 @@ def phase_build(torch, results):
     require(all(i in tc and i not in spills for i, _ in k8.values()),
             f"every K8 width runs on a built tensor-core instance with "
             f"HGMMA and no spills: {k8}")
-    # the VJPs' plans (CUDA-core kernels, no HGMMA): K7's two kernels at
-    # every width pair, K8's at each width it takes (at Mamba2's and
-    # Zamba2's heads a group over 256-position chunks)
+    # the VJPs' plans: K7's two kernels at every width pair in both dtypes
+    # (bf16: the tensor-core instance each runs on, hd 80 on the hd-96
+    # one), K8's at each width it takes at Mamba2's, Zamba2's and the
+    # reduced configs' training shapes, in both dtypes
     lib_bwd = build.library("flash_attention_bwd")
     for hd, hd_v in fa.WIDTH_PAIRS:
-        q = torch.zeros(1, 1, 64, hd)
-        plan = fa.bwd_launch_plan(q, q, torch.zeros(1, 1, 64, hd_v))
-        for which, key in ((0, "smem_dq"), (1, "smem_dkdv")):
-            smem[f"flash_attention_bwd[{hd}, {hd_v}, {key}]"] = (
-                plan[key], lib_bwd.flash_attention_bwd_smem(hd, hd_v, which))
-    for (P, N), R, L in (((64, 128), 48, 256), ((64, 64), 80, 256),
-                         ((32, 16), 16, 16)):
-        plan = sc.bwd_launch_plan(torch.zeros(1, L, R, P),
-                                  torch.zeros(1, L, 1, N))
-        smem[f"ssd_chunk_state_bwd[{P}, {N}, R {R}, L {L}]"] = (
-            plan["smem_bytes"], build.library(
-                "ssd_chunk_bwd").ssd_chunk_state_bwd_smem(P, N, R, L))
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 1, 64, hd, dtype=dtype)
+            plan = fa.bwd_launch_plan(q, q, torch.zeros(1, 1, 64, hd_v,
+                                                        dtype=dtype))
+            bf = int(dtype == torch.bfloat16)
+            for which, key in ((0, "smem_dq"), (1, "smem_dkdv")):
+                smem[f"flash_attention_bwd[{hd}, {hd_v}, {key}, {dtype}]"] = (
+                    plan[key],
+                    lib_bwd.flash_attention_bwd_smem(hd, hd_v, which, bf))
+            if bf:
+                for kern in plan["kernels"]:
+                    inst = (f"{kern}[{plan['tile_width']},"
+                            f"{plan['tile_width_v']}]")
+                    instances[f"VJP ({hd}, {hd_v}) {kern}"] = (
+                        inst, hgmma.get(inst, 0))
+    for (P, N), (C, L, H) in (((64, 128), (8, 256, 48)),
+                              ((64, 64), (8, 256, 80)),
+                              ((32, 16), (64, 16, 16))):
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = sc.bwd_launch_plan(torch.zeros(C, L, H, P, dtype=dtype),
+                                      torch.zeros(C, L, 1, N, dtype=dtype))
+            bf = int(dtype == torch.bfloat16)
+            smem[f"ssd_chunk_state_bwd[{P}, {N}, RB "
+                 f"{plan['heads_a_block']}, {dtype}]"] = (
+                plan["smem_bytes"], build.library(
+                    "ssd_chunk_bwd").ssd_chunk_state_bwd_smem(
+                        P, N, plan["heads_a_block"], bf))
+            if plan["route"] == "wgmma":
+                inst = f"{plan['kernels'][0]}[{'bf16' if bf else 'f32'},{N}]"
+                k8[f"VJP N {N}, {dtype}"] = (inst, hgmma.get(inst, 0))
+    print("   K7 and K8 VJP instances (HGMMA count): " + json.dumps(
+        {k: v for k, v in {**instances, **k8}.items()
+         if k.startswith("VJP")}), flush=True)
+    require(all(i in tc and i not in spills
+                for key, (i, _) in {**instances, **k8}.items()
+                if key.startswith("VJP")),
+            f"every bf16 K7 VJP pair and K8 VJP width runs on a built "
+            f"tensor-core instance with HGMMA and no spills: "
+            f"{instances} {k8}")
     results["build"]["smem_plan_vs_library"] = smem
     require(all(a == b for a, b in smem.values()),
             f"launch_plan's shared memory is the kernel's: {smem}")
@@ -4900,6 +4941,8 @@ K7_BWD_CASES = (
      (1, 8, 2, 1000, 1000, 128, 128), {}, False),
     ("ragged_offset", "ragged, Sq 37 x Skv 101 (B 2, 6 / 3 x 96, causal)",
      (2, 6, 3, 37, 101, 96, 96), {}, False))
+# the case whose bf16 run also runs the widened bound's control
+K7_BWD_CONTROL = "ragged"
 # 20(a): K8's VJP, (key, label, (C, L, H, P, G, N), timed)
 K8_BWD_CASES = (
     ("mamba2", "Mamba2-780m (8 chunks of 256, 48 x 64, N 128, G 1)",
@@ -4958,15 +5001,115 @@ def k7_bwd_d_terms(torch, q, k, v, do, out, causal, window):
     return scale * dD[..., None] * pk, dk
 
 
+# bf16: the tensor-core VJP rounds P and dS to bf16 before the products
+# that accumulate them (dV = P^T dO, dK = dS^T Q, dQ = dS K), as the
+# forward rounds P for P V (BF16_P_REL) and as FlashAttention's backward
+# does.  Rounding to nearest in bf16 (8 significant bits) moves a value x
+# by at most 2^-8 |x|, so a sum of products x_j y_j whose x_j are rounded
+# moves by at most 2^-8 sum_j |x_j| |y_j|, column by column:
+#   dQ_i  by 2^-8 scale sum_j |dS_ij| |k_j|
+#   dK_j  by 2^-8 scale sum_{h in group} sum_i |dS_ij| |q_i|
+#   dV_j  by 2^-8 sum_{h in group} sum_i P_ij |dO_i|
+# taken from the plain version's float32 P and dS, and added to each
+# gradient's element bound beside k7_bwd_d_terms'.  In a CPU emulation of
+# the rounding against jax.vjp at 1 x 512, 4 / 2 x 128, causal, the
+# gradients exceeded the element bound without these terms by 5.5e-4 (dq),
+# 3.8e-4 (dk) and 7.4e-4 (dv) of the largest value, and with them by
+# 1.3e-7, 0 and 0 (within the 1e-5 allowance); dropping keys 64-127
+# exceeded the widened bound by 0.45, 0.42 and 0.22 of it
+# (tests/test_torch_attention_bwd.py emulates the same at three pairs).
+# The control (k7_bwd_control) shows on the card that the widened bound
+# still fails a VJP that drops one 64-key tile.
+BF16_DS_REL = 2.0 ** -8
+
+
+def k7_bwd_round_terms(torch, q, k, v, do, causal, window):
+    """bf16: the element-wise terms of rounding P and dS to bf16 (above),
+    for dq, dk and dv."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Sq, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    scale = 1.0 / float(np.sqrt(hd))
+    logits, _ = fa._logits(q, k, causal, window, None)
+    p = torch.softmax(logits, dim=-1)
+    dog = do.float().reshape(B, K, G, Sq, -1)
+    dp = torch.einsum("bkgqh,bksh->bkgqs", dog, v.float())
+    o32 = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    ds = (p * (dp - (dog * o32).sum(-1, keepdim=True))).abs()
+    del dp, o32
+    dq = BF16_DS_REL * scale * torch.einsum(
+        "bkgqs,bksh->bkgqh", ds, k.float().abs()).reshape(B, H, Sq, hd)
+    dk = BF16_DS_REL * scale * torch.einsum(
+        "bkgqs,bkgqh->bksh", ds, q.float().abs().reshape(B, K, G, Sq, hd))
+    dv = BF16_DS_REL * torch.einsum("bkgqs,bkgqh->bksh", p, dog.abs())
+    return dq, dk, dv
+
+
+def k7_bwd_control(torch, q, k, v, do, out, lse, ref, terms, causal,
+                   window) -> dict:
+    """The widened bf16 bound's control: the plain VJP (FlashAttention-2's
+    formulas in float32, rounded to bf16 at the end) with every pair of
+    keys 64-127 dropped (P = 0 there, as a kernel that skipped that tile
+    would) must fail the bound in each of dq, dk and dv."""
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Sq, hd = q.shape
+    K = k.shape[1]
+    G = H // K
+    scale = 1.0 / float(np.sqrt(hd))
+    logits, mask = fa._logits(q, k, causal, window, None)
+    keep = mask.clone()
+    keep[:, 64:128] = False
+    p = torch.exp(logits - lse.float().reshape(B, K, G, Sq, 1))
+    p = p.masked_fill(~keep, 0.0)
+    dog = do.float().reshape(B, K, G, Sq, -1)
+    dp = torch.einsum("bkgqh,bksh->bkgqs", dog, v.float())
+    D = (dog * out.float().reshape(B, K, G, Sq, -1)).sum(-1, keepdim=True)
+    ds = p * (dp - D)
+    bad = (scale * torch.einsum("bkgqs,bksh->bkgqh", ds, k.float()
+                                ).reshape(B, H, Sq, hd),
+           scale * torch.einsum("bkgqs,bkgqh->bksh", ds,
+                                q.float().reshape(B, K, G, Sq, hd)),
+           torch.einsum("bkgqs,bkgqh->bksh", p, dog))
+    grads = {name: _grad_err(torch, b.to(q.dtype), r, bf16=True, elem_abs=t)
+             for name, b, r, t in zip(("dq", "dk", "dv"), bad, ref, terms)}
+    res = {"case": "the plain VJP with keys 64-127 dropped, against the "
+                   "widened bf16 bound (each gradient must fail it)",
+           "excess_rel": {n: g["excess"] / g["max_abs_ref"]
+                          for n, g in grads.items()},
+           "fails_each": all(not g["ok"] for g in grads.values())}
+    print("   control: " + json.dumps(res), flush=True)
+    if not res["fails_each"]:
+        failures.append(f"K7 VJP bound control: {res}")
+    return res
+
+
+def sdpa_choice(torch, q, k, v, **kw) -> str:
+    """The backend SDPA's dispatcher picks for these inputs (its forward's:
+    the backward runs the same backend's kernels)."""
+    from torch.nn.attention import SDPBackend
+    args = (q, k, v, kw.get("attn_mask"), 0.0, kw.get("is_causal", False))
+    try:
+        i = torch._fused_sdp_choice(*args, enable_gqa=kw.get("enable_gqa",
+                                                             False))
+    except TypeError:
+        i = torch._fused_sdp_choice(*args)
+    try:
+        return SDPBackend(i).name
+    except (TypeError, ValueError):
+        return str(i)
+
+
 def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
-                dtype, timed, causal=True, window=0) -> dict:
+                dtype, timed, causal=True, window=0, control=False) -> dict:
     """K7's VJP: the FlashAttention Function's gradients (K7 with lse,
     then the dq and dk/dv kernels) against autograd through the plain
     version on the same inputs and output cotangent, on the views the
     model passes; the backward kernels bitwise repeatable on the saved
     tensors, and the Function's gradients bitwise theirs.  Timed: each
     kernel alone (median of 25, L2 flushed) and both in one call, the
-    plain VJP and SDPA's backward (its backend named), beside each
+    plain VJP and SDPA's backward (its backend named from the
+    profile's kernels, else by the dispatcher's pick), beside each
     kernel's bound: dq needs the products S, dP and dS K, dk/dv S, dP,
     P^T dO and dS^T Q, over the pairs the mask keeps, against the
     tensors each reads and writes once."""
@@ -4992,11 +5135,15 @@ def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
     g1 = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     g2 = fa.flash_attention_bwd_cuda(q, k, v, out, do, lse, **kw)
     torch.cuda.synchronize()
-    terms = (k7_bwd_d_terms(torch, q, k, v, do, out, causal, window)
-             if bf16 else (None, None))
+    terms = (None, None, None)
+    if bf16:
+        d_terms = k7_bwd_d_terms(torch, q, k, v, do, out, causal, window)
+        r_terms = k7_bwd_round_terms(torch, q, k, v, do, causal, window)
+        terms = (d_terms[0] + r_terms[0], d_terms[1] + r_terms[1],
+                 r_terms[2])
+        del d_terms, r_terms
     grads = {name: _grad_err(torch, a, r, bf16=bf16, elem_abs=t)
-             for name, a, r, t in zip(("dq", "dk", "dv"), got, ref,
-                                      (*terms, None))}
+             for name, a, r, t in zip(("dq", "dk", "dv"), got, ref, terms)}
     bitwise = all(torch.equal(a, b) for a, b in zip(g1, g2))
     same = all(torch.equal(a, b) for a, b in zip(g1, got))
     ok = bitwise and same and all(g["ok"] for g in grads.values())
@@ -5004,6 +5151,10 @@ def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
            "grads": grads, "bitwise_repeatable": bitwise,
            "function_is_the_kernels": same, "ok": ok,
            "max_abs_err": max(g["max_abs_err"] for g in grads.values())}
+    if control:
+        res["control"] = k7_bwd_control(torch, q, k, v, do, out, lse, ref,
+                                        terms, causal, window)
+    del terms
     if timed:
         mask = fa._mask(Sq, Skv, causal, window, c.dev)
         pairs = int(mask.sum()) * B * H
@@ -5047,6 +5198,11 @@ def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
             res["sdpa_backward"] = sdpa_backend(
                 torch, lambda: torch.autograd.grad(o_lib, ls, do,
                                                    retain_graph=True))
+            if res["sdpa_backward"]["backend"] == "not seen":
+                # the profile held no device row: the dispatcher's pick
+                res["sdpa_backward"]["backend"] = sdpa_choice(
+                    torch, *ls, enable_gqa=H != K, **sdpa_kw) + \
+                    " (the dispatcher's pick)"
         except RuntimeError as e:
             res["library_ms"] = None
             res["sdpa_backward"] = f"not timed: {str(e)[:160]}"
@@ -5065,9 +5221,11 @@ def k8_bwd_case(torch, c, key, label, C, L, H, P, G, N, *, dtype,
     one (C, L, conv_dim) tensor as the model passes them; A in [-16, -1]
     and dt = softplus(N(0,1) - 5), Mamba2's ranges.  bf16's dx and dBm
     element by element within one bf16 ulp plus 1e-5 of the largest, the
-    rest within 1e-4 of the largest.  The kernel bitwise repeatable.
-    Timed beside its bound (u and v, 4 C H L P N flops) and autograd
-    through the reference's einsum."""
+    rest within 1e-4 of the largest.  The kernels bitwise repeatable.
+    Timed: the tile kernel (u and v, 4 C H L P N flops, against its
+    inputs, dx and the scratch) and the scan kernel (the scratch in, ddt,
+    dA's partials and dBm out) each beside its bound, and the VJP beside
+    its bound and autograd through the reference's einsum."""
     from repro_torch.kernels import ssd_chunk as sc
     bf16 = dtype == torch.bfloat16
     xBC = c.randn(C, L, H * P + 2 * G * N).to(dtype)
@@ -5101,6 +5259,26 @@ def k8_bwd_case(torch, c, key, label, C, L, H, P, G, N, *, dtype,
            "plan": sc.bwd_launch_plan(x, Bm)}
     if timed:
         e = x.element_size()
+        plan, _, args = sc._bwd_prepare(x, dt, A, Bm, gs)
+        runs = plan["runs"]
+        # tile: x, Bm, dt, A, G read, dx and the scratch written; scan: the
+        # scratch, dt and A read, ddt, dA's partials and dBm written
+        tile_bytes = (e * (2 * C * L * H * P + C * L * G * N)
+                      + 4 * (3 * C * L * H + H + C * H * P * N
+                             + C * G * runs * L * N))
+        scan_bytes = (e * C * L * G * N
+                      + 4 * (4 * C * L * H + H + C * H + C * G * runs * L * N))
+        peak = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
+        for name, fn, counter, nbytes, flops in (
+                ("tile", sc.BWD_ENTRIES[0], plan["counters"][0], tile_bytes,
+                 4.0 * C * H * L * P * N),
+                ("scan", sc.BWD_ENTRIES[1], plan["counters"][1], scan_bytes,
+                 0.0)):
+            res[f"{name}_ms"] = median_ms(
+                torch, functools.partial(sc._bwd_launch, fn, counter, args),
+                c.flush)
+            res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bound(
+                nbytes, flops, peak)
         res["ms"] = median_ms(torch, lambda: sc.ssd_chunk_state_bwd_cuda(
             x, dt, A, Bm, gs), c.flush)
         res["plain_ms"] = median_ms(torch, lambda: sc.ssd_chunk_state_bwd_plain(
@@ -5168,7 +5346,9 @@ def phase_lm_vjps(torch, results):
     for dname, dtype in (("bf16", torch.bfloat16), ("float32", torch.float32)):
         for key, label, shape, kw, timed in K7_BWD_CASES:
             results[f"k7_vjp.{key}.{dname}"] = k7_bwd_case(
-                torch, c, key, label, *shape, dtype=dtype, timed=timed, **kw)
+                torch, c, key, label, *shape, dtype=dtype, timed=timed,
+                control=key == K7_BWD_CONTROL and dtype == torch.bfloat16,
+                **kw)
         for key, label, shape, timed in K8_BWD_CASES:
             results[f"k8_vjp.{key}.{dname}"] = k8_bwd_case(
                 torch, c, key, label, *shape, dtype=dtype, timed=timed)
@@ -5197,7 +5377,8 @@ TRAIN_RUNS = (
     (MAMBA2, "20c. Mamba2-780m, 48 layers, B 2 x S 1024",
      ["--arch", MAMBA2, "--batch", "2", "--seq", "1024",
       "--steps", str(TRAIN_STEPS[MAMBA2]), *TRAIN_LR],
-     {"ssd_chunk_state": 48, "ssd_chunk_state_bwd": 48}))
+     {"ssd_chunk_state": 48, "ssd_chunk_state_bwd": 48,
+      "ssd_chunk_state_bwd_scan": 48}))
 TRAIN_CUTS = tuple(
     (arch, f"20d. {arch}, {n} layers, B 2 x S 1024",
      ["--arch", arch, "--layers", str(n), "--batch", "2", "--seq", "1024",
@@ -5213,7 +5394,8 @@ TRAIN_CUTS = tuple(
                       "flash_attention_bwd_dkdv": 2}),
         (ZAMBA2, 6, {"flash_attention": 1, "flash_attention_bwd_dq": 1,
                      "flash_attention_bwd_dkdv": 1, "ssd_chunk_state": 6,
-                     "ssd_chunk_state_bwd": 6})))
+                     "ssd_chunk_state_bwd": 6,
+                     "ssd_chunk_state_bwd_scan": 6})))
 # 20(e): every family the trainer runs on the card, at its reduced config
 # in float32, card against CPU: (arch, batch, seq)
 TRAIN_PARITY = tuple((a, 2, 64) for a in (
@@ -5227,7 +5409,7 @@ def train_kind(key: str) -> str:
     K8's forward and VJP, else :func:`kernel_kind`'s."""
     k = key.lower()
     for name, kind in (("flash_fwd", "K7 forward"), ("flash_bwd", "K7 VJP"),
-                       ("ssd_bwd_kernel", "K8 VJP"),
+                       ("ssd_bwd", "K8 VJP"),
                        ("ssd_state", "K8 forward")):
         if name in k:
             return kind
@@ -5653,9 +5835,14 @@ def vjp_rows(results) -> list:
     library times are the whole VJP's (the plain FlashAttention-2
     backward, SDPA's backward), as is ``vjp_ms``.  bf16 rows: 20(a)'s
     Qwen2.5-14B case and 20(b)'s launches; float32: train_lm_100m's (192,
-    192) and 20(f)'s launches.  K8's bf16 row: Mamba2-780m (20(c)); its
-    float32 row the reduced configs' widths (20(e)'s launches).  The
-    other timed width pairs and widths stand beside each row."""
+    192) and 20(f)'s launches.  K8's two kernels (tile, scan) are timed
+    apart too, plain and library times the whole VJP's: bf16 rows
+    Mamba2-780m (20(c)); float32 rows the reduced configs' widths (20(e)'s
+    launches).  The other timed width pairs and widths stand beside each
+    row."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
     rows = []
     k7_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     k7_none = ("none: the reference differentiates L.attention "
@@ -5676,8 +5863,11 @@ def vjp_rows(results) -> list:
                     "bound_by": r[f"{part}_bound_by"],
                     "library_ms": r["library_ms"], "vjp_ms": r["ms"],
                     "vjp_bound_ms": r["bound_ms"]}
-        row = {"name": name, "route": "cuda", "source": k7_src,
-               "replaces": k7_none,
+        z = torch.zeros(1, 1, 64, 128, dtype=torch.bfloat16 if dname == "bf16"
+                        else torch.float32)
+        kernel = fa.bwd_launch_plan(z, z, z)["kernels"][part == "dkdv"]
+        row = {"name": name, "kernel": kernel, "route": "cuda",
+               "source": k7_src, "replaces": k7_none,
                "launches": results.get(f"launches.train.{path}", {}).get(
                    name, 0),
                **part_of(results[f"k7_vjp.{main_key}.{dname}"])}
@@ -5685,21 +5875,34 @@ def vjp_rows(results) -> list:
             if timed and key != main_key:
                 row[f"at_{key}"] = part_of(results[f"k7_vjp.{key}.{dname}"])
         rows.append(row)
-    for name, dname, main_key, path in (
-            ("ssd_chunk_state_bwd", "bf16", "mamba2", MAMBA2),
-            ("ssd_chunk_state_bwd_fp32", "float32", "reduced", "parity")):
-        r = results[f"k8_vjp.{main_key}.{dname}"]
-        row = {"name": name, "route": "cuda",
+    for name, part, dname, main_key, path in (
+            ("ssd_chunk_state_bwd", "tile", "bf16", "mamba2", MAMBA2),
+            ("ssd_chunk_state_bwd_scan", "scan", "bf16", "mamba2", MAMBA2),
+            ("ssd_chunk_state_bwd_fp32", "tile", "float32", "reduced",
+             "parity"),
+            ("ssd_chunk_state_bwd_scan_fp32", "scan", "float32", "reduced",
+             "parity")):
+        def k8_part(r):
+            return {"max_abs_err": r["max_abs_err"], "ms": r[f"{part}_ms"],
+                    "plain_ms": r["plain_ms"],
+                    "bound_ms": r[f"{part}_bound_ms"],
+                    "bound_by": r[f"{part}_bound_by"],
+                    "library_ms": r["library_ms"], "vjp_ms": r["ms"],
+                    "vjp_bound_ms": r["bound_ms"]}
+        row = {"name": name,
+               "kernel": results[f"k8_vjp.{main_key}.{dname}"]["plan"][
+                   "kernels"][part == "scan"],
+               "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
                "replaces": "none: the reference differentiates its states "
                            "einsum (src/repro/models/transformer/ssm.py:109) "
                            "in XLA",
                "launches": results.get(f"launches.train.{path}", {}).get(
-                   name, 0), **{k: r[k] for k in keys}}
+                   name, 0),
+               **k8_part(results[f"k8_vjp.{main_key}.{dname}"])}
         for key, _, _, timed in K8_BWD_CASES:
             if timed and key != main_key:
-                row[f"at_{key}"] = {k: results[f"k8_vjp.{key}.{dname}"][k]
-                                    for k in keys}
+                row[f"at_{key}"] = k8_part(results[f"k8_vjp.{key}.{dname}"])
         rows.append(row)
     return rows
 

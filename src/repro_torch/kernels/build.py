@@ -66,17 +66,21 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "flash_attention_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
         "flash_attention_bwd_dkdv": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
-        "flash_attention_bwd_smem": [_I, _I, _I],
+        # hd, hd_v, dkdv, is_bf16
+        "flash_attention_bwd_smem": [_I, _I, _I, _I],
     },
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
         "ssd_chunk_state_smem": [_I, _I],
     },
-    # K8's VJP: x, dt, A, Bm, d state, dx, dBm, ddt, dA partials, strides,
-    # then C, L, H, P, G, N, is_bf16, stream
+    # K8's VJP: x, dt, A, Bm, d state, dx, dBm, ddt, dA partials, the
+    # scratch dw * w, dw * e and dBm's parts, strides, then C, L, H, P, G,
+    # N, RB (heads a tile block), is_bf16, stream
     "ssd_chunk_bwd": {
-        "ssd_chunk_state_bwd": [_P] * 10 + [_I] * 7 + [_P],
+        "ssd_chunk_state_bwd_tile": [_P] * 13 + [_I] * 8 + [_P],
+        "ssd_chunk_state_bwd_scan": [_P] * 13 + [_I] * 8 + [_P],
+        # P, N, RB, is_bf16
         "ssd_chunk_state_bwd_smem": [_I, _I, _I, _I],
     },
 }

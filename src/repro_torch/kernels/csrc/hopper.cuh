@@ -597,6 +597,14 @@ inline int make_map_4d(CUtensorMap* map, CUtensorMapDataType type, int esize, co
                        const long long* dims, const long long* st, const int* box, int sw) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  // cuTensorMapEncodeTiled needs the device's context current on the calling
+  // thread; a thread that has made no runtime call needing one (autograd's
+  // backward worker, whose allocations the caching allocator served) has
+  // none yet: cudaSetDevice makes the primary context current
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
   cuuint64_t d[4], s[3];
   cuuint32_t b[4];
   const cuuint32_t unit[4] = {1, 1, 1, 1};

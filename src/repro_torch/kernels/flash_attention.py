@@ -28,8 +28,11 @@ The VJP: :class:`FlashAttention` runs K7 with each row's log-sum-exp
 written beside the output (``return_lse``) and, in its backward,
 :func:`flash_attention_bwd_cuda`: two hand-written kernels
 (``csrc/flash_attention_bwd.cu``), dQ (which first writes D = <dO, o> a
-row) and then dK/dV, both on the CUDA cores, no atomics.  They replace
-no TPU kernel: the reference trains through XLA's autodiff of
+row) and then dK/dV, no atomics: in bf16 on the tensor cores (wgmma,
+TMA; P and dS rounded to bf16 for the accumulating products, as the
+forward rounds P), in float32 on the CUDA cores
+(:func:`bwd_launch_plan`).  They replace no TPU kernel: the reference
+trains through XLA's autodiff of
 ``L.attention``.  :func:`flash_attention_bwd_plain` is the same
 FlashAttention-2 formulas in PyTorch, in float32.  The raw
 :func:`flash_attention_cuda` stays forward-only: called with grad on an
@@ -247,39 +250,85 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the VJP
 # ---------------------------------------------------------------------------
 
-#: the backward kernels' walked tile (keys in dQ, queries in dK/dV), rows
+#: the float32 backward kernels (CUDA cores): the walked tile (keys in dQ,
+#: queries in dK/dV), rows, and a block's threads
 BWD_WALK = 32
-#: their blocks' threads
 BWD_THREADS = 256
+#: the bf16 backward kernels (tensor cores): rows of a consumer warpgroup,
+#: of a K/V tile (dQ) and of a walked Q/dO tile (dK/dV); a block's threads
+#: (a producer warpgroup and two consumer warpgroups)
+BWD_TC_ROWS = 64
+BWD_TC_THREADS = 384
 
 
 def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> dict:
     """How :func:`flash_attention_bwd_cuda` launches K7's VJP on these
     tensors, on any device (pure Python: the CPU tests rehearse it).  A
-    width pair outside :data:`WIDTH_PAIRS` raises ``ValueError``.  Both
-    kernels run at the tensors' own widths (hd 80 included: the register
-    tiles are 16 columns wide) on the CUDA cores, 256 threads a block:
-    ``flash_bwd_dq_kernel`` over (query tiles of ``block_rows``, H, B),
-    ``flash_bwd_dkdv_kernel`` over (key tiles of ``block_rows``, K, B),
-    each walking tiles of :data:`BWD_WALK` rows of the other axis;
-    ``block_rows`` is 64 up to width 128 and 32 above.  Shared memory
-    holds every tile in float32, rows padded to an odd stride (width +
-    1); ``smem_dq`` / ``smem_dkdv`` are what the kernels ask for
-    (``BwdTile`` in the source)."""
+    width pair outside :data:`WIDTH_PAIRS` raises ``ValueError``.
+
+    bf16 (``route`` "wgmma"): ``flash_bwd_dq_wgmma_kernel`` over (H, B,
+    query tiles of 128 rows, the last first), ``flash_bwd_dkdv_wgmma_kernel``
+    over (key tiles of 64, K, B), 384 threads each (a producer warpgroup
+    issuing TMA, two consumer warpgroups of 64 rows); K/V tiles of 64 keys
+    (dQ) and Q/dO tiles of 64 queries (dK/dV) in rings of ``stages_dq`` /
+    ``stages_dkdv`` stages (dQ at width 256: 1, the only ring that would
+    not fit twice beside its 128-row Q and dO).  The tiles are the
+    forward's (``tile_width``: hd 80 on the hd-96 tiles, ``swizzle`` 64 B
+    there, else 128), so q, k, v and the output cotangent are read through
+    TMA maps: a 16-byte-aligned base and byte strides in multiples of 16,
+    else ``ValueError`` naming the tensor.  ``smem_dq`` / ``smem_dkdv`` are
+    what the kernels ask for (``TcTile`` in the source), within
+    :data:`SMEM_PER_BLOCK`.
+
+    float32 (``route`` "cuda_core"): ``flash_bwd_dq_kernel`` over (query
+    tiles of ``block_rows``, H, B) and ``flash_bwd_dkdv_kernel`` over (key
+    tiles of ``block_rows``, K, B), 256 threads, at the tensors' own widths
+    (register tiles 16 columns wide), each walking tiles of
+    :data:`BWD_WALK` rows of the other axis; ``block_rows`` is 64 up to
+    width 128 and 32 above; every tile in float32 in shared memory, rows
+    padded to an odd stride (``BwdTile`` in the source)."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     check_widths(hd, hd_v)
     B, H, Sq = q.shape[0], q.shape[1], q.shape[2]
     K, Skv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(t, name, ("batch", "head", "position"))
+        tw, twv = TILE_WIDTH.get(hd, hd), TILE_WIDTH.get(hd_v, hd_v)
+        rows = BWD_TC_ROWS
+        k_bytes, v_bytes = rows * tw * 2, rows * twv * 2
+        # dQ: slack, Q and dO of 128 rows, the K/V ring, barriers
+        fixed = 1024 + 2 * (k_bytes + v_bytes)
+        stages_dq = 2 if fixed + 2 * (k_bytes + v_bytes) + 8 * 7 <= \
+            SMEM_PER_BLOCK else 1
+        smem_dq = fixed + stages_dq * (k_bytes + v_bytes) + \
+            8 * (1 + 3 * stages_dq)
+        # dK/dV: slack, K and V, the Q/dO ring of 2, two float32 P^T tiles,
+        # barriers
+        smem_dkdv = 1024 + 3 * (k_bytes + v_bytes) + 2 * 4 * rows * rows + \
+            8 * 5
+        return {"route": "wgmma",
+                "kernels": ("flash_bwd_dq_wgmma_kernel",
+                            "flash_bwd_dkdv_wgmma_kernel"),
+                "counters": ("flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkdv"),
+                "tile_width": tw, "tile_width_v": twv,
+                "swizzle": 128 if tw % 64 == 0 else 64,
+                "block_rows_dq": 2 * rows, "block_rows_dkdv": rows,
+                "walk_rows": rows, "threads": BWD_TC_THREADS,
+                "stages_dq": stages_dq, "stages_dkdv": 2,
+                "grid_dq": (H, B, -(-Sq // (2 * rows))),
+                "grid_dkdv": (-(-Skv // rows), K, B),
+                "smem_dq": smem_dq, "smem_dkdv": smem_dkdv}
     tb, ts = (64 if hd <= 128 else 32), BWD_WALK
     ldk, ldv = hd + 1, hd_v + 1
     smem_dkdv = 4 * ((tb + ts) * (ldk + ldv) + 2 * ts * (tb + 1) + 2 * ts)
     smem_dq = 4 * ((tb + ts) * (ldk + ldv) + tb * (ts + 1) + 2 * tb)
-    fp32 = "" if q.dtype == torch.bfloat16 else "_fp32"
     return {"route": "cuda_core",
             "kernels": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
-            "counters": (f"flash_attention_bwd_dq{fp32}",
-                         f"flash_attention_bwd_dkdv{fp32}"),
+            "counters": ("flash_attention_bwd_dq_fp32",
+                         "flash_attention_bwd_dkdv_fp32"),
             "block_rows": tb, "walk_rows": ts, "threads": BWD_THREADS,
             "grid_dq": (-(-Sq // tb), H, B),
             "grid_dkdv": (-(-Skv // tb), K, B),
@@ -320,8 +369,9 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     with the last dim contiguous, all one dtype (bf16 or float32); lse is
     the forward's, (B, H, Sq) float32.  Returns ``(dq, dk, dv)``, each a
     (B, heads, S, width) view of a (B, S, heads, width) tensor, in the
-    inputs' dtype.  Each launch counts under :func:`bwd_launch_plan`'s
-    counter; a refused launch raises."""
+    inputs' dtype.  In bf16 q, k, v and do are read through TMA maps
+    (:func:`bwd_launch_plan`'s alignment).  Each launch counts under
+    :func:`bwd_launch_plan`'s counter; a refused launch raises."""
     plan, grads, args = _bwd_prepare(q, k, v, o, do, lse, causal, window,
                                      scale)
     if args is not None:
@@ -363,6 +413,8 @@ def _bwd_prepare(q, k, v, o, do, lse, causal, window, scale):
     if window < 0:
         raise ValueError(f"window {window} < 0")
     plan = bwd_launch_plan(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tma(do, "do", ("batch", "head", "position"))
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev
                      ).transpose(1, 2)
     dk = torch.empty((B, Skv, K, hd), dtype=q.dtype, device=dev
@@ -390,6 +442,15 @@ def _bwd_launch(fn: str, counter: str, args) -> None:
     launches[counter] += 1
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a (B, heads, S, width) view passes :func:`_check_tma`."""
+    try:
+        _check_tma(t, "t", ("batch", "head", "position"))
+    except ValueError:
+        return False
+    return True
+
+
 class FlashAttention(torch.autograd.Function):
     """K7 with its VJP: the forward launches K7 with the row log-sum-exp
     and saves q, k, v, the output and lse; the backward launches
@@ -408,7 +469,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
+        if dout.stride(-1) != 1 or not _tma_ready(dout):
             dout = dout.contiguous()
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse,
                                               **ctx.args)

@@ -25,10 +25,13 @@ CUDA cores.  The routes count apart (``ssd_chunk_state``,
 dt (C, L, H), A (H,), Bm (C, L, G, N) and return (C, H, P, N) float32.
 
 The VJP: :class:`SSDChunkState` runs K8 and, in its backward,
-:func:`ssd_chunk_state_bwd_cuda` (``csrc/ssd_chunk_bwd.cu``: one block a
-(chunk, group) walking the group's heads, on the CUDA cores, no atomics)
-at P 64 with N 64 or 128 (Mamba2-780m, Zamba2-2.7B) and the reduced
-configs' P 32, N 16, in bf16 or float32.  It replaces no TPU kernel: the
+:func:`ssd_chunk_state_bwd_cuda` (``csrc/ssd_chunk_bwd.cu``, no atomics):
+a tile kernel, one block a (64-position tile, chunk, run of a group's
+heads), on the tensor cores at P 64 with N 64 or 128 (Mamba2-780m,
+Zamba2-2.7B; G's float32 split into bf16 hi and lo, x and Bm too in
+float32) and on the CUDA cores at the reduced configs' P 32, N 16; then a
+scan kernel for ddt, dA's per-chunk partials and dBm's sum over the runs,
+in bf16 or float32 (:func:`bwd_launch_plan`).  It replaces no TPU kernel: the
 reference trains through XLA's autodiff of its ``states`` einsum.
 :func:`ssd_chunk_state_bwd_plain` is the same formulas in PyTorch.  The
 raw :func:`ssd_chunk_state_cuda` stays forward-only.
@@ -47,11 +50,14 @@ from repro_torch.kernels.segment_sum import (_check_tma, _check_view,
 
 #: launches of the kernel wrapper (a run resets and reads it), by route:
 #: the tensor cores at the tile's widths in bf16 (the served path) and in
-#: float32, the CUDA cores (other widths) in float32 and in bf16
+#: float32, the CUDA cores (other widths) in float32 and in bf16; the
+#: backward's tile and scan kernels in each dtype
 launches = {"ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
             "ssd_chunk_state_fp32_cuda_core": 0,
             "ssd_chunk_state_bf16_cuda_core": 0,
-            "ssd_chunk_state_bwd": 0, "ssd_chunk_state_bwd_fp32": 0}
+            "ssd_chunk_state_bwd": 0, "ssd_chunk_state_bwd_fp32": 0,
+            "ssd_chunk_state_bwd_scan": 0,
+            "ssd_chunk_state_bwd_scan_fp32": 0}
 
 #: the tensor-core route's tile: one warpgroup's m64nN product, N one of
 #: TC_NS, over a chunk of at most TC_L positions
@@ -176,31 +182,64 @@ def ssd_chunk_state_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # the VJP
 # ---------------------------------------------------------------------------
 
-#: the (P, N) widths the backward kernel takes: Mamba2-780m's, Zamba2's,
-#: and the reduced configs'
+#: the (P, N) widths the backward takes: Mamba2-780m's and Zamba2-2.7B's
+#: on the tensor cores (BWD_TC_WIDTHS), the reduced configs' on the CUDA
+#: cores
 BWD_WIDTHS = ((64, 128), (64, 64), (32, 16))
-#: positions a backward tile holds, and its threads
-BWD_TL, BWD_THREADS = 64, 256
+BWD_TC_WIDTHS = ((64, 128), (64, 64))
+#: positions a backward tile block holds
+BWD_TL = 64
+#: threads of a tile block on the tensor cores (one warpgroup) and on the
+#: CUDA cores (4 a position), and of a scan block (4 warps)
+BWD_TC_THREADS, BWD_CC_THREADS, BWD_SCAN_THREADS = 128, 256, 128
+#: the tile blocks a call aims for: two an SM of an H100's 132
+BWD_BLOCKS = 2 * 132
 
 
-def bwd_smem(P: int, N: int, R: int, L: int) -> int:
-    """Dynamic shared memory of a backward block (``smem_bytes`` in
-    ``csrc/ssd_chunk_bwd.cu``): the Bm and x tiles, one head's state
-    cotangent (rows padded to an odd stride), the dw partials, four
-    per-position rows, then the R x L running sums of dt * A and two
-    floats a head."""
-    fixed = (BWD_TL * (N + 1) + BWD_TL * (P + 1) + P * (N + 1)
-             + BWD_TL * 16 + 4 * BWD_TL)
-    return 4 * (fixed + R * L + 2 * R)
+def bwd_smem(P: int, N: int, RB: int, bf16: bool) -> int:
+    """Dynamic shared memory of a backward tile block with RB heads
+    (``tc_smem`` / ``cc_smem`` in ``csrc/ssd_chunk_bwd.cu``).  Tensor
+    cores: the 1024-byte alignment slack, the Bm tile in bf16 (hi and lo
+    in float32), G_h's bf16 hi and lo, the next head's G_h in float32 as
+    it arrives, then w and e of the RB heads.  CUDA cores: the Bm, x and
+    G_h tiles in float32, rows padded to an odd stride, then w and e."""
+    if (P, N) in BWD_TC_WIDTHS:
+        chunk = BWD_TL * 128
+        return (1024 + (1 if bf16 else 2) * (N // 64) * chunk
+                + 2 * (N // 64) * chunk + 4 * P * N + 2 * 4 * BWD_TL * RB)
+    return 4 * (BWD_TL * (N + 1) + BWD_TL * (P + 1) + P * (N + 1)
+                + 2 * BWD_TL * RB)
+
+
+def bwd_heads_a_block(C: int, L: int, H: int, G: int, P: int, N: int,
+                      bf16: bool) -> int:
+    """RB, the heads a tile block walks: each group's R = H / G heads split
+    into the fewest even runs that give the grid of (ceil(L / 64) tiles,
+    C, G runs) at least :data:`BWD_BLOCKS` blocks, and whose weights fit
+    the block's shared memory."""
+    R = H // G
+    tiles = -(-L // BWD_TL)
+    runs = min(R, max(1, -(-BWD_BLOCKS // max(1, C * tiles * G))))
+    room = (SMEM_PER_BLOCK - bwd_smem(P, N, 0, bf16)) // (8 * BWD_TL)
+    runs = max(runs, -(-R // room))
+    return -(-R // runs)
 
 
 def bwd_launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
     """How :func:`ssd_chunk_state_bwd_cuda` launches K8's VJP on these
-    tensors, on any device (pure Python: the CPU tests rehearse it): one
-    block of 256 threads a (chunk, group), walking the chunk in tiles of
-    64 positions and the group's R = H / G heads inside each.  A (P, N)
-    outside :data:`BWD_WIDTHS`, or R x L running sums that overflow the
-    block's shared memory, raise ``ValueError``."""
+    tensors, on any device (pure Python: the CPU tests rehearse it): the
+    tile kernel over (ceil(L / 64) position tiles, C chunks, G x ``runs``
+    runs of ``heads_a_block`` heads), then the scan kernel over C x ceil(H
+    / 4) head blocks and C x G x ceil(L N / 512) dBm blocks (a thread per
+    4 elements).  At (P, N) in
+    :data:`BWD_TC_WIDTHS` the tile kernel runs on the tensor cores
+    (``route`` "wgmma", one warpgroup a block) and reads x and Bm in
+    16-byte units: a 16-byte-aligned base and byte strides in multiples of
+    16, else ``ValueError`` naming the tensor; at (32, 16) on the CUDA
+    cores.  A (P, N) outside :data:`BWD_WIDTHS` raises ``ValueError``.
+    ``scratch_bytes`` is the float32 scratch the wrapper allocates: dw * w
+    and dw * e, (C, L, H) each, and the runs' parts of dBm, (C, G, runs,
+    L, N)."""
     C, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if (P, N) not in BWD_WIDTHS:
@@ -208,16 +247,30 @@ def bwd_launch_plan(x: torch.Tensor, Bm: torch.Tensor) -> dict:
                          f"got ({P}, {N})")
     if G == 0 or H % G:
         raise ValueError(f"{H} heads do not split over {G} groups")
-    smem = bwd_smem(P, N, H // G, L)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{H // G} heads a group over chunks of {L} need "
-                         f"{smem} bytes of shared memory, past "
-                         f"{SMEM_PER_BLOCK}")
-    return {"route": "cuda_core", "kernel": "ssd_bwd_kernel",
-            "counter": ("ssd_chunk_state_bwd" if x.dtype == torch.bfloat16
-                        else "ssd_chunk_state_bwd_fp32"),
-            "grid": (C, G), "threads": BWD_THREADS, "tile": BWD_TL,
-            "heads_a_block": H // G, "smem_bytes": smem}
+    bf16 = x.dtype == torch.bfloat16
+    tc = (P, N) in BWD_TC_WIDTHS
+    if tc:
+        _check_tma(x, "x", ("chunk", "position", "head"))
+        _check_tma(Bm, "Bm", ("chunk", "position", "group"))
+    R = H // G
+    rb = bwd_heads_a_block(C, L, H, G, P, N, bf16) if R else 1
+    runs = -(-R // rb) if R else 0
+    tiles = -(-L // BWD_TL)
+    fp32 = "" if bf16 else "_fp32"
+    return {"route": "wgmma" if tc else "cuda_core",
+            "kernels": ("ssd_bwd_wgmma_kernel" if tc
+                        else "ssd_bwd_cuda_core_kernel",
+                        "ssd_bwd_scan_kernel"),
+            "counters": (f"ssd_chunk_state_bwd{fp32}",
+                         f"ssd_chunk_state_bwd_scan{fp32}"),
+            "tile": BWD_TL, "heads_a_block": rb, "runs": runs,
+            "grid": (tiles, C, G * runs),
+            "threads": BWD_TC_THREADS if tc else BWD_CC_THREADS,
+            "grid_scan": (C * -(-H // 4)
+                          + C * G * -(-L * N // (4 * BWD_SCAN_THREADS))),
+            "threads_scan": BWD_SCAN_THREADS,
+            "smem_bytes": bwd_smem(P, N, rb, bf16),
+            "scratch_bytes": 4 * (2 * C * L * H + C * G * runs * L * N)}
 
 
 def ssd_chunk_state_bwd_plain(x, dt, A, Bm, gstate):
@@ -251,13 +304,30 @@ def ssd_chunk_state_bwd_plain(x, dt, A, Bm, gstate):
             dBm.to(Bm.dtype))
 
 
+#: the C entry points of the two backward kernels, in launch order
+BWD_ENTRIES = ("ssd_chunk_state_bwd_tile", "ssd_chunk_state_bwd_scan")
+
+
 def ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gstate):
-    """K8's VJP on the card (``csrc/ssd_chunk_bwd.cu``,
-    ``ssd_chunk_state_bwd``): the inputs as :func:`ssd_chunk_state_cuda`
-    takes them, ``gstate`` (C, H, P, N) float32 contiguous.  Returns
-    :func:`ssd_chunk_state_bwd_plain`'s ``(dx, ddt, dA_part, dBm)``,
-    dx and dBm contiguous.  The launch counts under
-    :func:`bwd_launch_plan`'s counter; a refused launch raises."""
+    """K8's VJP on the card (``csrc/ssd_chunk_bwd.cu``): the tile kernel,
+    then the scan kernel, on the current stream.  The inputs as
+    :func:`ssd_chunk_state_cuda` takes them (at the tensor-core widths
+    with :func:`bwd_launch_plan`'s alignment), ``gstate`` (C, H, P, N)
+    float32 contiguous.  Returns :func:`ssd_chunk_state_bwd_plain`'s
+    ``(dx, ddt, dA_part, dBm)``, dx and dBm contiguous.  Each launch counts
+    under :func:`bwd_launch_plan`'s counter; a refused launch raises."""
+    plan, grads, args = _bwd_prepare(x, dt, A, Bm, gstate)
+    if args is not None:
+        for fn, counter in zip(BWD_ENTRIES, plan["counters"]):
+            _bwd_launch(fn, counter, args)
+    return grads
+
+
+def _bwd_prepare(x, dt, A, Bm, gstate):
+    """Check the VJP's inputs and allocate its outputs and scratch:
+    ``(plan, (dx, ddt, dA_part, dBm), args)``, ``args`` the C arguments of
+    both kernels followed by the scratch they point at (None when there is
+    nothing to launch)."""
     dev = _require_cuda(x, "ssd_chunk_state_bwd_cuda")
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"x (C, L, H, P) and Bm (C, L, G, N) must be 4-D, "
@@ -281,18 +351,30 @@ def ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gstate):
     ddt = torch.empty((C, L, H), dtype=torch.float32, device=dev)
     dA_part = torch.empty((C, H), dtype=torch.float32, device=dev)
     if x.numel() == 0:
-        return dx, ddt.zero_(), dA_part.zero_(), dBm.zero_()
+        return plan, (dx, ddt.zero_(), dA_part.zero_(), dBm.zero_()), None
+    # the scratch: dw * w and dw * e a position and head, and the runs'
+    # parts of dBm
+    qw = torch.empty((C, L, H), dtype=torch.float32, device=dev)
+    qe = torch.empty_like(qw)
+    part = torch.empty((C, G, plan["runs"], L, N), dtype=torch.float32,
+                       device=dev)
     strides = (ctypes.c_longlong * 6)(x.stride(0), x.stride(1), x.stride(2),
                                       Bm.stride(0), Bm.stride(1),
                                       Bm.stride(2))
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            gstate.data_ptr(), dx.data_ptr(), dBm.data_ptr(), ddt.data_ptr(),
+            dA_part.data_ptr(), qw.data_ptr(), qe.data_ptr(), part.data_ptr(),
+            strides, C, L, H, P, G, N, plan["heads_a_block"],
+            int(x.dtype == torch.bfloat16), _stream())
+    # the scratch lives as long as the arguments that point at it
+    return plan, (dx, ddt, dA_part, dBm), args + ((qw, qe, part),)
+
+
+def _bwd_launch(fn: str, counter: str, args) -> None:
+    """One backward kernel on ``_bwd_prepare``'s arguments, counted."""
     lib = build.library("ssd_chunk_bwd")
-    build.check(lib.ssd_chunk_state_bwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        gstate.data_ptr(), dx.data_ptr(), dBm.data_ptr(), ddt.data_ptr(),
-        dA_part.data_ptr(), strides, C, L, H, P, G, N,
-        int(x.dtype == torch.bfloat16), _stream()), "ssd_chunk_state_bwd")
-    launches[plan["counter"]] += 1
-    return dx, ddt, dA_part, dBm
+    build.check(getattr(lib, fn)(*args[:-1]), fn)
+    launches[counter] += 1
 
 
 class SSDChunkState(torch.autograd.Function):

@@ -274,7 +274,8 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_dispatch_refuses_others():
         "ssd_chunk_state": 0, "ssd_chunk_state_fp32": 0,
         "ssd_chunk_state_fp32_cuda_core": 0,
         "ssd_chunk_state_bf16_cuda_core": 0, "ssd_chunk_state_bwd": 0,
-        "ssd_chunk_state_bwd_fp32": 0}
+        "ssd_chunk_state_bwd_fp32": 0, "ssd_chunk_state_bwd_scan": 0,
+        "ssd_chunk_state_bwd_scan_fp32": 0}
 
 
 # ---------------------------------------------------------------------------

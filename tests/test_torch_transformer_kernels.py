@@ -674,12 +674,14 @@ def test_k8_launch_plan_routes_by_dtype(G):
     assert ssd.launch_plan(x32, B32) == {
         "route": "cuda_core", "kernel": "ssd_state_kernel",
         "counter": "ssd_chunk_state_fp32_cuda_core"}
-    # the forward's four routes, and the VJP's kernel in each dtype
+    # the forward's four routes, and the VJP's two kernels in each dtype
     assert set(ssd.launches) == {"ssd_chunk_state", "ssd_chunk_state_fp32",
                                  "ssd_chunk_state_fp32_cuda_core",
                                  "ssd_chunk_state_bf16_cuda_core",
                                  "ssd_chunk_state_bwd",
-                                 "ssd_chunk_state_bwd_fp32"}
+                                 "ssd_chunk_state_bwd_fp32",
+                                 "ssd_chunk_state_bwd_scan",
+                                 "ssd_chunk_state_bwd_scan_fp32"}
 
 
 def test_k8_tf32_route_states_its_shared_memory():
