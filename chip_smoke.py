@@ -59,7 +59,8 @@ Phases, in order; any failure makes the exit code nonzero:
    Scatter gather, K3) against autograd through the plain versions;
 6. full-batch training at Reddit's widths through
    ``repro_torch.launch.train_gnn``: GCN, SAGE, GIN (602 → 256 → 41) and
-   GAT (→ 40), 10 epochs each: the loss is finite and falls, every step
+   GAT (→ 40), ``TRAIN_EPOCHS`` (5) epochs each: the loss is finite and
+   falls, every step
    launches exactly the kernels of its design and nothing plain, a second
    run from the same init ends in bitwise-equal parameters, one step's
    gradients on the card agree with the same step on the CPU (in
@@ -85,11 +86,11 @@ Phases, in order; any failure makes the exit code nonzero:
    phase 6's predictions but for near ties; (c) SAGE served under
    ``--reorder bfs``: every request answered in the workload's original
    ids, K1 twice a forward; (d) SAGE served with ``--update-stream`` (a
-   stream of 2 000 synthesized events written to ``chiprun_out/``): every
+   stream of 1 000 synthesized events written to ``chiprun_out/``): every
    event folded, then the updated server against a cold one built on the
    folded graph within 1e-5; (e) mini-batch SAGE with ``--sampler
-   importance`` (over a sixteenth of the nodes), ``fastgcn`` and
-   ``ladies`` (30 steps each): falling loss, K1's launches as phase 7's
+   importance`` (over 6 batches of nodes), ``fastgcn`` and
+   ``ladies`` (``MB_STEPS`` steps each): falling loss, K1's launches as phase 7's
    fp32 run, K1's plan searches and host time a launch; (f) ``train_gnn
    --dataset pubmed-like`` (GCN) and ``serve_gnn --dataset reddit-like``
    (SAGE);
@@ -141,13 +142,14 @@ Phases, in order; any failure makes the exit code nonzero:
    that requires grad (naming their autograd Functions), which ``ops``
    runs instead, and under no_grad ``ops`` runs the forward alone;
 9. serve Phi-3-mini-3.8B at its published widths in bf16: (a) the
-   serving launcher ``repro_torch.launch.serve`` (8 x 64 prompt tokens
-   through the decode-only loop, 32 generated), tok/s and peak memory, no
-   K7 launch; (b) ``prefill`` of 8 x 1024 tokens and 32 decode steps in
+   serving launcher ``repro_torch.launch.serve`` (8 x 16 prompt tokens
+   through the decode-only loop, 16 generated), tok/s and peak memory, no
+   K7 launch; (b) ``prefill`` of 8 x 1024 tokens and 8 decode steps in
    its cache (grown by 32 slots), exactly 32 K7 launches (bf16 route;
    the float32 prefill below, 32 of the float32 route), finite logits,
    prefill against the decode-only loop at full depth over the prompts'
-   first 128 positions (``LM_CMP_BY_ARCH``, through a prefill of that
+   first 64 (Phi-3) or 128 (Mamba2) positions (``LM_CMP_BY_ARCH``,
+   through a prefill of that
    length) in float32 (two prompts, within 1e-3 of the largest logit;
    Mamba2 3e-3) and in bf16 (all 8, RMS ratio bound), prefill and
    decode tok/s, peak memory; (c)
@@ -161,9 +163,9 @@ Phases, in order; any failure makes the exit code nonzero:
 13. serve Qwen2.5-14B, Gemma-7B and GLM-4-9B one after another (each
    freed before the next) at their published widths and full depth in
    bf16, random weights: a prefill of 8 x 1024 with exactly one K7 launch
-   (bf16 route) a layer, 32 decode steps in its grown cache, finite
+   (bf16 route) a layer, 8 decode steps in its grown cache, finite
    logits, tok/s and peak memory; float32 prefill against the decode-only
-   loop over 2 x 256 tokens on a 4-layer cut at full width (1e-3 of the
+   loop over 2 x 128 tokens on a 4-layer cut at full width (1e-3 of the
    largest logit, K7's float32 route once a layer); a 2-layer float32 cut
    on the card and the CPU as in 9(d).  Full depth in float32 is left
    out: Qwen2.5-14B's float32 weights (about 59 GB) do not fit beside
@@ -178,19 +180,19 @@ Phases, in order; any failure makes the exit code nonzero:
    float32 route and 2 of K7's, and its ``--flip`` control above the
    bound; (b) bf16 at full depth, random weights: a prefill of 8 x 1024
    with exactly 54 K8 launches (bf16 route: the N 64 tensor-core kernel)
-   and 9 K7 launches (bf16 route at hd 80), 32 decode steps in its grown
+   and 9 K7 launches (bf16 route at hd 80), 8 decode steps in its grown
    nested cache launching neither, finite logits, tok/s and peak memory;
    (c) a 2-layer float32 cut with ``attn_every`` 1 (two applications of
    the shared block) on the card and the CPU as in 9(d);
 16. (run after 15, before 17) serve Granite-MoE-1B-A400M (the moe family:
    24 layers, d 1024, 16 / 8 x 64 heads, 32 experts, top 8, GShard
    capacity factor 1.25) at its published widths: (a) the serving
-   launcher's decode-only loop, 8 x 64 prompt tokens + 32, no K7 launch;
+   launcher's decode-only loop, 8 x 16 prompt tokens + 16, no K7 launch;
    (b) bf16 at full depth, random weights: a prefill of 8 x 1024 with
-   exactly 24 K7 launches (bf16 route), 32 decode steps in its grown
+   exactly 24 K7 launches (bf16 route), 8 decode steps in its grown
    cache launching none, finite logits, tok/s and peak memory; (c)
    float32 on a 6-layer cut through ``launch/prefill_gap.py --layers 6
-   --capacity-factor 8.0`` (drop-free on both sides) over 2 x 256 tokens
+   --capacity-factor 8.0`` (drop-free on both sides) over 2 x 128 tokens
    within 1e-3 of the largest logit, K7's float32 route once a layer,
    its ``--flip`` control above the bound; (d) ``torch.profiler`` splits
    of one prefill and one decode step by the moe module's functions
@@ -217,12 +219,12 @@ Phases, in order; any failure makes the exit code nonzero:
    a cut of the 3 dense and 2 MoE layers (5 of 61, about 53 GB; the
    published depth does not fit a card), weights drawn on the card: a
    prefill of 8 x 1024 at factor 1.25 with exactly one K7 launch (bf16
-   route) a layer, 32 decode steps (the absorbed latent attention) in its
+   route) a layer, 8 decode steps (the absorbed latent attention) in its
    grown latent cache launching none, tok/s and peak memory, and a
    ``torch.profiler`` split of the prefill (MLA projections, K7, the
    moe module's functions, the rest); (c) float32 prefill against the
    decode-only loop through ``launch/prefill_gap.py --layers 2`` (1 dense
-   + 1 MoE layer) over 2 x 256 tokens at the drop-free factor 32, within
+   + 1 MoE layer) over 2 x 128 tokens at the drop-free factor 32, within
    1e-3 of the largest logit, K7's float32 route once a layer, its
    ``--flip`` control (the last token changed) above 0.1; (d) the first
    dense MLA block at full
@@ -247,10 +249,10 @@ Phases, in order; any failure makes the exit code nonzero:
    peak memory, cache bytes; (c) Qwen2-VL-7B in bf16 at full depth (~7.6
    B parameters), 8 x 1024 embeddings at Qwen2-VL's M-RoPE image layout
    (128 text, a 24 x 32 grid of merged patches, 128 text): exactly 28 K7
-   launches a prefill, 32 decode steps on the generated tokens'
+   launches a prefill, 8 decode steps on the generated tokens'
    embeddings launching none, a ``torch.profiler`` split of the prefill
    by kind; (d) float32 prefill against the decode-only loop through
-   ``launch/prefill_gap.py`` over 2 x 256 positions (Whisper at full
+   ``launch/prefill_gap.py`` over 2 x 128 positions (Whisper at full
    depth with 1 500 frames, its loop's cross cache from a prefill over
    the first token; Qwen2-VL on a 4-layer cut at text-style positions),
    within 1e-3 of the largest logit, K7's float32 route the expected
@@ -286,7 +288,7 @@ Phases, in order; any failure makes the exit code nonzero:
    Zamba2-2.7B (6 layers) at full width with exact K7 / K8 and VJP
    launches; (e) every trained family's reduced config, float32, card
    against CPU: losses and gradients under AdamW, parameters after 3
-   SGD steps, within 1e-4; (f) ``train_lm_100m`` (220 steps; its loss
+   SGD steps, within 1e-4; (f) ``train_lm_100m`` (100 steps; its loss
    falls, the unigram-entropy floor beside) and ``whisper_vlm_smoke``;
 17. (run after 20, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
@@ -298,7 +300,7 @@ Phases, in order; any failure makes the exit code nonzero:
    world (``train_gnn.run_world``: gloo, CUDA tensors staged through
    pinned host buffers) runs every job in turn: (a) ``--devices 4 --mode
    pull`` (twice: bitwise equal), ``push``, ``stale`` and ``hysync`` (S 3),
-   10 AdamW epochs each: pull against phase 6's GCN, the other modes
+   ``TRAIN_EPOCHS`` AdamW epochs each: pull against phase 6's GCN, the other modes
    against pull (the first 4 losses within 1e-4, the parameters within
    ``DIST_ADAMW_PARAM_TOL``), beside float32's own error (phase 6's run
    and pull against the same GCN in float64 through the plain versions
@@ -313,7 +315,7 @@ Phases, in order; any failure makes the exit code nonzero:
    ``allreduce_update`` within 1e-5; (d) ``--fullgraph`` at S 0, 1, 4
    (fp32) and S 1 (int8): bytes per step fall with S, int8 moves
    at most 0.35 of fp32's within 5 % of its loss, every rank's ghost
-   planes bitwise equal; phase 11(d)'s 2 000 events folded over 5
+   planes bitwise equal; phase 11(d)'s 1 000 events folded over 5
    epochs; (e) ms an epoch split into the collectives (staging + gloo
    wait) and the rest, CUDA-event spans, bytes a rank an epoch; K1 and
    K1ᵀ at rank 0's pull (N_pad → n_local) and push (n_local → N_pad)
@@ -322,17 +324,24 @@ Phases, in order; any failure makes the exit code nonzero:
 The last lines are the card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}`` JSON line, and
 ``{"ok": true, "device": {...}}``.  Exits nonzero, printing no result,
-when CUDA is not available.
+when CUDA is not available.  A deadline (``DEADLINE_S``, below the
+1 200 s a run may take) stops a run that overruns or hangs: it prints
+the phase in progress, the seconds of every phase so far and every
+thread's stack, stops the processes the run started and exits nonzero
+(``arm_deadline``).
 """
 from __future__ import annotations
 
+import faulthandler
 import functools
 import json
 import os
 import re
 import shutil
 import subprocess
+import signal
 import sys
+import threading
 import time
 import traceback
 
@@ -345,7 +354,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12           # float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # bf16 tensor cores, dense
 TF32_FLOPS_PER_S = 495e12          # TF32 tensor cores, dense
-REPS = 25
+# launches a timed median takes (cut from 25 to 7 for the 900 s budget,
+# PERF.md section 7)
+REPS = 7
 # GraphSAGE at Reddit's published widths (Hamilton et al. 2017 regime,
 # hidden 256 as in PyG's examples/reddit.py); fanouts innermost first
 NODES, CLASSES, FEAT, HIDDEN, FANOUTS = 232965, 41, 602, 256, (10, 25)
@@ -357,7 +368,10 @@ GAT_HEADS, GAT_CLASSES = 4, 40
 SERVED = (("sage", CLASSES, {"gather_scale_segment_sum": 2}),
           ("gin", CLASSES, {"segment_sum": 2, "gather_rows": 2}),
           ("gat", GAT_CLASSES, {"gat_attention": 2}))
-TRAIN_EPOCHS = 10
+# full-batch epochs: phase 6's runs and everything held to them (11b's
+# packed runs, 14's distributed modes, faults, P3 and mini-batch parity
+# runs); cut from 10 to 5 for time (PERF.md section 7)
+TRAIN_EPOCHS = 5
 # the kernel launches of one full-batch training step (2 layers), by
 # design: a backward runs only what needs_input_grad asks for (layer 0's
 # input features carry no gradient, so SAGE and GIN skip that transpose)
@@ -377,13 +391,22 @@ MB_BATCH = 1024
 # phase 7's runs and phase 11(e)'s layer-wise samplers: a fixed number of
 # steps (reduced from the epoch's 227 for time: int8's steps are 0.37-0.46
 # s of host encoding; cut to 60, then 40, then 30 as phases 16-18 came,
-# then 15 for phase 20, PERF.md section 7)
-MB_STEPS = 15
+# then 15 for phase 20, then 10, PERF.md section 7): the mean of the last
+# 5 losses still falls below that of the first 5
+MB_STEPS = 10
 
 failures: list = []
 # seconds each phase took, by name (written to chiprun_out/chip_smoke.json
 # and printed before the last lines)
 PHASE_SECONDS: dict = {}
+# the phases in progress, outermost first, with their start times: what
+# the deadline names when it fires
+CURRENT_PHASE: list = []
+# a run stops itself this many seconds after main() starts, below the
+# 1 200 s it may take; the stack dump without the GIL follows
+# DEADLINE_BACKSTOP_S later (a thread blocked in a CUDA call holding it)
+DEADLINE_S = 1120.0
+DEADLINE_BACKSTOP_S = 15.0
 # phase 6's trained SAGE and GAT with their graphs: phase 11b compares
 # the packed runs' predictions with them
 TRAINED: dict = {}
@@ -399,6 +422,7 @@ def phase(name):
         def run(*a, **kw):
             print(f"== {name}", flush=True)
             t0 = time.perf_counter()
+            CURRENT_PHASE.append((name, t0))
             try:
                 return fn(*a, **kw)
             except Exception:
@@ -407,11 +431,69 @@ def phase(name):
                 print(f"FAILED: {name}", flush=True)
                 return None
             finally:
+                CURRENT_PHASE.remove((name, t0))
                 secs = time.perf_counter() - t0
                 PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + secs
                 print(f"   ({secs:.1f} s)", flush=True)
         return run
     return wrap
+
+
+def _child_pids(pid: int) -> list:
+    """Every descendant of ``pid``, children first, from /proc (empty
+    where the kernel lists no children)."""
+    out = []
+    try:
+        tasks = os.listdir(f"/proc/{pid}/task")
+    except OSError:
+        return out
+    for tid in tasks:
+        try:
+            with open(f"/proc/{pid}/task/{tid}/children") as f:
+                kids = [int(c) for c in f.read().split()]
+        except (OSError, ValueError):
+            continue
+        for c in kids:
+            out.append(c)
+            out.extend(_child_pids(c))
+    return out
+
+
+def _deadline_fired(seconds: float) -> None:
+    """The deadline: name the phase in progress and the seconds so far,
+    dump every thread's stack, kill the processes this run started, and
+    exit nonzero without the result lines."""
+    now = time.perf_counter()
+    running = [f"{name} ({now - t0:.1f} s in)" for name, t0 in CURRENT_PHASE]
+    print(f"DEADLINE: chip_smoke.py ran out of its {seconds:.0f} s; phase in "
+          f"progress: {'; '.join(running) or 'none (between phases)'}",
+          flush=True)
+    print("phase seconds so far: " + json.dumps(
+        {k.split(" ")[0]: round(v, 1) for k, v in PHASE_SECONDS.items()}),
+        flush=True)
+    faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+    sys.stdout.flush()
+    for pid in _child_pids(os.getpid()):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    os._exit(1)
+
+
+def arm_deadline(seconds: float = DEADLINE_S,
+                 backstop: float = DEADLINE_BACKSTOP_S):
+    """Stop the run ``seconds`` from now (``_deadline_fired``, on a timer
+    thread); ``backstop`` seconds later faulthandler dumps every stack and
+    exits nonzero on its own thread, without the GIL, in case a thread
+    holds it in a call that never returns.  Returns the timer (``cancel``
+    it, and ``faulthandler.cancel_dump_traceback_later()``, to disarm)."""
+    timer = threading.Timer(seconds, _deadline_fired, args=(seconds,))
+    timer.daemon = True
+    timer.start()
+    faulthandler.dump_traceback_later(seconds + backstop, exit=True,
+                                      file=sys.stdout)
+    return timer
 
 
 def require(ok: bool, what: str) -> None:
@@ -572,8 +654,12 @@ def phase_build(torch, results):
     from repro_torch.kernels import build
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    out_dir, seconds, logs = build.build()
+    out_dir, seconds, logs, nvcc_seconds = build.build()
     print(f"   kernels built in {seconds:.1f} s -> {out_dir}")
+    # each source's nvcc in parallel: the build takes the slowest one's
+    print("   nvcc seconds per library: " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(nvcc_seconds.items())}),
+        flush=True)
     ptxas: dict = {}
     for name, log in logs.items():
         fn = name
@@ -587,25 +673,33 @@ def phase_build(torch, results):
                 ptxas.setdefault(fn, []).append(line.strip())
     # every K7 kernel (bf16 and float32, six tile width pairs each), K8's
     # bf16 kernels (N 64 and 128) and its float32 kernel (both widths, 64
-    # state columns a block), K7's bf16 VJP (dq and dk/dv at six tile
-    # width pairs) and K8's VJP tile kernel (N 64 and 128, bf16 and
-    # float32) run on the tensor cores: their SASS holds HGMMA, and ptxas
-    # spills nothing in them
+    # state columns a block), K7's VJP (dq and dk/dv at six tile width
+    # pairs, bf16 and float32) and K8's VJP tile kernel (N 64 and 128,
+    # bf16 and float32) run on the tensor cores: their SASS holds HGMMA,
+    # and ptxas spills nothing in them
+    # (one cuobjdump a library, side by side)
+    from concurrent.futures import ThreadPoolExecutor
+    libs = ("flash_attention", "ssd_chunk", "flash_attention_bwd",
+            "flash_attention_bwd_tf32", "ssd_chunk_bwd")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        counted = list(pool.map(lambda lib: sass_counts(
+            out_dir / f"lib{lib}.so", "HGMMA"), libs))
     hgmma = {}
-    for lib in ("flash_attention", "ssd_chunk", "flash_attention_bwd",
-                "ssd_chunk_bwd"):
-        hgmma.update(sass_counts(out_dir / f"lib{lib}.so", "HGMMA"))
+    for c in counted:
+        hgmma.update(c)
     print("   HGMMA instructions per K7 and K8 kernel and VJP kernel "
           "(cuobjdump -sass): " + json.dumps(hgmma), flush=True)
-    results["build"] = {"seconds": seconds, "ptxas": ptxas, "hgmma": hgmma}
+    results["build"] = {"seconds": seconds, "nvcc_seconds": nvcc_seconds,
+                        "ptxas": ptxas, "hgmma": hgmma}
     tc = {k: n for k, n in hgmma.items()
           if k.startswith(("flash_fwd", "ssd_state_wgmma", "ssd_state_tf32",
                            "flash_bwd_dq_wgmma", "flash_bwd_dkdv_wgmma",
+                           "flash_bwd_dq_tf32", "flash_bwd_dkdv_tf32",
                            "ssd_bwd_wgmma"))}
-    require(len(tc) == 31 and all(tc.values()),
+    require(len(tc) == 43 and all(tc.values()),
             f"HGMMA in each of the twelve K7 kernels, K8's two bf16 kernels "
-            f"and its float32 kernel, the twelve bf16 K7 VJP kernels and "
-            f"K8's four VJP tile kernels: {tc}")
+            f"and its float32 kernel, the twelve bf16 and twelve float32 "
+            f"K7 VJP kernels and K8's four VJP tile kernels: {tc}")
     spills = {k: v for k, v in ptxas.items() if k in tc and any(
         re.search(r"[1-9]\d* bytes spill", line) for line in v)}
     require(not spills, f"no ptxas spills in the tensor-core kernels: "
@@ -654,26 +748,26 @@ def phase_build(torch, results):
             f"every K8 width runs on a built tensor-core instance with "
             f"HGMMA and no spills: {k8}")
     # the VJPs' plans: K7's two kernels at every width pair in both dtypes
-    # (bf16: the tensor-core instance each runs on, hd 80 on the hd-96
-    # one), K8's at each width it takes at Mamba2's, Zamba2's and the
-    # reduced configs' training shapes, in both dtypes
-    lib_bwd = build.library("flash_attention_bwd")
+    # (the tensor-core instance each runs on, hd 80 on the hd-96 one, and
+    # its library's shared memory beside the plan's), K8's at each width it
+    # takes at Mamba2's, Zamba2's and the reduced configs' training shapes,
+    # in both dtypes
     for hd, hd_v in fa.WIDTH_PAIRS:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, 1, 64, hd, dtype=dtype)
             plan = fa.bwd_launch_plan(q, q, torch.zeros(1, 1, 64, hd_v,
                                                         dtype=dtype))
-            bf = int(dtype == torch.bfloat16)
+            lib_bwd = build.library(plan["library"])
             for which, key in ((0, "smem_dq"), (1, "smem_dkdv")):
-                smem[f"flash_attention_bwd[{hd}, {hd_v}, {key}, {dtype}]"] = (
+                smem[f"{plan['library']}[{hd}, {hd_v}, {key}]"] = (
                     plan[key],
-                    lib_bwd.flash_attention_bwd_smem(hd, hd_v, which, bf))
-            if bf:
-                for kern in plan["kernels"]:
-                    inst = (f"{kern}[{plan['tile_width']},"
-                            f"{plan['tile_width_v']}]")
-                    instances[f"VJP ({hd}, {hd_v}) {kern}"] = (
-                        inst, hgmma.get(inst, 0))
+                    getattr(lib_bwd, f"{plan['library']}_smem")(hd, hd_v,
+                                                                which))
+            for kern in plan["kernels"]:
+                inst = (f"{kern}[{plan['tile_width']},"
+                        f"{plan['tile_width_v']}]")
+                instances[f"VJP ({hd}, {hd_v}) {kern}"] = (
+                    inst, hgmma.get(inst, 0))
     for (P, N), (C, L, H) in (((64, 128), (8, 256, 48)),
                               ((64, 64), (8, 256, 80)),
                               ((32, 16), (64, 16, 16))):
@@ -695,7 +789,7 @@ def phase_build(torch, results):
     require(all(i in tc and i not in spills
                 for key, (i, _) in {**instances, **k8}.items()
                 if key.startswith("VJP")),
-            f"every bf16 K7 VJP pair and K8 VJP width runs on a built "
+            f"every K7 VJP pair and K8 VJP width runs on a built "
             f"tensor-core instance with HGMMA and no spills: "
             f"{instances} {k8}")
     results["build"]["smem_plan_vs_library"] = smem
@@ -704,10 +798,15 @@ def phase_build(torch, results):
 
 
 def reddit_graph(classes=CLASSES):
-    """The graph ``train_gnn``/``serve_gnn`` make at Reddit's widths."""
-    from repro_torch.graph import generators as G
-    g = G.sbm(NODES, classes, p_in=0.9, p_out=0.02, seed=0)
-    return G.featurize(g, FEAT, seed=0, class_sep=1.5)
+    """The graph ``train_gnn``/``serve_gnn`` make at Reddit's widths,
+    through their ``load_graph``: the launches of later phases at these
+    widths reuse it (made once a process, ~7 s on the card's host)."""
+    import argparse
+
+    from repro_torch.launch.train_gnn import load_graph
+    return load_graph(argparse.Namespace(dataset=None, nodes=NODES,
+                                         classes=classes, feat_dim=FEAT,
+                                         seed=0))
 
 
 def sampled_blocks(g, fanouts, seed=0):
@@ -1714,13 +1813,14 @@ REORDER_CASES = ("k1.full.602", f"k1.full.{HIDDEN}", f"k1.full.{CLASSES}",
                  f"gat_attention.full.{GAT_HEADS}x{HIDDEN // GAT_HEADS}",
                  "gat_backward", "gather_rows.602")
 # the events of phase 11(d)'s stream (half feature rows, the rest edge
-# additions and removals)
-UPDATE_EVENTS = 2000
+# additions and removals; cut from 2 000 for the 900 s budget)
+UPDATE_EVENTS = 1000
 # ImportanceSampler walks 8 x 2 steps in Python per destination (about
 # 0.9-2.8 s a batch of 1024 on a CPU core): phase 11(e) runs it one epoch
-# over a 32nd of the nodes (a 16th before phase 20), at the same widths
-# and degree
-IMPORTANCE_NODES = NODES // 32
+# over 6 batches of nodes (a 16th of the nodes before phase 20, a 32nd, 7
+# batches, before the 900 s budget), at the same widths and degree: the
+# first 5 batches' mean loss and the last 5's still differ
+IMPORTANCE_NODES = 6 * MB_BATCH
 
 
 def packed(g):
@@ -2340,18 +2440,28 @@ ZOO = ("qwen2.5-14b", "gemma-7b", "glm4-9b")
 # depth, about 59 GB, do not fit beside the rest)
 ZOO_FP32_LAYERS = 4
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+# the serving launcher's decode-only loop (9(a), 10(a), 16(a), 18(e)):
+# prompt tokens and generated tokens a sequence (cut from 64 + 32 for
+# time, PERF.md section 7: each token is one host-bound step of the loop)
+SERVE_PROMPT, SERVE_GEN = 16, 16
+# the decode steps timed after each full-depth bf16 prefill (9(b), 10(b),
+# 13, 15, 16, 18, 19(b); cut from LM_GEN's 32 for time, PERF.md section
+# 7); the caches keep room for LM_GEN, whose last position the kernel
+# cases at decode shapes (Skv LM_PROMPT + LM_GEN) stand for
+LM_DECODE = 8
 # phases 15 and 16 hold prefill against the decode-only loop over the
 # first LM_CMP_PROMPT positions of their prompts, through a prefill of
 # that length: two of Zamba2's 256-position SSD chunks, so the state
 # passed between chunks is checked, and four of K7's 128-key tiles, at
 # half the decode steps of the whole prompt
 LM_CMP_PROMPT = 512
-# phase 13 compares over 256 positions (two of K7's key tiles), phases 9
-# and 10 over 128 (one key tile; half of Mamba2's SSD chunk: phase 15
-# checks the state passed between chunks, phase 8 K7's walk over many
-# tiles), for time (cut from 1024 to 512, 256 and 128 as phases 15-18
-# came, PERF.md section 7)
-LM_CMP_BY_ARCH = {PHI3: 128, MAMBA2: 128, **{a: 256 for a in ZOO}}
+# phase 13 compares over 128 positions (one of K7's bf16 key tiles, four
+# of its float32 ones), phase 10 over 128 (half of Mamba2's SSD chunk:
+# phase 15 checks the state passed between chunks, phase 8 K7's walk over
+# many tiles), phase 9 over 64 (two float32 key tiles), for time (cut
+# from 1024 to 512, 256 and 128 as phases 15-18 came, then 13's and 9's
+# halved again for the 900 s budget, PERF.md section 7)
+LM_CMP_BY_ARCH = {PHI3: 64, MAMBA2: 128, **{a: 128 for a in ZOO}}
 # the configs phases 9 and 10 serve: empty, the published ones (32 and 48
 # layers, one K7 or K8 launch each per prefill).  A rehearsal off the card
 # puts small configs here and cuts LM_BATCH, LM_PROMPT, LM_GEN; the
@@ -2394,9 +2504,11 @@ BF16_ULP_REL, BF16_ATOL_REL, BF16_P_REL = 2.0 ** -7, 1e-5, 2.0 ** -8
 LM_FP32_REL = {PHI3: 1e-3, MAMBA2: 3e-3, ZAMBA2: 3e-3}
 LM_BF16_RMS = {PHI3: 0.1, MAMBA2: 0.6}
 # the 2-layer float32 cut on the card and the CPU: (batch, tokens); Mamba2
-# takes two SSD chunks of 256
-LM_CUT = {PHI3: (2, 256), MAMBA2: (2, 512), ZAMBA2: (2, 512),
-          **{a: (2, 256) for a in ZOO}}
+# takes two SSD chunks of 256; the attention models four of K7's float32
+# 32-key tiles (cut from 256 for time: the CPU side took 20-27 s at
+# phase 13's widths, PERF.md section 7)
+LM_CUT = {PHI3: (2, 128), MAMBA2: (2, 512), ZAMBA2: (2, 512),
+          **{a: (2, 128) for a in ZOO}}
 # phase 15: Zamba2-2.7B's float32 prefill against the decode-only loop on
 # a cut of this many layers at full width (two groups of 6, so two
 # applications of the shared block); Zamba2's paths hold Mamba2's bound
@@ -2823,7 +2935,7 @@ def lm_phase(torch, arch, results):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = serve.run(["--arch", arch, "--batch", str(LM_BATCH),
-                     "--prompt-len", "64", "--gen", "32"]
+                     "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
                     + (["--reduced"] if arch in LM_CONFIGS else []))
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     out["serve"] = {"prefill_tok_s": res["prefill_tok_s"],
@@ -2832,9 +2944,10 @@ def lm_phase(torch, arch, results):
                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
                     "first_tokens": res["tokens"][0, :8].tolist()}
     print(f"   (a) launch.serve (the loop serve.main runs), decode-only, "
-          f"{LM_BATCH} x 64 prompt tokens + 32: "
+          f"{LM_BATCH} x {SERVE_PROMPT} prompt tokens + {SERVE_GEN}: "
           + json.dumps(out["serve"]), flush=True)
-    require(res["tokens"].shape == (LM_BATCH, 32), "32 tokens per sequence")
+    require(res["tokens"].shape == (LM_BATCH, SERVE_GEN),
+            f"{SERVE_GEN} tokens per sequence")
     require(bool(torch.isfinite(res["logits"].float()).all()),
             "finite decode logits")
     require(not counts, f"the decode-only loop launches no kernel: {counts}")
@@ -2886,7 +2999,7 @@ def lm_phase(torch, arch, results):
         finite = bool(torch.isfinite(logits.float()).all())
         tok = torch.argmax(logits[:, :V], -1)[:, None]
         t0 = time.perf_counter()
-        for i in range(LM_GEN):
+        for i in range(LM_DECODE):
             logits, cache = M.decode_step(cfg, params, cache,
                                           {"token": tok,
                                            "pos": LM_PROMPT + i})
@@ -2897,29 +3010,29 @@ def lm_phase(torch, arch, results):
         counts = {k: v for k, v in ops.launch_counts().items() if v}
         results[f"launches.lm.{arch}"] = counts
         out["prefill"] = {
-            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_DECODE,
             "prefill_ms": t_prefill * 1e3,
             "prefill_tok_s": LM_BATCH * LM_PROMPT / t_prefill,
-            "decode_ms_per_step": t_decode / LM_GEN * 1e3,
-            "decode_tok_s": LM_BATCH * LM_GEN / t_decode,
+            "decode_ms_per_step": t_decode / LM_DECODE * 1e3,
+            "decode_tok_s": LM_BATCH * LM_DECODE / t_decode,
             "max_memory_allocated": max(peak_prefill,
                                         torch.cuda.max_memory_allocated()),
             "cache_bytes": cache_bytes(cache),
             "launches": counts}
-        print(f"   (b) prefill {LM_BATCH} x {LM_PROMPT}, then {LM_GEN} "
+        print(f"   (b) prefill {LM_BATCH} x {LM_PROMPT}, then {LM_DECODE} "
               f"decode steps: " + json.dumps(out["prefill"]), flush=True)
         print(f"   prefill {out['prefill']['prefill_tok_s']:.0f} tok/s; PR "
               f"14's run (PERF.md): {EARLIER_PREFILL_TOK_S[arch]:.0f} tok/s",
               flush=True)
         require(finite, "finite prefill and decode logits")
-        require(counts == {key: nl}, f"one prefill and {LM_GEN} decode "
+        require(counts == {key: nl}, f"one prefill and {LM_DECODE} decode "
                 f"steps launch {key} exactly {nl} times: {counts}")
         # the last decode step again (it rewrites its own cache slot)
         out["profile_decode"] = lm_profile(
             torch, "one decode step", lambda: M.decode_step(
                 cfg, params, cache, {"token": tok,
-                                     "pos": LM_PROMPT + LM_GEN - 1}),
-            t_decode / LM_GEN)
+                                     "pos": LM_PROMPT + LM_DECODE - 1}),
+            t_decode / LM_DECODE)
         del cache
         lg_cmp, _ = M.prefill(cfg, params, {"tokens": cmp})
         g = gap(lg_cmp[:, :V], decode_loop(cfg, params, cmp)[:, :V])
@@ -3007,7 +3120,7 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
         tok = torch.argmax(logits[:, :V], -1)[:, None]
         steps = []
         t0 = time.perf_counter()
-        for i in range(LM_GEN):
+        for i in range(LM_DECODE):
             ops.reset_launch_counts()
             logits, cache = M.decode_step(cfg, params, cache,
                                           dict(step(tok), pos=S + i))
@@ -3019,18 +3132,18 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
         finite = finite and bool(torch.isfinite(logits.float()).all())
         results[f"launches.lm_decode.{arch}"] = steps[-1]
         out = {
-            "batch": B, "prompt": S, "gen": LM_GEN,
+            "batch": B, "prompt": S, "gen": LM_DECODE,
             "params": M.param_count(params),
             "prefill_ms": t_prefill * 1e3,
             "prefill_tok_s": B * S / t_prefill,
-            "decode_ms_per_step": t_decode / LM_GEN * 1e3,
-            "decode_tok_s": B * LM_GEN / t_decode,
+            "decode_ms_per_step": t_decode / LM_DECODE * 1e3,
+            "decode_tok_s": B * LM_DECODE / t_decode,
             "max_memory_allocated": max(peak_prefill,
                                         torch.cuda.max_memory_allocated()),
             "cache_bytes": cache_bytes(cache),
             "launches": counts, "launches_per_decode_step": steps[-1]}
         print(f"   (b) bf16, {cfg.num_layers} layers: prefill {B} x {S}, "
-              f"then {LM_GEN} decode steps: " + json.dumps(out), flush=True)
+              f"then {LM_DECODE} decode steps: " + json.dumps(out), flush=True)
         require(finite, "finite prefill and decode logits")
         require(counts == expected and all(
             c == decode_expected for c in steps),
@@ -3046,7 +3159,7 @@ def serve_full_depth(torch, cfg, arch, prompts, expected, results, *,
 def zoo_phase(torch, arch, results):
     """One of phase 13's dense configs: (a) float32 at full width on a
     ZOO_FP32_LAYERS-layer cut, prefill against the decode-only loop over
-    2 x 256 tokens within 1e-3 of the largest logit, K7's
+    2 x 128 tokens within 1e-3 of the largest logit, K7's
     float32 route once a layer;
     (b) bf16 at full width and depth (``serve_full_depth``): K7's bf16
     route exactly once a layer in a prefill; (c) a 2-layer float32 cut on
@@ -3172,9 +3285,10 @@ GRANITE_FREE_CF = 8.0
 # each of its two runs (prefill and 512 decode steps) took 29 s, and 12
 # layers still put chip_smoke.py at 957 s (PR 24)
 GRANITE_FP32_LAYERS = 6
-# and over 2 x GRANITE_CMP_PROMPT tokens (two of K7's key tiles; cut
-# from LM_CMP_PROMPT's 512 for phase 18's time)
-GRANITE_CMP_PROMPT = 256
+# and over 2 x GRANITE_CMP_PROMPT tokens (one of K7's bf16 key tiles,
+# four float32 ones; cut from LM_CMP_PROMPT's 512 for phase 18's time,
+# then from 256 for the 900 s budget)
+GRANITE_CMP_PROMPT = 128
 # 16(f), in phase 14's world: one Granite MoE block, 8 x 1024 tokens in
 # float32, its 32 experts split over the ranks
 EP_BATCH, EP_SEQ = 8, 1024
@@ -3185,7 +3299,7 @@ MOE_REGIONS = {"route": "router, softmax, top-k",
                "expert_ffn": "expert products",
                "combine": "combine (gather back, weighted sum)"}
 LM_FP32_REL[GRANITE] = 1e-3
-LM_CUT[GRANITE] = (2, 256)
+LM_CUT[GRANITE] = (2, 128)
 
 
 def moe_profile(torch, label, step, wall_s, regions=None) -> dict:
@@ -3346,16 +3460,18 @@ def phase_granite(torch, results):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = serve.run(["--arch", GRANITE, "--batch", str(LM_BATCH),
-                     "--prompt-len", "64", "--gen", "32"] + reduced)
+                     "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)] + reduced)
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     out["serve"] = {"prefill_tok_s": res["prefill_tok_s"],
                     "decode_tok_s": res["decode_tok_s"],
                     "params": res["params"], "launches": counts,
                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
                     "first_tokens": res["tokens"][0, :8].tolist()}
-    print(f"   (a) launch.serve, decode-only, {LM_BATCH} x 64 prompt tokens "
-          f"+ 32: " + json.dumps(out["serve"]), flush=True)
-    require(res["tokens"].shape == (LM_BATCH, 32), "32 tokens per sequence")
+    print(f"   (a) launch.serve, decode-only, {LM_BATCH} x {SERVE_PROMPT} "
+          f"prompt tokens + {SERVE_GEN}: " + json.dumps(out["serve"]),
+          flush=True)
+    require(res["tokens"].shape == (LM_BATCH, SERVE_GEN),
+            f"{SERVE_GEN} tokens per sequence")
     require(bool(torch.isfinite(res["logits"].float()).all()),
             "finite decode logits")
     require(not counts, f"the decode-only loop launches no kernel: {counts}")
@@ -3376,7 +3492,7 @@ def phase_granite(torch, results):
             "decode": moe_profile(
                 torch, "one decode step", lambda: M.decode_step(
                     cfg, params, cache, {"token": tok,
-                                         "pos": LM_PROMPT + LM_GEN - 1}),
+                                         "pos": LM_PROMPT + LM_DECODE - 1}),
                 served["decode_ms_per_step"] / 1e3)}
 
     out["prefill"] = serve_full_depth(
@@ -3440,15 +3556,15 @@ DSV3 = "deepseek-v3-671b"
 # about 1.3 TB in bf16, does not fit a card)
 DSV3_LAYERS = 5
 # 18(c): float32 prefill against the decode-only loop on a cut of 1 dense
-# + 1 MoE layer (about 55 GB), over 2 x 256 tokens at the drop-free
-# factor E/k = 32 (a prefill's one group of 512 tokens has C = 512, its
-# float32 expert buffers about 11 GB); the control, the decode loop
-# reading the prompt's last token changed, must move the logits by more
-# than DSV3_FLIP_MIN of the largest (a token further back reaches the
-# last position only through two attention layers over 256 positions: 8
-# back, it moved a 1024-wide float32 cut's logits by 0.14 of the largest
-# on a CPU, too near the floor)
-DSV3_FP32_LAYERS, DSV3_CMP_PROMPT, DSV3_FREE_CF = 2, 256, 32.0
+# + 1 MoE layer (about 55 GB), over 2 x 128 tokens (cut from 256 for the
+# 900 s budget) at the drop-free factor E/k = 32 (a prefill's one group
+# of 256 tokens has C = 256); the control, the decode loop reading the
+# prompt's last token changed, must move the logits by more than
+# DSV3_FLIP_MIN of the largest (a token further back reaches the last
+# position only through two attention layers: 8 back, it moved a
+# 1024-wide float32 cut's logits by 0.14 of the largest on a CPU, too
+# near the floor)
+DSV3_FP32_LAYERS, DSV3_CMP_PROMPT, DSV3_FREE_CF = 2, 128, 32.0
 DSV3_FLIP_MIN = 0.1
 LM_FP32_REL[DSV3] = 1e-3
 # 18(d): the first dense MLA block at full width in float32 on the card and
@@ -3642,14 +3758,16 @@ def phase_deepseek(torch, results):
     # (e) the serving launcher's decode-only loop at the reduced config
     ops.reset_launch_counts()
     res = serve.run(["--arch", DSV3, "--reduced", "--batch", str(LM_BATCH),
-                     "--prompt-len", "64", "--gen", "32"])
+                     "--prompt-len", str(SERVE_PROMPT), "--gen", str(SERVE_GEN)])
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     out["serve_reduced"] = {"prefill_tok_s": res["prefill_tok_s"],
                             "decode_tok_s": res["decode_tok_s"],
                             "params": res["params"], "launches": counts}
-    print(f"   (e) launch.serve --reduced, decode-only, {LM_BATCH} x 64 + "
-          f"32: " + json.dumps(out["serve_reduced"]), flush=True)
-    require(res["tokens"].shape == (LM_BATCH, 32), "32 tokens per sequence")
+    print(f"   (e) launch.serve --reduced, decode-only, {LM_BATCH} x "
+          f"{SERVE_PROMPT} + {SERVE_GEN}: " + json.dumps(out["serve_reduced"]),
+          flush=True)
+    require(res["tokens"].shape == (LM_BATCH, SERVE_GEN),
+            f"{SERVE_GEN} tokens per sequence")
     require(bool(torch.isfinite(res["logits"].float()).all()),
             "finite decode logits")
     require(not counts, f"the decode-only loop launches no kernel: {counts}")
@@ -3668,11 +3786,11 @@ WHISPER_ENC_LEN, WHISPER_PROMPT = 1500, 224
 # 19(c): Qwen2-VL's M-RoPE layout over LM_PROMPT positions: text tokens,
 # a grid of merged patches (rows x cols), text tokens
 QWEN2VL_LAYOUT = (128, 24, 32, 128)
-# 19(d): float32 prefill against the decode-only loop over 2 x 256
-# positions, Whisper at full depth, Qwen2-VL on a 4-layer cut at full
-# width; the control (the last token, or its embedding, changed) must
+# 19(d): float32 prefill against the decode-only loop over 2 x 128
+# positions (cut from 256 for the 900 s budget), Whisper at full depth,
+# Qwen2-VL on a 4-layer cut at full width; the control (the last token, or its embedding, changed) must
 # lie above ENCDEC_VLM_FLIP_FACTOR times the gap and above the bound
-ENCDEC_VLM_CMP, QWEN2VL_FP32_LAYERS, ENCDEC_VLM_FLIP_FACTOR = 256, 4, 100.0
+ENCDEC_VLM_CMP, QWEN2VL_FP32_LAYERS, ENCDEC_VLM_FLIP_FACTOR = 128, 4, 100.0
 LM_FP32_REL[WHISPER] = LM_FP32_REL[QWEN2VL] = 1e-3
 # 19(e): Qwen2-VL's first block on the card and the CPU in float32, under
 # this M-RoPE layout (32 text, a 12 x 16 grid, 32 text: 256 positions)
@@ -4067,7 +4185,7 @@ DIST_ASYNC = (("async_s0", ["--staleness", "0"]),
                                  "int8"]))
 # the update-stream run: phase 11(d)'s stream in 4 folds over 5 epochs
 DIST_STREAM_EPOCHS, DIST_STREAM_PER_EPOCH = 5, 500
-# Parameters after 10 AdamW epochs: AdamW divides each gradient element
+# Parameters after TRAIN_EPOCHS AdamW epochs: AdamW divides each gradient element
 # by its own running magnitude, so a nearly cancelled element moves by
 # far more than its rounding, and another order of summation over 233 k
 # rows moves the parameters by float32's own error on the problem.
@@ -4080,8 +4198,9 @@ DIST_STREAM_EPOCHS, DIST_STREAM_PER_EPOCH = 5, 500
 DIST_ADAMW_PARAM_TOL, DIST_SGD_TOL, DIST_LOSS_TOL = 1e-3, 1e-5, 1e-4
 DIST_SGD_LR = 0.1
 # the SGD parity runs take this many steps (cut from 10 for phase 18's
-# time; stale and hysync still read a 3-step-old snapshot)
-DIST_SGD_STEPS = 5
+# time, then from 5 for the 900 s budget; stale and hysync still read a
+# 3-step-old snapshot)
+DIST_SGD_STEPS = 4
 DIST_SGD_MODES = ("pull", "push", "stale", "hysync", "async_s0")
 # pull with a fault put in for one job: every all-gathered row rounded
 # to bf16 (straight-through), or the last rank's gradient left out of
@@ -4612,8 +4731,8 @@ def _dist_minibatch_checks(torch, g, g_gat, out, results):
                 require(rr[name]["launches"] == want, f"{name} rank {r}: "
                         f"launches {rr[name]['launches']}, by design {want}")
     results["dist.mb_parity"] = diffs
-    print("   minibatch, 10 steps, parameters vs the single card: "
-          + json.dumps(diffs), flush=True)
+    print(f"   minibatch, {TRAIN_EPOCHS} steps, parameters vs the single "
+          f"card: " + json.dumps(diffs), flush=True)
     for arch in DIST_MB_ARCHS:
         d = diffs[f"{arch}/sgd"]
         if d > DIST_SGD_TOL:
@@ -4818,8 +4937,8 @@ def phase_distributed(torch, g, g_gat, results):
                  "pull_vs_float64": _dist_params_diff(pull["params"], exact),
                  "float64_s": time.perf_counter() - t0}
         results["dist.float32_floor"] = floor
-        print("   float32's own error, parameters after 10 AdamW epochs: "
-              + json.dumps(floor), flush=True)
+        print(f"   float32's own error, parameters after {TRAIN_EPOCHS} "
+              f"AdamW epochs: " + json.dumps(floor), flush=True)
     else:
         failures.append("14: phase 6's GCN is missing, pull not held to it")
     for name in ("push", "stale", "hysync", "async_s0"):
@@ -4832,8 +4951,9 @@ def phase_distributed(torch, g, g_gat, results):
     faults = {f: _dist_params_diff(out[f"fault_{f}"]["ranks"][0]["params"],
                                    pull["params"]) for f in DIST_FAULTS}
     results["dist.faults_vs_pull"] = faults
-    print("   AdamW, 10 epochs (pull vs phase 6's GCN, the others vs pull; "
-          "first 4 losses, parameters): " + json.dumps(adamw), flush=True)
+    print(f"   AdamW, {TRAIN_EPOCHS} epochs (pull vs phase 6's GCN, the "
+          f"others vs pull; first 4 losses, parameters): "
+          + json.dumps(adamw), flush=True)
     print("   pull with a fault, parameters vs pull: " + json.dumps(faults),
           flush=True)
     for name, (early, pdiff) in adamw.items():
@@ -5107,7 +5227,7 @@ def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
     version on the same inputs and output cotangent, on the views the
     model passes; the backward kernels bitwise repeatable on the saved
     tensors, and the Function's gradients bitwise theirs.  Timed: each
-    kernel alone (median of 25, L2 flushed) and both in one call, the
+    kernel alone (median of REPS, L2 flushed) and both in one call, the
     plain VJP and SDPA's backward (its backend named from the
     profile's kernels, else by the dispatcher's pick), beside each
     kernel's bound: dq needs the products S, dP and dS K, dk/dv S, dP,
@@ -5169,14 +5289,12 @@ def k7_bwd_case(torch, c, key, label, B, H, K, Sq, Skv, hd, hd_v, *,
         peak = BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S
         plan, _, args = fa._bwd_prepare(q, k, v, out, do, lse, causal,
                                         window, None)
-        fa._bwd_launch(fa.BWD_ENTRIES[0], plan["counters"][0], args)
-        for name, fn, counter, nbytes, flops in (
-                ("dq", fa.BWD_ENTRIES[0], plan["counters"][0], dq_bytes,
-                 2.0 * pairs * (2 * hd + hd_v)),
-                ("dkdv", fa.BWD_ENTRIES[1], plan["counters"][1], dkdv_bytes,
-                 2.0 * pairs * (2 * hd + 2 * hd_v))):
+        fa._bwd_launch(plan, 0, args)
+        for which, name, nbytes, flops in (
+                (0, "dq", dq_bytes, 2.0 * pairs * (2 * hd + hd_v)),
+                (1, "dkdv", dkdv_bytes, 2.0 * pairs * (2 * hd + 2 * hd_v))):
             res[f"{name}_ms"] = median_ms(
-                torch, functools.partial(fa._bwd_launch, fn, counter, args),
+                torch, functools.partial(fa._bwd_launch, plan, which, args),
                 c.flush)
             res[f"{name}_bound_ms"], res[f"{name}_bound_by"] = bound(
                 nbytes, flops, peak)
@@ -5401,7 +5519,10 @@ TRAIN_CUTS = tuple(
 TRAIN_PARITY = tuple((a, 2, 64) for a in (
     QWEN14, PHI3, "gemma-7b", "glm4-9b", GRANITE, MAMBA2, ZAMBA2))
 TRAIN_PARITY_STEPS = 3
-TRAIN_EXAMPLE_STEPS = 220
+# 20(f): train_lm_100m's steps (its default 300; cut from 220 to 60 for
+# time, PERF.md section 7: its loss falls from 9.5 to 6.8 by then, the
+# corpus's unigram entropy 6.5)
+TRAIN_EXAMPLE_STEPS = 60
 
 
 def train_kind(key: str) -> str:
@@ -5844,7 +5965,9 @@ def vjp_rows(results) -> list:
 
     from repro_torch.kernels import flash_attention as fa
     rows = []
-    k7_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    k7_src = {"bf16": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+              "float32":
+              "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32.cu"}
     k7_none = ("none: the reference differentiates L.attention "
                "(src/repro/models/transformer/layers.py:152) in XLA")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5867,7 +5990,7 @@ def vjp_rows(results) -> list:
                         else torch.float32)
         kernel = fa.bwd_launch_plan(z, z, z)["kernels"][part == "dkdv"]
         row = {"name": name, "kernel": kernel, "route": "cuda",
-               "source": k7_src, "replaces": k7_none,
+               "source": k7_src[dname], "replaces": k7_none,
                "launches": results.get(f"launches.train.{path}", {}).get(
                    name, 0),
                **part_of(results[f"k7_vjp.{main_key}.{dname}"])}
@@ -5913,6 +6036,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    deadline = arm_deadline()
     from repro_torch import device as D
     D.resolve("cuda")
     smi = nvidia_smi_line()
@@ -5976,6 +6100,8 @@ def main() -> int:
     print("phase seconds: " + json.dumps(
         {k.split(" ")[0]: round(v, 1) for k, v in PHASE_SECONDS.items()}),
         flush=True)
+    deadline.cancel()
+    faulthandler.cancel_dump_traceback_later()
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), flush=True)
         return 1

@@ -21,6 +21,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Tuple
 
@@ -61,13 +62,18 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _F, _I, _P],
         "flash_attention_smem": [_I, _I, _I],
     },
-    # K7's VJP: q, k, v, o, dO, lse, D, dq, dk, dv, strides, then B, H, K,
-    # Sq, Skv, hd, hd_v, causal, window, scale, is_bf16, stream
+    # K7's VJP, bf16 and float32 (TF32): q, k, v, o, dO, lse, D, dq, dk,
+    # dv, strides, then B, H, K, Sq, Skv, hd, hd_v, causal, window, scale,
+    # stream; the shared memory of a block at (hd, hd_v, dkdv)
     "flash_attention_bwd": {
-        "flash_attention_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
-        "flash_attention_bwd_dkdv": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
-        # hd, hd_v, dkdv, is_bf16
-        "flash_attention_bwd_smem": [_I, _I, _I, _I],
+        "flash_attention_bwd_dq": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "flash_attention_bwd_dkdv": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "flash_attention_bwd_smem": [_I, _I, _I],
+    },
+    "flash_attention_bwd_tf32": {
+        "flash_attention_bwd_tf32_dq": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "flash_attention_bwd_tf32_dkdv": [_P] * 11 + [_I] * 9 + [_F, _P],
+        "flash_attention_bwd_tf32_smem": [_I, _I, _I],
     },
     "ssd_chunk": {
         "ssd_chunk_state_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -107,16 +113,17 @@ def _build_dir() -> pathlib.Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Tuple[pathlib.Path, float, Dict[str, str]]:
+def build() -> Tuple[pathlib.Path, float, Dict[str, str], Dict[str, float]]:
     """Compile every source that is not built yet, all in parallel.
     Returns the build directory, the seconds the build took (0.0 when
-    every library was there) and nvcc's output per source (with ptxas's
-    register and spill report)."""
+    every library was there), nvcc's output per source (with ptxas's
+    register and spill report) and the seconds each source's nvcc ran
+    (from the common start to its exit)."""
     out_dir = _build_dir()
     todo = [n for n in sorted(SIGNATURES)
             if not (out_dir / f"lib{n}.so").exists()]
     if not todo:
-        return out_dir, 0.0, {}
+        return out_dir, 0.0, {}, {}
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -128,16 +135,28 @@ def build() -> Tuple[pathlib.Path, float, Dict[str, str]]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     failed = []
-    logs = {}
-    for name, (tmp, proc) in procs.items():
+    logs, nvcc_seconds = {}, {}
+
+    def drain(name, proc):
+        # one thread a source reads its output to the end (a full pipe
+        # would stall nvcc) and notes when it exits
         logs[name], _ = proc.communicate()
+        nvcc_seconds[name] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(name, proc))
+               for name, (_, proc) in procs.items()]
+    for th in readers:
+        th.start()
+    for th in readers:
+        th.join()
+    for name, (tmp, proc) in procs.items():
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{logs[name]}")
             continue
         os.replace(tmp, out_dir / f"lib{name}.so")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return out_dir, time.perf_counter() - t0, logs
+    return out_dir, time.perf_counter() - t0, logs, nvcc_seconds
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -145,7 +164,7 @@ def library(name: str) -> ctypes.CDLL:
     set, building every source first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        out_dir, _, _ = build()
+        out_dir = build()[0]
         for n, sigs in SIGNATURES.items():
             loaded = ctypes.CDLL(str(out_dir / f"lib{n}.so"))
             for fn, argtypes in sigs.items():

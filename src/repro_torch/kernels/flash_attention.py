@@ -27,11 +27,12 @@ and its MLA reaches ``L.attention`` in XLA, which reads hd_v from v.  ``scale`` 
 The VJP: :class:`FlashAttention` runs K7 with each row's log-sum-exp
 written beside the output (``return_lse``) and, in its backward,
 :func:`flash_attention_bwd_cuda`: two hand-written kernels
-(``csrc/flash_attention_bwd.cu``), dQ (which first writes D = <dO, o> a
-row) and then dK/dV, no atomics: in bf16 on the tensor cores (wgmma,
-TMA; P and dS rounded to bf16 for the accumulating products, as the
-forward rounds P), in float32 on the CUDA cores
-(:func:`bwd_launch_plan`).  They replace no TPU kernel: the reference
+(``csrc/flash_attention_bwd.cu``, ``csrc/flash_attention_bwd_tf32.cu``),
+dQ (which first writes D = <dO, o> a row) and then dK/dV, no atomics,
+both routes on the tensor cores (wgmma, TMA): bf16 with P and dS
+rounded to bf16 for the accumulating products, as the forward rounds P;
+float32 on TF32 hi/lo splits, three products each, as the forward's
+float32 route (:func:`bwd_launch_plan`).  They replace no TPU kernel: the reference
 trains through XLA's autodiff of
 ``L.attention``.  :func:`flash_attention_bwd_plain` is the same
 FlashAttention-2 formulas in PyTorch, in float32.  The raw
@@ -250,22 +251,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the VJP
 # ---------------------------------------------------------------------------
 
-#: the float32 backward kernels (CUDA cores): the walked tile (keys in dQ,
-#: queries in dK/dV), rows, and a block's threads
-BWD_WALK = 32
-BWD_THREADS = 256
-#: the bf16 backward kernels (tensor cores): rows of a consumer warpgroup,
-#: of a K/V tile (dQ) and of a walked Q/dO tile (dK/dV); a block's threads
-#: (a producer warpgroup and two consumer warpgroups)
+#: the backward kernels' rows: a consumer warpgroup's (bf16), a dQ block's
+#: and a dK/dV block's (float32); a block's threads (a producer warpgroup
+#: and two consumer warpgroups), but for the float32 dQ kernel's (a
+#: consumer warpgroup and a producer warp)
 BWD_TC_ROWS = 64
 BWD_TC_THREADS = 384
+BWD_TF32_DQ_THREADS = 160
 
 
 def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                     ) -> dict:
     """How :func:`flash_attention_bwd_cuda` launches K7's VJP on these
     tensors, on any device (pure Python: the CPU tests rehearse it).  A
-    width pair outside :data:`WIDTH_PAIRS` raises ``ValueError``.
+    width pair outside :data:`WIDTH_PAIRS` raises ``ValueError``.  Both
+    routes read q, k, v and the output cotangent through TMA maps on the
+    forward's tiles (``tile_width``: hd 80 on the hd-96 tiles): a
+    16-byte-aligned base and byte strides in multiples of 16, else
+    ``ValueError`` naming the tensor.  ``library`` and ``entries`` name
+    the built library and its two C entry points (dQ, then dK/dV);
+    ``smem_dq`` / ``smem_dkdv`` are what the kernels ask for, within
+    :data:`SMEM_PER_BLOCK`.
 
     bf16 (``route`` "wgmma"): ``flash_bwd_dq_wgmma_kernel`` over (H, B,
     query tiles of 128 rows, the last first), ``flash_bwd_dkdv_wgmma_kernel``
@@ -273,30 +279,28 @@ def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     issuing TMA, two consumer warpgroups of 64 rows); K/V tiles of 64 keys
     (dQ) and Q/dO tiles of 64 queries (dK/dV) in rings of ``stages_dq`` /
     ``stages_dkdv`` stages (dQ at width 256: 1, the only ring that would
-    not fit twice beside its 128-row Q and dO).  The tiles are the
-    forward's (``tile_width``: hd 80 on the hd-96 tiles, ``swizzle`` 64 B
-    there, else 128), so q, k, v and the output cotangent are read through
-    TMA maps: a 16-byte-aligned base and byte strides in multiples of 16,
-    else ``ValueError`` naming the tensor.  ``smem_dq`` / ``smem_dkdv`` are
-    what the kernels ask for (``TcTile`` in the source), within
-    :data:`SMEM_PER_BLOCK`.
+    not fit twice beside its 128-row Q and dO); ``swizzle`` 64 B at the
+    hd-96 tiles, else 128 (``TcTile`` in the source).
 
-    float32 (``route`` "cuda_core"): ``flash_bwd_dq_kernel`` over (query
-    tiles of ``block_rows``, H, B) and ``flash_bwd_dkdv_kernel`` over (key
-    tiles of ``block_rows``, K, B), 256 threads, at the tensors' own widths
-    (register tiles 16 columns wide), each walking tiles of
-    :data:`BWD_WALK` rows of the other axis; ``block_rows`` is 64 up to
-    width 128 and 32 above; every tile in float32 in shared memory, rows
-    padded to an odd stride (``BwdTile`` in the source)."""
+    float32 (``route`` "wgmma_tf32"): ``flash_bwd_dq_tf32_kernel`` over
+    (query tiles of 64, the last first, H, B), 160 threads (a consumer
+    warpgroup, a producer warp), Q and dO resident and K/V tiles of
+    ``walk_rows_dq`` keys (64 to width 128, 32 at the (192, *) pairs, 16
+    at 256) in a ring of ``stages_dq``; ``flash_bwd_dkdv_tf32_kernel`` over (key tiles
+    of 64, K, B), 384 threads (a producer warpgroup, two consumer
+    warpgroups split by output), K and V resident and Q/dO tiles of
+    ``walk_rows_dkdv`` queries (32; 16 at 256) landing in a ring of
+    ``stages_dkdv``, split into one set of buffers.  Every operand split into TF32 hi and lo, 128-byte
+    swizzle; two stages where they fit (``TileT`` in the source)."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     check_widths(hd, hd_v)
     B, H, Sq = q.shape[0], q.shape[1], q.shape[2]
     K, Skv = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_tma(t, name, ("batch", "head", "position"))
+    tw, twv = TILE_WIDTH.get(hd, hd), TILE_WIDTH.get(hd_v, hd_v)
+    rows = BWD_TC_ROWS
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma(t, name, ("batch", "head", "position"))
-        tw, twv = TILE_WIDTH.get(hd, hd), TILE_WIDTH.get(hd_v, hd_v)
-        rows = BWD_TC_ROWS
         k_bytes, v_bytes = rows * tw * 2, rows * twv * 2
         # dQ: slack, Q and dO of 128 rows, the K/V ring, barriers
         fixed = 1024 + 2 * (k_bytes + v_bytes)
@@ -313,26 +317,54 @@ def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                             "flash_bwd_dkdv_wgmma_kernel"),
                 "counters": ("flash_attention_bwd_dq",
                              "flash_attention_bwd_dkdv"),
+                "library": "flash_attention_bwd",
+                "entries": ("flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkdv"),
                 "tile_width": tw, "tile_width_v": twv,
                 "swizzle": 128 if tw % 64 == 0 else 64,
                 "block_rows_dq": 2 * rows, "block_rows_dkdv": rows,
-                "walk_rows": rows, "threads": BWD_TC_THREADS,
+                "walk_rows_dq": rows, "walk_rows_dkdv": rows,
+                "threads_dq": BWD_TC_THREADS,
+                "threads_dkdv": BWD_TC_THREADS,
                 "stages_dq": stages_dq, "stages_dkdv": 2,
                 "grid_dq": (H, B, -(-Sq // (2 * rows))),
                 "grid_dkdv": (-(-Skv // rows), K, B),
                 "smem_dq": smem_dq, "smem_dkdv": smem_dkdv}
-    tb, ts = (64 if hd <= 128 else 32), BWD_WALK
-    ldk, ldv = hd + 1, hd_v + 1
-    smem_dkdv = 4 * ((tb + ts) * (ldk + ldv) + 2 * ts * (tb + 1) + 2 * ts)
-    smem_dq = 4 * ((tb + ts) * (ldk + ldv) + tb * (ts + 1) + 2 * tb)
-    return {"route": "cuda_core",
-            "kernels": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+    w = tw + twv
+    # dQ: slack, Q and dO raw, dS hi/lo; a stage holds K (hi over the
+    # landed tile), K lo, V (hi), V lo; barriers
+    bk = 64 if w <= 256 else 32 if w <= 384 else 16
+    dq_fixed, dq_stage = 1024 + 256 * w + 512 * bk, 8 * bk * w
+    stages_dq = 2 if dq_fixed + 2 * dq_stage + 8 * 5 <= SMEM_PER_BLOCK \
+        else 1
+    # dK/dV: slack, K and V raw, the single buffers (Q lo, dO lo, P^T and
+    # dS^T hi/lo); a stage holds Q and dO as they land (then their hi);
+    # barriers
+    bq = 32 if w <= 384 else 16
+    dkdv_fixed = 1024 + 256 * w + bq * (4 * w + 1024)
+    dkdv_stage = 4 * bq * w
+    stages_dkdv = 2 if dkdv_fixed + 2 * dkdv_stage + 8 * 5 <= \
+        SMEM_PER_BLOCK else 1
+    return {"route": "wgmma_tf32",
+            "kernels": ("flash_bwd_dq_tf32_kernel",
+                        "flash_bwd_dkdv_tf32_kernel"),
             "counters": ("flash_attention_bwd_dq_fp32",
                          "flash_attention_bwd_dkdv_fp32"),
-            "block_rows": tb, "walk_rows": ts, "threads": BWD_THREADS,
-            "grid_dq": (-(-Sq // tb), H, B),
-            "grid_dkdv": (-(-Skv // tb), K, B),
-            "smem_dq": smem_dq, "smem_dkdv": smem_dkdv}
+            "library": "flash_attention_bwd_tf32",
+            "entries": ("flash_attention_bwd_tf32_dq",
+                        "flash_attention_bwd_tf32_dkdv"),
+            "tile_width": tw, "tile_width_v": twv, "swizzle": 128,
+            "block_rows_dq": rows, "block_rows_dkdv": rows,
+            "walk_rows_dq": bk, "walk_rows_dkdv": bq,
+            "threads_dq": BWD_TF32_DQ_THREADS,
+            "threads_dkdv": BWD_TC_THREADS,
+            "stages_dq": stages_dq, "stages_dkdv": stages_dkdv,
+            "grid_dq": (-(-Sq // rows), H, B),
+            "grid_dkdv": (-(-Skv // rows), K, B),
+            "smem_dq": dq_fixed + stages_dq * dq_stage
+            + 8 * (1 + 2 * stages_dq),
+            "smem_dkdv": dkdv_fixed + stages_dkdv * dkdv_stage
+            + 8 * (1 + 2 * stages_dkdv)}
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
@@ -363,25 +395,22 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                              window: int = 0, scale: Optional[float] = None):
-    """K7's VJP on the card (``csrc/flash_attention_bwd.cu``): the dQ
-    kernel (which writes D first), then the dK/dV kernel, on the current
+    """K7's VJP on the card (``csrc/flash_attention_bwd.cu`` in bf16,
+    ``csrc/flash_attention_bwd_tf32.cu`` in float32): the dQ kernel
+    (which writes D first), then the dK/dV kernel, on the current
     stream.  q, k, v, o (the forward's output) and do may be strided views
     with the last dim contiguous, all one dtype (bf16 or float32); lse is
     the forward's, (B, H, Sq) float32.  Returns ``(dq, dk, dv)``, each a
     (B, heads, S, width) view of a (B, S, heads, width) tensor, in the
-    inputs' dtype.  In bf16 q, k, v and do are read through TMA maps
+    inputs' dtype.  q, k, v and do are read through TMA maps
     (:func:`bwd_launch_plan`'s alignment).  Each launch counts under
     :func:`bwd_launch_plan`'s counter; a refused launch raises."""
     plan, grads, args = _bwd_prepare(q, k, v, o, do, lse, causal, window,
                                      scale)
     if args is not None:
-        for fn, counter in zip(BWD_ENTRIES, plan["counters"]):
-            _bwd_launch(fn, counter, args)
+        for which in (0, 1):
+            _bwd_launch(plan, which, args)
     return grads
-
-
-#: the C entry points of the two backward kernels, in launch order
-BWD_ENTRIES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
 
 
 def _bwd_prepare(q, k, v, o, do, lse, causal, window, scale):
@@ -413,8 +442,7 @@ def _bwd_prepare(q, k, v, o, do, lse, causal, window, scale):
     if window < 0:
         raise ValueError(f"window {window} < 0")
     plan = bwd_launch_plan(q, k, v)
-    if q.dtype == torch.bfloat16:
-        _check_tma(do, "do", ("batch", "head", "position"))
+    _check_tma(do, "do", ("batch", "head", "position"))
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev
                      ).transpose(1, 2)
     dk = torch.empty((B, Skv, K, hd), dtype=q.dtype, device=dev
@@ -430,16 +458,17 @@ def _bwd_prepare(q, k, v, o, do, lse, causal, window, scale):
             do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), strides, B, H, K, Sq, Skv, hd,
             hd_v, int(bool(causal)), int(window), _scale(hd, scale),
-            int(q.dtype == torch.bfloat16), _stream())
+            _stream())
     # D lives as long as the arguments that point at it
     return plan, (dq, dk, dv), args + (D,)
 
 
-def _bwd_launch(fn: str, counter: str, args) -> None:
-    """One backward kernel on ``_bwd_prepare``'s arguments, counted."""
-    lib = build.library("flash_attention_bwd")
-    build.check(getattr(lib, fn)(*args[:-1]), fn)
-    launches[counter] += 1
+def _bwd_launch(plan: dict, which: int, args) -> None:
+    """The plan's backward kernel ``which`` (0 dQ, 1 dK/dV) on
+    ``_bwd_prepare``'s arguments, counted."""
+    fn = plan["entries"][which]
+    build.check(getattr(build.library(plan["library"]), fn)(*args[:-1]), fn)
+    launches[plan["counters"][which]] += 1
 
 
 def _tma_ready(t: torch.Tensor) -> bool:

@@ -320,17 +320,34 @@ def run(args, *, steps_per_epoch: int = 0) -> dict:
     return out
 
 
+# the host graphs a process has made, by what makes them: a process that
+# launches several times on one graph (tests, chip_smoke.py, a notebook)
+# makes it once.  Each launch gets a copy of the features, which the
+# serving cache's update path writes in place; the structure is shared (an
+# update stream replaces a graph's arrays, never writes into them)
+_LOADED: dict = {}
+
+
 def load_graph(args):
     """The launch's host graph: the ``--dataset`` registry entry, or an
     SBM of ``--nodes`` nodes and ``--classes`` classes with
-    ``--feat-dim`` features (both launchers make it so)."""
-    from repro_torch.graph import generators as G
-    if args.dataset:
-        from repro_torch.graph.datasets import load
-        return load(args.dataset, seed=args.seed).graph
-    g = G.sbm(args.nodes, args.classes, p_in=0.9, p_out=0.02,
-              seed=args.seed)
-    return G.featurize(g, args.feat_dim, seed=args.seed, class_sep=1.5)
+    ``--feat-dim`` features (both launchers make it so), made once a
+    process for each such tuple (``_LOADED``)."""
+    import dataclasses
+    key = (args.dataset, args.nodes, args.classes, args.feat_dim, args.seed)
+    if key not in _LOADED:
+        from repro_torch.graph import generators as G
+        if args.dataset:
+            from repro_torch.graph.datasets import load
+            g = load(args.dataset, seed=args.seed).graph
+        else:
+            g = G.featurize(G.sbm(args.nodes, args.classes, p_in=0.9,
+                                  p_out=0.02, seed=args.seed),
+                            args.feat_dim, seed=args.seed, class_sep=1.5)
+        _LOADED[key] = g
+    g = _LOADED[key]
+    return dataclasses.replace(
+        g, features=None if g.features is None else g.features.copy())
 
 
 def reorder_for_launch(g, policy: str, log=print):

@@ -282,16 +282,29 @@ K7_BWD_TC = {(64, 64): (64, 64, 66_616, 82_984),
              (192, 192): (192, 192, 197_688, 181_288)}
 
 
+#: the float32 route's tile widths, the keys a dq block walks at a time
+#: and its stages, its shared memory, the queries a dk/dv block walks at a
+#: time, its stages and shared memory, as the source's TileT states them
+K7_BWD_TF32 = {(64, 64): (64, 64, 64, 2, 197_672, 32, 2, 115_752),
+               (80, 80): (96, 96, 64, 1, 181_272, 32, 2, 156_712),
+               (96, 96): (96, 96, 64, 1, 181_272, 32, 2, 156_712),
+               (128, 128): (128, 128, 64, 1, 230_424, 32, 2, 197_672),
+               (256, 256): (256, 256, 16, 1, 205_848, 16, 1, 214_040),
+               (192, 128): (192, 128, 32, 1, 181_272, 32, 1, 197_656),
+               (192, 192): (192, 192, 32, 1, 214_040, 32, 1, 230_424)}
+
+
 @pytest.mark.parametrize("hd,hd_v", fa.WIDTH_PAIRS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_launch_plan_at_every_pair(hd, hd_v, dtype):
-    """bf16: the tensor-core kernels on the forward's tiles (hd 80 on the
-    hd-96 ones, 64-byte swizzle there), 384 threads, dQ over (H, B, query
-    tiles of 128) and dK/dV over (key tiles of 64, K, B), rings of 2
-    stages (dQ at width 256: 1), shared memory as the source states it,
-    within a block's 227 KB.  float32: the CUDA-core kernels at the
-    tensors' own widths: 64 owned rows up to width 128 and 32 above,
-    walks of 32 rows, float32 tiles with odd row strides.  Counters by
+    """Both routes on the tensor cores, on the forward's tiles (hd 80 on
+    the hd-96 ones), each in its own library.  bf16: 384 threads, dQ over
+    (H, B, query tiles of 128) and dK/dV over (key tiles of 64, K, B),
+    64-row walks, rings of 2 stages (dQ at width 256: 1), 64-byte swizzle
+    at the hd-96 tiles.  float32: dQ over (query tiles of 64, H, B) with
+    160 threads, dK/dV over (key tiles of 64, K, B) with 384, walks of 64,
+    32 or 16 rows and one or two stages as fit, 128-byte swizzle.  Shared
+    memory as the source states it, within a block's 227 KB; counters by
     dtype."""
     B, H, K, Sq, Skv = 3, 6, 2, 100, 130
     q = torch.zeros(B, H, Sq, hd, dtype=dtype)
@@ -303,9 +316,13 @@ def test_bwd_launch_plan_at_every_pair(hd, hd_v, dtype):
         assert plan["route"] == "wgmma"
         assert plan["kernels"] == ("flash_bwd_dq_wgmma_kernel",
                                    "flash_bwd_dkdv_wgmma_kernel")
+        assert plan["library"] == "flash_attention_bwd"
+        assert plan["entries"] == ("flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkdv")
         assert (plan["tile_width"], plan["tile_width_v"]) == (tw, twv)
         assert plan["swizzle"] == (128 if tw % 64 == 0 else 64)
-        assert plan["threads"] == 384 and plan["walk_rows"] == 64
+        assert plan["threads_dq"] == plan["threads_dkdv"] == 384
+        assert plan["walk_rows_dq"] == plan["walk_rows_dkdv"] == 64
         assert plan["grid_dq"] == (H, B, -(-Sq // 128))
         assert plan["grid_dkdv"] == (-(-Skv // 64), K, B)
         assert plan["stages_dq"] == (1 if hd == 256 else 2)
@@ -314,16 +331,23 @@ def test_bwd_launch_plan_at_every_pair(hd, hd_v, dtype):
         assert plan["counters"] == ("flash_attention_bwd_dq",
                                     "flash_attention_bwd_dkdv")
     else:
-        tb = 64 if hd <= 128 else 32
-        assert plan["route"] == "cuda_core"
-        assert plan["kernels"] == ("flash_bwd_dq_kernel",
-                                   "flash_bwd_dkdv_kernel")
-        assert plan["block_rows"] == tb and plan["walk_rows"] == 32
-        assert plan["grid_dq"] == (-(-Sq // tb), H, B)
-        assert plan["grid_dkdv"] == (-(-Skv // tb), K, B)
-        ld = hd + 1 + hd_v + 1
-        assert plan["smem_dq"] == 4 * ((tb + 32) * ld + tb * 33 + 2 * tb)
-        assert plan["smem_dkdv"] == 4 * ((tb + 32) * ld + 64 * (tb + 1) + 64)
+        tw, twv, bk, sdq, smem_dq, bq, skv, smem_dkdv = K7_BWD_TF32[
+            (hd, hd_v)]
+        assert plan["route"] == "wgmma_tf32"
+        assert plan["kernels"] == ("flash_bwd_dq_tf32_kernel",
+                                   "flash_bwd_dkdv_tf32_kernel")
+        assert plan["library"] == "flash_attention_bwd_tf32"
+        assert plan["entries"] == ("flash_attention_bwd_tf32_dq",
+                                   "flash_attention_bwd_tf32_dkdv")
+        assert (plan["tile_width"], plan["tile_width_v"]) == (tw, twv)
+        assert plan["swizzle"] == 128
+        assert (plan["threads_dq"], plan["threads_dkdv"]) == (160, 384)
+        assert plan["block_rows_dq"] == plan["block_rows_dkdv"] == 64
+        assert (plan["walk_rows_dq"], plan["walk_rows_dkdv"]) == (bk, bq)
+        assert (plan["stages_dq"], plan["stages_dkdv"]) == (sdq, skv)
+        assert plan["grid_dq"] == (-(-Sq // 64), H, B)
+        assert plan["grid_dkdv"] == (-(-Skv // 64), K, B)
+        assert (plan["smem_dq"], plan["smem_dkdv"]) == (smem_dq, smem_dkdv)
         assert plan["counters"] == ("flash_attention_bwd_dq_fp32",
                                     "flash_attention_bwd_dkdv_fp32")
     assert max(plan["smem_dq"], plan["smem_dkdv"]) <= fa.SMEM_PER_BLOCK
@@ -336,6 +360,28 @@ def test_bwd_launch_plan_bf16_refuses_unaligned_views():
     k = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="q's position stride"):
         fa.bwd_launch_plan(q, k, k)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do", "base"])
+def test_bwd_launch_plan_float32_refuses_unaligned_views(which, monkeypatch):
+    """The float32 route reads q, k, v and the output cotangent through
+    TMA maps too: a view whose position stride is no multiple of 16 bytes
+    (66 floats), or whose base is not 16-byte aligned, is refused by name
+    before anything launches (the device check stood in for, so that
+    ``_bwd_prepare`` runs on the CPU up to its launch arguments)."""
+    monkeypatch.setattr(fa, "_require_cuda", lambda t, what: t.device)
+    B, H, K, S, hd = 1, 2, 1, 8, 64
+    t = {n: torch.zeros(B, h, S, hd) for n, h in
+         (("q", H), ("k", K), ("v", K), ("do", H))}
+    if which == "base":
+        t["q"] = torch.zeros(B * H * S * hd + 1)[1:].reshape(B, H, S, hd)
+        match = "q's base address"
+    else:
+        t[which] = torch.zeros(B, t[which].shape[1], S, 66)[..., :hd]
+        match = f"{which}'s position stride"
+    with pytest.raises(ValueError, match=match):
+        fa._bwd_prepare(t["q"], t["k"], t["v"], torch.zeros(B, H, S, hd),
+                        t["do"], torch.zeros(B, H, S), True, 0, None)
 
 
 def test_bwd_launch_plan_refuses_other_pairs():
@@ -506,6 +552,119 @@ def test_k7_bf16_vjp_emulation_within_the_widened_bound(case):
     bad = _k7_bf16_emulation(q, k, v, do, out, lse, causal, window, drop=1)
     for g, r, t in zip(bad, ref, terms):
         assert not cs._grad_err(torch, g, r, bf16=True, elem_abs=t)["ok"]
+
+
+def _tf32(t):
+    """float32 rounded to the nearest TF32 (10-bit mantissa, ties away
+    from zero), as ``cvt.rna.tf32.f32`` does."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """``a @ b`` as one k-step run of the float32 route's wgmmas: each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), float32 sums of
+    hi hi, then hi lo and lo hi (``passes`` 3), or hi hi alone (1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah @ bh
+    if passes == 3:
+        out = out + ah @ _tf32(b - bh)
+        out = out + _tf32(a - ah) @ bh
+    return out
+
+
+def _k7_fp32_emulation(q, k, v, do, out, lse, causal, window, *, passes=3):
+    """K7's float32 VJP on the TF32 tensor cores in plain PyTorch, block by
+    block as the kernels walk: the dq kernel's S = Q K^T and dP = dO V^T
+    for each BK-key tile in order, P = exp2(S scale log2e - lse log2e)
+    under the masks, dS = P (dP - D) with D = <dO, o>, dQ^T += K^T dS^T
+    summed over the tiles in order; the dk/dv kernel's S^T, P^T, dP^T for
+    each BQ-query tile of each head of the group in order, dS^T from P^T's
+    hi + lo (as warpgroup 1 reads it), dV^T += dO^T P and dK^T += Q^T dS.
+    Every product through ``_mm_tf32``; BK and BQ from the plan."""
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    G = H // K
+    plan = fa.bwd_launch_plan(q, k, v)
+    bk, bq = plan["walk_rows_dq"], plan["walk_rows_dkdv"]
+    s = 1.0 / np.sqrt(hd)
+    sl, l2 = s * np.log2(np.e), lse * np.log2(np.e)
+    mask = fa._mask(Sq, Skv, causal, window, "cpu")
+    kh = k.repeat_interleave(G, dim=1)
+    vh = v.repeat_interleave(G, dim=1)
+    D = (do * out).sum(-1)
+    dqt = torch.zeros(B, H, hd, Sq)
+    for k0 in range(0, Skv, bk):
+        kt, vt = kh[:, :, k0:k0 + bk], vh[:, :, k0:k0 + bk]
+        st = _mm_tf32(q, kt.transpose(-1, -2), passes)
+        dp = _mm_tf32(do, vt.transpose(-1, -2), passes)
+        p = torch.exp2(st * sl - l2[..., None])
+        p = p.masked_fill(~mask[:, k0:k0 + bk], 0.0)
+        ds = p * (dp - D[..., None])
+        dqt = dqt + _mm_tf32(kt.transpose(-1, -2), ds.transpose(-1, -2),
+                             passes)
+    dkt = torch.zeros(B, K, hd, Skv)
+    dvt = torch.zeros(B, K, v.shape[-1], Skv)
+    for g in range(G):
+        for i0 in range(0, Sq, bq):
+            qt = q[:, g::G][:, :, i0:i0 + bq]   # heads kh G + g, kv head kh
+            dot = do[:, g::G][:, :, i0:i0 + bq]
+            st = _mm_tf32(k, qt.transpose(-1, -2), passes)
+            pt = torch.exp2(st * sl - l2[:, g::G, None, i0:i0 + bq])
+            pt = pt.masked_fill(~mask[i0:i0 + bq].T, 0.0)
+            dpt = _mm_tf32(v, dot.transpose(-1, -2), passes)
+            ph = _tf32(pt)
+            dst = (ph + _tf32(pt - ph)) * (dpt - D[:, g::G, None, i0:i0 + bq])
+            dvt = dvt + _mm_tf32(dot.transpose(-1, -2), pt.transpose(-1, -2),
+                                 passes)
+            dkt = dkt + _mm_tf32(qt.transpose(-1, -2), dst.transpose(-1, -2),
+                                 passes)
+    return (s * dqt.transpose(-1, -2), s * dkt.transpose(-1, -2),
+            dvt.transpose(-1, -2))
+
+
+# (hd, hd_v, B, H, K, Sq, Skv, causal, window): MLA's pair in a GQA group
+# of 3, causal; a window with Sq < Skv; ragged non-causal tiles at hd 96
+K7_FP32_EMULATED = {"mla_gqa3_causal": (192, 128, 1, 6, 2, 160, 160, True, 0),
+                    "window_64": (64, 64, 2, 4, 2, 150, 200, True, 90),
+                    "ragged_96": (96, 96, 1, 4, 2, 100, 130, False, 0)}
+#: where one TF32 pass a product misses the float32 bound in every
+#: gradient: Qwen2.5-14B's width, 1 x 512, 4 / 2 heads, causal (it errs by
+#: 1.1e-3, 1.1e-3 and 4.7e-4 of the largest dq, dk and dv; the three passes
+#: by 1.2e-6, 8.9e-7 and 1.4e-6)
+K7_FP32_ONE_PASS = (128, 128, 1, 4, 2, 512, 512, True, 0)
+
+
+@pytest.mark.parametrize("case", sorted(K7_FP32_EMULATED) + ["one_pass"])
+def test_k7_fp32_vjp_emulation_within_the_float32_bound(case):
+    """The float32 VJP's design, emulated (TF32 hi/lo splits of every
+    operand, P and dS included, three passes a product, the tiles walked
+    and summed in the kernels' order), lies within chip_smoke.py's float32
+    bound, 1e-4 of each gradient's largest element, against jax.vjp of
+    the reference, at three width pairs; the hi-only variant (one TF32
+    pass a product) misses that bound in each gradient at
+    K7_FP32_ONE_PASS, Qwen2.5-14B's width over 512 causal positions, while
+    the three passes meet it there."""
+    cs = _chip_smoke()
+    hd, hd_v, B, H, K, Sq, Skv, causal, window = (
+        K7_FP32_ONE_PASS if case == "one_pass" else K7_FP32_EMULATED[case])
+    rng = np.random.default_rng(hd + hd_v + Sq)
+    q, k, v, do = (torch.from_numpy(a) for a in _k7_inputs(
+        rng, B, H, K, Sq, Skv, hd, hd_v))
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    _, *want = _reference_vjp(q.numpy(), k.numpy(), v.numpy(), do.numpy(),
+                              causal, window)
+    ref = [torch.from_numpy(np.array(w)) for w in want]
+    got = _k7_fp32_emulation(q, k, v, do, out, lse, causal, window)
+    for g, r in zip(got, ref):
+        res = cs._grad_err(torch, g, r, bf16=False)
+        assert res["ok"], res
+    if case == "one_pass":
+        one = _k7_fp32_emulation(q, k, v, do, out, lse, causal, window,
+                                 passes=1)
+        assert not any(cs._grad_err(torch, g, r, bf16=False)["ok"]
+                       for g, r in zip(one, ref))
 
 
 def _k8_inputs(rng, C, L, H, P, G, N):
