@@ -289,8 +289,23 @@ Phases, in order; any failure makes the exit code nonzero:
    launches; (e) every trained family's reduced config, float32, card
    against CPU: losses and gradients under AdamW, parameters after 3
    SGD steps, within 1e-4; (f) ``train_lm_100m`` (100 steps; its loss
-   falls, the unigram-entropy floor beside) and ``whisper_vlm_smoke``;
-17. (run after 20, before 14) the port's four examples as ``python -m
+   falls, the unigram-entropy floor beside) and ``whisper_vlm_smoke``.
+   The launcher and the examples train without per-layer recompute, as
+   the reference's do (``remat=False``); (e) calls ``make_train_step``
+   with its default, the reference's ``remat=True``, so there each layer
+   runs its forward again in the backward, K7 and K8 included;
+21. (started after 20; its children run side by side with 17's, and
+   it ends after 17, before 14) the sharding-plan dry run
+   (``repro_torch.launch.dryrun``) in two child processes, each with a
+   time limit: Whisper-tiny x ``train_4k`` and DeepSeek-V3 x
+   ``train_4k`` on the 16x16 mesh over a fake process group, one line a
+   combination (per-device bytes, FLOPs, collective bytes, the dominant
+   roofline term; plan estimates against the H100's datasheet, not
+   times); each must report ``OK``, each child must report
+   ``torch.cuda.is_initialized()`` false, and this process's
+   ``torch.cuda.memory_allocated()`` and ``max_memory_allocated()`` must
+   not move from 21's start to its end (17 runs child processes only);
+17. (run inside 21, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
    seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
    side, then ``distributed_gnn``: three runs in a world of 8 ranks,
@@ -399,6 +414,9 @@ failures: list = []
 # seconds each phase took, by name (written to chiprun_out/chip_smoke.json
 # and printed before the last lines)
 PHASE_SECONDS: dict = {}
+# the script's start, for its seconds outside the phases (start-up, the
+# graphs between phases)
+T_START = time.perf_counter()
 # the phases in progress, outermost first, with their start times: what
 # the deadline names when it fires
 CURRENT_PHASE: list = []
@@ -5661,7 +5679,8 @@ def phase_train_parity(torch, results):
     row's keys: 5.2e-2 and 7.5e-2 of its largest value apart after 3 steps
     on an H100 80GB HBM3 at 700 W; embedding rows summed in another
     order, 1.8e-4 in Phi-3), as the CPU tests hold GIN and GGNN under
-    SGD."""
+    SGD.  ``make_train_step`` runs with its default per-layer recompute
+    (``remat=True``) on both devices."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
     from repro_torch.kernels import ops
@@ -5753,6 +5772,113 @@ def phase_train_examples(torch, results):
           + " launches " + json.dumps(
               results["launches.train.whisper_vlm_smoke"]), flush=True)
     results["train_examples"] = r
+
+
+# phase 21: the sharding-plan dry run's combinations, each in a child of
+# its own (both at once, side by side with phase 17's examples), and each
+# child's time limit (on a CPU host Whisper-tiny took 16 s and DeepSeek-V3
+# 22 s; 30.6 and 46.4 s for both on two card hosts, alone)
+DRYRUN_COMBOS = (("whisper-tiny", "train_4k"), ("deepseek-v3-671b",
+                                                "train_4k"))
+DRYRUN_TIMEOUT_S = 150
+
+
+def start_dryrun(torch) -> dict:
+    """Phase 21's start: this process's allocated and peak device memory,
+    then ``repro_torch.launch.dryrun`` for each of :data:`DRYRUN_COMBOS`
+    on the 16x16 mesh in a child process of its own, all started at once
+    (each writes its result to a file in a temporary directory).  They
+    run while phase 17's examples, which are child processes too, run;
+    :func:`phase_dryrun` collects them."""
+    import tempfile
+    torch.cuda.synchronize()
+    run = {"before": (torch.cuda.memory_allocated(),
+                      torch.cuda.max_memory_allocated()),
+           "tmp": tempfile.mkdtemp(prefix="chip_smoke_dryrun_"), "procs": []}
+    code = ("import time\n"
+            "t0 = time.perf_counter()\n"
+            "import sys, torch\n"
+            "from repro_torch.launch import dryrun as DR\n"
+            "rc = DR.main(['--arch', sys.argv[1], '--shape', sys.argv[2],\n"
+            "              '--json', sys.argv[3]])\n"
+            "print('CUDA_INITIALIZED', torch.cuda.is_initialized())\n"
+            "print('CHILD_SECONDS', time.perf_counter() - t0)\n"
+            "sys.exit(rc)\n")
+    # fake tensors do no arithmetic: one thread each spares the cores
+    # the examples run on
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    try:
+        for arch, shape in DRYRUN_COMBOS:
+            path = os.path.join(run["tmp"], f"{arch}.json")
+            run["procs"].append((arch, shape, path, time.perf_counter(),
+                                 subprocess.Popen(
+                                     [sys.executable, "-c", code, arch,
+                                      shape, path], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=env, cwd=ROOT)))
+    except Exception:
+        for *_, p in run["procs"]:
+            p.kill()
+            p.communicate()
+        shutil.rmtree(run["tmp"], ignore_errors=True)
+        raise
+    return run
+
+
+@phase("21. the sharding-plan dry run on fake tensors")
+def phase_dryrun(torch, run, results):
+    """Phase 21's end: each child of :func:`start_dryrun` must print
+    ``done: 1 ok, 0 skip, 0 fail`` within its time limit (counted from its
+    start) and report that it never initialised CUDA; this process's
+    allocated and peak device memory must not have moved since the start
+    (phase 17, run in between, runs child processes only).  One line a
+    combination: per-device bytes, FLOPs, collective bytes by kind and
+    the dominant roofline term (plan estimates against the H100's
+    datasheet), the child's own seconds and the seconds from its start to
+    its collection."""
+    out, problems = {}, []
+    try:
+        for arch, shape, path, t0, p in run["procs"]:
+            tag = f"{arch} x {shape} x 16x16"
+            try:
+                stdout, stderr = p.communicate(timeout=max(
+                    1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                problems.append(f"{tag}: over {DRYRUN_TIMEOUT_S} s")
+                continue
+            waited = time.perf_counter() - t0
+            if "CUDA_INITIALIZED False" not in stdout:
+                problems.append(f"{tag}: the child initialised CUDA "
+                                f"or did not say")
+            if p.returncode or "done: 1 ok, 0 skip, 0 fail" not in stdout:
+                problems.append(f"{tag}: rc {p.returncode}: "
+                                f"{stdout[-600:]} {stderr[-600:]}")
+                continue
+            with open(path, encoding="utf-8") as f:
+                r = json.load(f)[0]
+            line = {k: r[k] for k in (
+                "status", "chips", "bytes_per_device", "arg_bytes",
+                "flops_per_device", "model_flops", "useful_ratio",
+                "hbm_bytes_per_device", "collective_bytes_per_device",
+                "roofline", "trace_s")}
+            # the child's own seconds, and from its start to its collection
+            own = re.search(r"CHILD_SECONDS ([0-9.]+)", stdout)
+            line["child_s"] = float(own.group(1)) if own else None
+            line["collected_after_s"] = waited
+            out[tag] = line
+            print(f"   {tag}: " + json.dumps(line), flush=True)
+    finally:
+        for *_, p in run["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(run["tmp"], ignore_errors=True)
+    results["dryrun"] = out
+    before = run["before"]
+    after = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    require(after == before, f"21: device memory moved: {before} -> {after}")
+    require(not problems, "21: " + "; ".join(problems))
 
 
 def kernels_line(results) -> dict:
@@ -6089,7 +6215,9 @@ def main() -> int:
     phase_train_parity(torch, results)
     phase_train_examples(torch, results)
     torch.cuda.empty_cache()
+    dryrun = start_dryrun(torch)
     phase_examples(torch, results)
+    phase_dryrun(torch, dryrun, results)
     phase_distributed(torch, g, g_gat, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",
@@ -6100,6 +6228,8 @@ def main() -> int:
     print("phase seconds: " + json.dumps(
         {k.split(" ")[0]: round(v, 1) for k, v in PHASE_SECONDS.items()}),
         flush=True)
+    print(f"script seconds: {time.perf_counter() - T_START:.1f} (phases "
+          f"{sum(PHASE_SECONDS.values()):.1f})", flush=True)
     deadline.cancel()
     faulthandler.cancel_dump_traceback_later()
     if failures:

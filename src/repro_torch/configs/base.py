@@ -2,10 +2,8 @@
 ``configs/base.py``; nothing of the reference is imported).
 
 Every architecture has a module ``repro_torch/configs/<id>.py`` exposing
-``CONFIG`` (a :class:`ModelConfig` with the published numbers).
-:func:`get_config` names the ROADMAP.md item of an architecture whose
-config or family the port does not have (none now: every config of the
-reference is ported).
+``CONFIG`` (a :class:`ModelConfig` with the published numbers); every
+config of the reference is ported.
 """
 from __future__ import annotations
 
@@ -54,7 +52,7 @@ ARCH_FAMILIES = {
     "granite_moe_1b_a400m": "moe",
 }
 
-#: the configs the port carries (``repro_torch/configs/<id>.py``)
+#: the configs the port carries (``repro_torch/configs/<id>.py``): all
 PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
                   "gemma_7b", "glm4_9b", "zamba2_2_7b",
                   "granite_moe_1b_a400m", "deepseek_v3_671b",
@@ -62,20 +60,6 @@ PORTED_CONFIGS = ("phi3_mini_3_8b", "mamba2_780m", "qwen2_5_14b",
 #: the families the port's model runs
 PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "mla_moe", "encdec",
                    "vlm")
-
-#: ROADMAP.md queue 1 items of what is not ported yet
-ROADMAP_ITEMS = {
-    # a config whose family is ported but whose file is not (none now)
-    "configs": "10f (the zoo's configs)",
-}
-
-
-def not_ported(what: str, item: str, exc=SystemExit) -> Exception:
-    """The exception (``SystemExit`` for the config lookup and the
-    launcher, ``NotImplementedError`` inside the model) that refuses
-    ``what``, naming its ROADMAP item (a key of :data:`ROADMAP_ITEMS`)."""
-    return exc(f"{what} is not ported to repro_torch yet: "
-               f"ROADMAP.md queue 1, item {ROADMAP_ITEMS[item]}")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -239,11 +223,11 @@ def arch_module(arch: str) -> str:
 
 
 def get_config(arch: str) -> ModelConfig:
-    """The config of ``arch`` (an id or its dashed alias).  An architecture
-    the port does not carry raises ``SystemExit`` naming its ROADMAP item
-    (none now); an unknown one raises ``KeyError``."""
-    mod_name = arch_module(arch)
-    if mod_name not in PORTED_CONFIGS:
-        raise not_ported(f"the config of {arch!r}", "configs")
-    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    """The config of ``arch`` (an id or its dashed alias); an unknown one
+    raises ``KeyError``."""
+    mod = importlib.import_module(f"repro_torch.configs.{arch_module(arch)}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]

@@ -252,8 +252,29 @@ def moe_expert_parallel(cfg, p: dict, x: torch.Tensor, *,
     (:func:`expert_shard`).  The partial outputs are summed over the
     ranks in rank order.  Without a world it computes
     ``moe_block_gathered``, as the reference falls back without sharding
-    rules (``core/parallel.py:186-190``)."""
+    rules (``core/parallel.py:186-190``).
+
+    Under sharding rules (``launch/sharding.py``, ``x`` a DTensor) the
+    group is the rules' ``model`` axis, not the whole world, as the
+    reference's ``shard_map`` takes it: each rank routes its batch
+    shard's tokens as one group (C over them) to its E/m experts, and the
+    partial outputs are summed over ``model``
+    (:func:`~repro_torch.models.transformer.moe.experts_sharded`)."""
     import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    rules = shd.sharded(x)
+    if rules is not None:
+        B, S, D = x.shape
+        sizes = shd.axis_sizes(rules.mesh)
+        b = rules.batch_axis
+        T_loc = B * S // shd.shards(b, sizes)
+        y = MOE.experts_sharded(
+            rules, cfg, p, x, group=T_loc,
+            capacity=MOE._capacity(T_loc, cfg.experts_per_token,
+                                   cfg.num_experts, capacity_factor))
+        if cfg.num_shared_experts:
+            y = y + TL.mlp(cfg, x, p["shared"])
+        return y
     if not dist.is_initialized():
         return MOE.moe_block_gathered(cfg, p, x,
                                       capacity_factor=capacity_factor)

@@ -6,14 +6,58 @@ from the same seed.
 :class:`SyntheticLMDataset` is a deterministic corpus of Zipf-distributed
 tokens with planted bigram transitions: a model that learns the bigram
 table reaches a loss far below the unigram entropy, so the examples show
-real learning without shipping data.  The reference's ``input_specs``
-(shape stand-ins for its multi-pod dry run) has no counterpart here.
+real learning without shipping data.
+
+:func:`input_specs` gives shape stand-ins for every model input of a
+(config x input shape), tensors on the meta device (nothing allocated),
+for the sharding-plan dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
+
+I32 = torch.int32
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """Abstract model inputs for a (config, shape) pair (the reference's
+    ``data/pipeline.py:30``): meta tensors of its shapes and dtypes.
+
+    train/prefill get full sequences; decode gets one token + a position.
+    The modality-frontend carve-out: vlm gets patch/text embeddings, encdec
+    gets encoder frame embeddings (both precomputed, as in the reference).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    kind = shape.kind
+    fam = cfg.family
+
+    if kind in ("train", "prefill"):
+        if fam == "vlm":
+            batch = {"embeds": _sds((B, S, cfg.d_model), cdt),
+                     "positions": _sds((3, B, S), I32)}
+        elif fam == "encdec":
+            batch = {"enc_embeds": _sds((B, S, cfg.d_model), cdt),
+                     "tokens": _sds((B, S), I32)}
+        else:
+            batch = {"tokens": _sds((B, S), I32)}
+        if kind == "train":
+            batch["labels"] = _sds((B, S), I32)
+        return batch
+
+    # decode: one new token against a cache of S positions
+    if fam == "vlm":
+        return {"embeds": _sds((B, 1, cfg.d_model), cdt),
+                "pos": _sds((), I32)}
+    return {"token": _sds((B, 1), I32), "pos": _sds((), I32)}
 
 
 def zipf_unigram(vocab_size: int) -> np.ndarray:

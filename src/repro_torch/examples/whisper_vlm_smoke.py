@@ -70,7 +70,8 @@ def run_arch(arch: str, dev, rng) -> dict:
     cfg = get_config(arch).reduced()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = M.init_params(cfg, gen, max_seq=S + 8, device=dev)
-    step = M.make_train_step(cfg, AdamW(M.trainable(params), lr=1e-3))
+    step = M.make_train_step(cfg, AdamW(M.trainable(params), lr=1e-3),
+                             remat=False)
     losses = []
     for _ in range(10):
         batch = _batch(cfg, rng, dev)

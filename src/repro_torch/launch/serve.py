@@ -14,8 +14,7 @@ generation, then ``--gen`` tokens are generated greedily (argmax over
 the real vocabulary, not the padded columns).  ``--device`` defaults to
 ``cuda``.  Prompts and weights come from torch generators seeded by
 ``--seed``.  The ``vlm`` and ``encdec`` families are refused as the
-reference refuses them, the other unported families and configs with
-their ROADMAP.md item.
+reference refuses them.
 """
 from __future__ import annotations
 

@@ -117,7 +117,8 @@ def run(args) -> dict:
     opt = AdamW(M.trainable(params),
                 lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 weight_decay=0.01)
-    step_fn = M.make_train_step(cfg, opt)
+    # no per-layer recompute, as the reference's launcher
+    step_fn = M.make_train_step(cfg, opt, remat=False)
 
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, seed=args.seed)
     it = ds.batches(args.batch)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models.transformer import layers as L
 
 NEG_INF = L.NEG_INF
@@ -43,23 +44,42 @@ def init_gqa(cfg, gen, dtype, device):
     return p
 
 
+def _heads(t, n, hd):
+    """(B, S, n * hd) -> (B, S, n, hd).  Under sharding rules a projection
+    whose heads do not divide over ``model`` is all-gathered there first
+    (:func:`~repro_torch.launch.sharding.whole_heads`): GQA's K and V
+    with fewer KV heads than ``model`` (GLM-4-9B's 2, Qwen2-VL-7B's 4,
+    Qwen2.5-14B's 8 against 16) cost one all-gather of B_loc * S * K *
+    hd elements each a layer (and its reduce-scatter in the backward),
+    and every ``model`` rank then holds all K heads; the queries of
+    Qwen2.5-14B (40 heads), Qwen2-VL-7B (28) and Whisper (6) likewise."""
+    t = shd.whole_heads(t, n)
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def _merge(o):
+    """(B, S, H, hd) -> (B, S, H * hd), the output projection's input:
+    under sharding rules split over ``model`` on its last dim (the
+    projection's contraction), explicitly, so that its gradient is
+    gathered before the heads split again
+    (:func:`~repro_torch.launch.sharding.shard_last`)."""
+    return shd.shard_last(o.reshape(o.shape[0], o.shape[1], -1))
+
+
 def _q(cfg, p, x):
-    B, S, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return q.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return _heads(q, cfg.num_heads, cfg.resolved_head_dim)
 
 
 def _kv(cfg, p, x):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return (k.reshape(B, S, cfg.num_kv_heads, hd),
-            v.reshape(B, S, cfg.num_kv_heads, hd))
+    return (_heads(k, cfg.num_kv_heads, hd), _heads(v, cfg.num_kv_heads, hd))
 
 
 def _qkv(cfg, p, x):
@@ -80,11 +100,12 @@ def gqa_forward(cfg, p, x, positions, *, causal=True, window=0,
                 return_kv=False):
     """Full-sequence attention (prefill; Whisper's encoder with
     ``causal=False``).  positions: (B, S), or (3, B, S) under M-RoPE."""
+    x = shd.gather_seq(x)
     q, k, v = _qkv(cfg, p, x)
     q, k = _rope_qk(cfg, q, k, positions)
     out = L.attention(q, k, v, causal=causal, q_offset=0, window=window,
                       q_chunk=cfg.attn_q_chunk)
-    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    out = shd.scatter_seq(_merge(out) @ p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -98,8 +119,10 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, *, window=0):
     ``pos % C``) in place.  Under M-RoPE all three position streams take
     ``pos``, the slot index, as in the reference (so after an image
     prompt, whose M-RoPE positions run below its length, decode rotates
-    at the slot, not at the last position + 1).  Returns (out, cache_k,
-    cache_v)."""
+    at the slot, not at the last position + 1).  Under sharding rules the
+    cache is split along its sequence: the slot's owner writes it, and
+    the softmax runs per shard (:func:`cache_attention`).  Returns (out,
+    cache_k, cache_v)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(cfg, p, x)
@@ -113,28 +136,62 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, *, window=0):
     slot = pos % C if window else pos
     if not 0 <= slot < C:
         raise IndexError(f"position {pos} outside a cache of {C} slots")
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-
-    slots = torch.arange(C, device=x.device)
-    if window:
-        # ring buffer: slot s holds absolute position pos - ((pos - s) mod
-        # C); valid iff that position has been written
-        valid = pos - torch.remainder(pos - slots, C) >= 0
-    else:
-        valid = slots <= pos
+    shd.write_slot(cache_k, slot, k[:, 0])
+    shd.write_slot(cache_v, slot, v[:, 0])
 
     K = cfg.num_kv_heads
     G = cfg.num_heads // K
-    qg = (q * (1.0 / np.sqrt(hd))).reshape(B, 1, K, G, hd)
-    # the reference's masked softmax over the whole cache (plain XLA
-    # there, no kernel), not layers.attention: see its plain version
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), cache_k.float())
-    logits = logits.masked_fill(~valid[None, None, None, None, :], NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, cache_v.float())
-    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
-    return out, cache_k, cache_v
+    qs = q * (1.0 / np.sqrt(hd))
+    rules = shd.sharded(cache_k)
+    if rules is not None:
+        # every rank of the cache's split takes all the query heads
+        qs = qs.redistribute(cache_k.device_mesh,
+                             shd.row_placements(cache_k))
+    out = cache_attention(rules, qs.reshape(B, 1, K, G, hd), cache_k, cache_v,
+                          lambda off, n, dev: _valid(pos, window, C, off, n,
+                                                     dev))
+    out = _merge(out.reshape(B, 1, cfg.num_heads, hd).to(x.dtype))
+    return out @ p["wo"], cache_k, cache_v
+
+
+def _valid(pos, window, C, off, n, device=None):
+    """Which of the cache slots ``off .. off + n - 1`` hold a position at
+    or before ``pos``: in a ring buffer (``window``) slot s holds absolute
+    position pos - ((pos - s) mod C), valid iff that position has been
+    written; else slots up to ``pos``."""
+    slots = torch.arange(off, off + n, device=device)
+    if window:
+        return pos - torch.remainder(pos - slots, C) >= 0
+    return slots <= pos
+
+
+def cache_attention(rules, qg, cache_k, cache_v, valid=None):
+    """The decode step's masked softmax over the whole cache (``qg`` (B,
+    1, K, G, hd), already scaled; ``cache_[kv]`` (B, C, K, hd)) in
+    float32: the reference's (plain XLA there, no kernel), not
+    :func:`layers.attention`.  ``valid(offset, n, device)`` masks the
+    slots ``offset .. offset + n - 1`` (``None``: every slot).  With
+    sharding rules (``rules`` not ``None``) the cache is split along its
+    sequence: each rank takes its slots, combined as a sharded softmax
+    (:func:`~repro_torch.launch.sharding.split_softmax`).  Returns (B, 1,
+    K, G, hd) float32 (under rules, with the cache's row placement)."""
+    def scores(ql, kl, vl, off):
+        lg = torch.einsum("bqkgh,bskh->bkgqs", ql.float(), kl.float())
+        if valid is None:
+            return lg
+        ok = valid(off, kl.shape[1], lg.device)
+        return lg.masked_fill(~ok[None, None, None, None, :], NEG_INF)
+
+    def values(w, kl, vl):
+        return torch.einsum("bkgqs,bskh->bqkgh", w, vl.float())
+
+    if rules is None:
+        w = torch.softmax(scores(qg, cache_k, cache_v, 0), dim=-1)
+        return values(w, cache_k, cache_v)
+    row = shd.row_placements(cache_k)
+    se, acc = shd.split_softmax(rules, scores, values, [qg],
+                                [cache_k, cache_v], [row])
+    return acc / se.permute(0, 3, 1, 2)[..., None]
 
 
 def cross_attention(cfg, p, x, k, v):
@@ -143,9 +200,19 @@ def cross_attention(cfg, p, x, k, v):
     encoder output, which the reference computes beside a q it drops),
     non-causal, no rotary; K7 on the card for a prompt and for one decode
     token alike."""
+    x = shd.gather_seq(x)
     q = _q(cfg, p, x)
+    rules = shd.sharded(k)
+    if rules is not None and x.shape[1] == 1:
+        # one decode token over the cross cache, split along its sequence
+        B, _, H, hd = q.shape
+        qs = (q * (1.0 / np.sqrt(hd))).redistribute(
+            k.device_mesh, shd.row_placements(k))
+        o = cache_attention(rules, qs.reshape(B, 1, k.shape[2], -1, hd), k,
+                            v).reshape(B, 1, H, hd)
+        return shd.scatter_seq(_merge(o.to(x.dtype)) @ p["wo"])
     o = L.attention(q, k, v, causal=False, q_offset=0)
-    return o.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    return shd.scatter_seq(_merge(o) @ p["wo"])
 
 
 # ===========================================================================
@@ -196,6 +263,7 @@ def mla_forward(cfg, p, x, positions, *, window=0, return_cache=False):
     then :func:`layers.attention` with q and k ``dn + dr`` wide and v
     ``dv``.  With ``return_cache``, also (c_n (B, S, dc), k_rope (B, S,
     dr)), the latent cache's rows."""
+    x = shd.gather_seq(x)
     B, S, _ = x.shape
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -212,10 +280,39 @@ def mla_forward(cfg, p, x, positions, *, window=0, return_cache=False):
 
     out = L.attention(q, k, v, causal=True, q_offset=0, window=window,
                       q_chunk=cfg.attn_q_chunk)
-    out = out.reshape(B, S, H * dv) @ p["wo"]
+    out = shd.scatter_seq(_merge(out) @ p["wo"])
     if return_cache:
         return out, (c_n, k_rope[:, :, 0, :])
     return out
+
+
+def _mla_cache_attention(rules, cfg, q_abs, q_rope, cache_c, cache_kr, pos,
+                         window):
+    """:func:`mla_decode`'s masked softmax over the latent cache in
+    float32, the reference's.  With sharding rules (``rules`` not
+    ``None``) the cache is split along its sequence: each rank takes its
+    slots, combined as a sharded softmax
+    (:func:`~repro_torch.launch.sharding.split_softmax`).  Returns the
+    context (B, 1, H, dc) float32."""
+    C = cache_c.shape[1]
+    scale = float(np.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))
+
+    def scores(qa, qr, cl, krl, off):
+        s = (torch.einsum("bqhc,bsc->bhqs", qa.float(), cl.float())
+             + torch.einsum("bqhr,bsr->bhqs", qr.float(), krl.float()))
+        ok = _valid(pos, window, C, off, cl.shape[1], s.device)
+        return (s / scale).masked_fill(~ok[None, None, None, :], NEG_INF)
+
+    def values(w, cl, krl):
+        return torch.einsum("bhqs,bsc->bqhc", w, cl.float())
+
+    if rules is None:
+        w = torch.softmax(scores(q_abs, q_rope, cache_c, cache_kr, 0), dim=-1)
+        return values(w, cache_c, cache_kr)
+    row = shd.row_placements(cache_c)
+    se, acc = shd.split_softmax(rules, scores, values, [q_abs, q_rope],
+                                [cache_c, cache_kr], [row, row])
+    return acc / se.permute(0, 2, 1)[..., None]
 
 
 def mla_decode(cfg, p, x, cache_c, cache_kr, pos: int, *, window=0):
@@ -225,8 +322,6 @@ def mla_decode(cfg, p, x, cache_c, cache_kr, pos: int, *, window=0):
     written into slot ``pos`` (or ``pos % C``) in place; a slot outside
     the cache raises ``IndexError``.  Returns (out, cache_c, cache_kr)."""
     B = x.shape[0]
-    H = cfg.num_heads
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     pos_arr = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(cfg, p, x, pos_arr)          # (B,1,H,dn/dr)
     c_n, k_rope = _mla_latent(cfg, p, x, pos_arr)        # (B,1,dc), (B,1,1,dr)
@@ -235,24 +330,12 @@ def mla_decode(cfg, p, x, cache_c, cache_kr, pos: int, *, window=0):
     slot = pos % C if window else pos
     if not 0 <= slot < C:
         raise IndexError(f"position {pos} outside a cache of {C} slots")
-    cache_c[:, slot] = c_n[:, 0].to(cache_c.dtype)
-    cache_kr[:, slot] = k_rope[:, 0, 0].to(cache_kr.dtype)
-
-    slots = torch.arange(C, device=x.device)
-    if window:
-        valid = pos - torch.remainder(pos - slots, C) >= 0
-    else:
-        valid = slots <= pos
+    shd.write_slot(cache_c, slot, c_n[:, 0])
+    shd.write_slot(cache_kr, slot, k_rope[:, 0, 0])
 
     # absorb W_k_nope into the query
     q_abs = torch.einsum("bqhn,chn->bqhc", q_nope, p["w_k_nope"])
-    scores = (torch.einsum("bqhc,bsc->bhqs", q_abs.float(), cache_c.float())
-              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
-                             cache_kr.float()))
-    scores = scores / float(np.sqrt(dn + dr))
-    scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhqs,bsc->bqhc", w, cache_c.float())
+    ctx = _mla_cache_attention(shd.sharded(cache_c), cfg, q_abs, q_rope,
+                               cache_c, cache_kr, pos, window)
     out = torch.einsum("bqhc,chv->bqhv", ctx.to(x.dtype), p["w_v"])
-    out = out.reshape(B, 1, H * dv) @ p["wo"]
-    return out, cache_c, cache_kr
+    return _merge(out) @ p["wo"], cache_c, cache_kr

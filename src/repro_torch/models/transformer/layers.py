@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, segment_sum
+from repro_torch.launch import sharding as shd
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
@@ -55,10 +56,20 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
 # norms
 # ---------------------------------------------------------------------------
 
+def _mean_last(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim, kept.  On a DTensor whose last dim is
+    split (the SSM's gated norm over ``model``): the sum over the shards,
+    all-reduced, over the width (:func:`~repro_torch.launch.sharding.
+    reduced`), so no other dim gets split."""
+    if shd.sharded(t):
+        return shd.reduced(t.sum(-1, keepdim=True)) / t.shape[-1]
+    return t.mean(-1, keepdim=True)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    var = _mean_last(xf.square())
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
@@ -66,8 +77,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = xf.var(-1, keepdim=True, unbiased=False)
+    mu = _mean_last(xf)
+    var = _mean_last((xf - mu).square()) if shd.sharded(xf) else \
+        xf.var(-1, keepdim=True, unbiased=False)
     out = (xf - mu) * torch.rsqrt(var + eps)
     out = out * scale.float() + bias.float()
     return out.to(x.dtype)
@@ -147,12 +159,13 @@ def _act(cfg, v):
 
 
 def mlp(cfg, x: torch.Tensor, p) -> torch.Tensor:
+    x = shd.gather_seq(x)
     h = x @ p["w_in"]
     if cfg.mlp_gated:
         h = _act(cfg, x @ p["w_gate"]) * h
     else:
         h = _act(cfg, h)
-    return h @ p["w_out"]
+    return shd.scatter_seq(h @ p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -248,12 +261,46 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and the rest runs in float32.  On the CPU: the reference's chunked
     softmax over blocks of ``q_chunk`` queries.  On a CUDA tensor: K7
     (:func:`_attention_card`)."""
+    rules = shd.sharded(q, k, v)
+    if rules is not None:
+        return _attention_sharded(rules, q, k, v, causal=causal,
+                                  q_offset=q_offset, window=window,
+                                  kv_valid_len=kv_valid_len, q_chunk=q_chunk)
     B, Sq, H, hd = q.shape
     qs = q * (1.0 / np.sqrt(hd))
     run = segment_sum.pick(_attention_card, _attention_plain, q)
     out = run(qs, k, v, causal=causal, q_offset=q_offset, window=window,
               kv_valid_len=kv_valid_len, q_chunk=q_chunk)
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def _attention_sharded(rules, q, k, v, **kw):
+    """:func:`attention` on DTensors under sharding rules, on each
+    device's shards (``local_map``): batch over the rules' batch axis,
+    query heads over ``model`` where they divide, the sequence whole.
+    K and V heads go over ``model`` where they divide too; else each
+    rank takes all of them and uses its query heads' groups (a group of
+    G query heads a KV head).  Where the query heads do not divide, or a
+    rank's heads would straddle groups, every ``model`` rank computes all
+    heads."""
+    H, K = q.shape[2], k.shape[2]
+    m, G = rules.model_size, H // K
+    b = rules.batch_axis
+    hl = H // m
+    h_ax = "model" if H % m == 0 and (hl % G == 0 or G % hl == 0) \
+        else None
+    kv_ax = "model" if h_ax and K % m == 0 else None
+    spec_q, spec_kv = (b, None, h_ax, None), (b, None, kv_ax, None)
+
+    def local(ql, kl, vl):
+        if h_ax and not kv_ax:
+            r = rules.mesh.get_local_rank("model")
+            lo, hi = r * hl // G, ((r + 1) * hl - 1) // G + 1
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return attention(ql, kl, vl, **kw)
+
+    return shd.on_shards(local, [spec_q, spec_kv, spec_kv], spec_q,
+                         rules)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +316,17 @@ def init_embed(cfg, gen, dtype, device):
 
 
 def embed(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embedding"][tokens.long()]
+    """The rows of ``tokens``.  Under sharding rules (a table split by
+    vocabulary over ``model``) the masked partial rows are reduced to the
+    residual stream's spec here, before anything is added to them."""
+    x = F.embedding(tokens.long(), p["embedding"])
     if cfg.embed_scale:
         x = x.float() * float(np.sqrt(cfg.d_model).astype(np.float32))
-    return x.to(dtype_of(cfg.compute_dtype))
+    return shd.scatter_seq(x.to(dtype_of(cfg.compute_dtype)))
 
 
 def unembed(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    x = shd.gather_seq(x)
     if cfg.tie_embeddings:
         return x @ p["embedding"].t()
     return x @ p["lm_head"]

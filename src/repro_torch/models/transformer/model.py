@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import PORTED_FAMILIES
+from repro_torch.launch import sharding as shd
 from repro_torch.models.transformer import attention as A
 from repro_torch.models.transformer import layers as L
 from repro_torch.models.transformer import moe as MOE
@@ -269,11 +270,14 @@ def _moe(cfg, p, x):
     world (:func:`repro_torch.core.parallel.moe_expert_parallel`, which
     without a world computes the gathered single-device block, as the
     reference's does without sharding rules)."""
+    x = shd.gather_seq(x)
     if cfg.moe_impl == "ep":
         from repro_torch.core.parallel import moe_expert_parallel
-        return moe_expert_parallel(cfg, p, x,
-                                   capacity_factor=cfg.moe_capacity_factor)
-    return MOE.moe_block(cfg, p, x)
+        y = moe_expert_parallel(cfg, p, x,
+                                capacity_factor=cfg.moe_capacity_factor)
+    else:
+        y = MOE.moe_block(cfg, p, x)
+    return shd.scatter_seq(y)
 
 
 def _ffn(cfg, p, h):
@@ -289,19 +293,42 @@ def _dense_body(cfg, x, p, positions, *, causal=True):
     h = L.apply_norm(cfg, x, p["ln1"])
     x = x + A.gqa_forward(cfg, p["attn"], h, positions, causal=causal)
     h = L.apply_norm(cfg, x, p["ln2"])
-    return x + _ffn(cfg, p, h)
+    return shd.constrain(x + _ffn(cfg, p, h), "act")
 
 
 def _ssm_body(cfg, x, p):
     h = L.apply_norm(cfg, x, p["ln"])
-    return x + S.ssm_forward(cfg, p["ssm"], h)
+    return shd.constrain(x + S.ssm_forward(cfg, p["ssm"], h), "act")
 
 
 def _mla_body(cfg, x, p, positions):
     h = L.apply_norm(cfg, x, p["ln1"])
     x = x + A.mla_forward(cfg, p["attn"], h, positions)
     h = L.apply_norm(cfg, x, p["ln2"])
-    return x + _ffn(cfg, p, h)
+    return shd.constrain(x + _ffn(cfg, p, h), "act")
+
+
+def _top(params):
+    """The params outside the layer stacks (embeddings, final norms,
+    learned positions) as the model computes with them
+    (:func:`~repro_torch.launch.sharding.gather_params`)."""
+    return shd.gather_params({k: v for k, v in params.items()
+                              if k not in STACKS and k != "shared_attn"})
+
+
+def _layer(body, x, p, *rest, remat=False, **kw):
+    """``body(x, p, *rest, **kw)`` for one layer, its params ``p`` as the
+    layer computes with them (:func:`~repro_torch.launch.sharding.
+    gather_params`: the FSDP shards gathered; ``p`` itself unsharded);
+    with ``remat`` under ``torch.utils.checkpoint`` (non-reentrant), so
+    backward recomputes the layer from its input, as the reference's
+    ``jax.checkpoint`` per layer does."""
+    def run(h):
+        return body(h, shd.gather_params(p), *rest, **kw)
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(run, x, use_reentrant=False)
+    return run(x)
 
 
 def _mla_layers(params):
@@ -315,10 +342,30 @@ def _mla_layers(params):
 def _to_ring(dst, src):
     """The prompt's rows ``src`` (B, S, ...) into one layer's cache ``dst``
     (B, C, ...): position p in ring slot p % C, the last C positions kept
-    (C == S without a window)."""
+    (C == S without a window).  A DTensor cache (S >= C, as
+    :func:`prefill` sizes it) takes the last C rows rolled into their
+    slots, a copy into its own placement."""
     Ssz, C = src.shape[1], dst.shape[1]
+    if shd.sharded(dst) and Ssz >= C:
+        tail, shift = src[:, Ssz - C:], (Ssz - C) % C
+        dst.copy_((torch.roll(tail, shift, 1) if shift else tail).to(
+            dst.dtype))
+        return
     kept = torch.arange(max(0, Ssz - C), Ssz, device=src.device)
     dst[:, kept % C] = src[:, kept].to(dst.dtype)
+
+
+def _new_cache(like, build):
+    """``build(device)`` (a zero cache), on ``like``'s device; when
+    ``like`` is a DTensor under sharding rules, built on the meta device
+    and laid out by the rules' cache specs (zero shards, nothing global
+    allocated)."""
+    rules = shd.sharded(like)
+    if rules is None:
+        return build(like.device)
+    meta = build("meta")
+    return shd.distribute(meta, shd.cache_specs(meta, rules.mesh, rules),
+                          rules.mesh)
 
 
 def _dense_prefill(cfg, x, p, positions, cache, i):
@@ -375,7 +422,7 @@ def _learned(table, n: int):
     return table[:n]
 
 
-def _encode(cfg, params, enc_embeds):
+def _encode(cfg, params, enc_embeds, remat=False):
     """Whisper's encoder: the frame embeddings plus ``enc_pos``, the
     non-causal dense blocks, ``ln_enc``; (B, Se, D) in the compute
     dtype."""
@@ -385,8 +432,11 @@ def _encode(cfg, params, enc_embeds):
     enc = enc + _learned(params["enc_pos"], Se).to(dt)
     positions = _positions(B, Se, enc.device)
     for p in params["enc_layers"]:
-        enc = _dense_body(cfg, enc, p, positions, causal=False)
-    return L.apply_norm(cfg, enc, params["ln_enc"])
+        enc = _layer(lambda h, q: _dense_body(cfg, h, q, positions,
+                                              causal=False),
+                     enc, p, remat=remat)
+    # the cross attention's keys and values read the whole sequence
+    return shd.gather_seq(L.apply_norm(cfg, enc, params["ln_enc"]))
 
 
 def _dec_body(cfg, x, p, positions, xk, xv):
@@ -401,29 +451,34 @@ def _dec_body(cfg, x, p, positions, xk, xv):
     hh = L.apply_norm(cfg, x, p["ln_x"])
     x = x + A.cross_attention(cfg, p["xattn"], hh, xk, xv)
     hh = L.apply_norm(cfg, x, p["ln2"])
-    return x + L.mlp(cfg, hh, p["mlp"]), kv
+    return shd.constrain(x + L.mlp(cfg, hh, p["mlp"]), "act"), kv
 
 
-def _encdec(cfg, params, batch, cache=None):
+def _encdec(cfg, params, batch, cache=None, remat=False):
     """Whisper's encoder over ``batch["enc_embeds"]``, then its decoder
     over ``batch["tokens"]`` (plus ``dec_pos``): each block's causal self
     attention, cross attention over the encoder output, the MLP.  Returns
     the last block's output (B, S, D); with ``cache`` (``{"self",
     "cross"}`` of the prompt's and the encoder's lengths) each block's
     self and cross keys and values are written into it."""
-    enc = _encode(cfg, params, batch["enc_embeds"])
+    enc = _encode(cfg, params, batch["enc_embeds"], remat)
     tokens = batch["tokens"]
     B, Sd = tokens.shape
     x = L.embed(cfg, params["embed"], tokens) + _learned(
         params["dec_pos"], Sd).to(enc.dtype)
     positions = _positions(B, Sd, x.device)
     for i, p in enumerate(params["dec_layers"]):
+        if cache is None:
+            x = _layer(lambda h, q: _dec_body(
+                cfg, h, q, positions, *A._kv(cfg, q["xattn"], enc))[0],
+                x, p, remat=remat)
+            continue
+        p = shd.gather_params(p)
         xk, xv = A._kv(cfg, p["xattn"], enc)
         x, (k, v) = _dec_body(cfg, x, p, positions, xk, xv)
-        if cache is not None:
-            for name, t in (("self", (k, v)), ("cross", (xk, xv))):
-                cache[name]["k"][i].copy_(t[0])
-                cache[name]["v"][i].copy_(t[1])
+        for name, t in (("self", (k, v)), ("cross", (xk, xv))):
+            cache[name]["k"][i].copy_(t[0])
+            cache[name]["v"][i].copy_(t[1])
     return x
 
 
@@ -431,45 +486,96 @@ def _encdec(cfg, params, batch, cache=None):
 # forward (scoring path; no cache)
 # ===========================================================================
 
-def forward(cfg, params, batch) -> torch.Tensor:
+def forward(cfg, params, batch, *, remat=False) -> torch.Tensor:
     """Logits (B, S, padded_vocab) of the batch (the module's batch
     conventions).  Attention is causal over the whole sequence (as the
     reference's ``forward`` with its default ``window=0``, sliding-window
-    configs included); Whisper's encoder is non-causal."""
+    configs included); Whisper's encoder is non-causal.  ``remat``: each
+    layer under ``torch.utils.checkpoint`` (:func:`_layer`; the hybrid's
+    shared block outside it, as in the reference)."""
     _require_family(cfg)
+    top = _top(params)
     if cfg.family == "encdec":
-        x = _encdec(cfg, params, batch)
-        x = L.apply_norm(cfg, x, params["ln_f"])
-        return L.unembed(cfg, params["embed"], x)
-    x, positions = _inputs(cfg, params, batch)
+        x = _encdec(cfg, {**params, **top}, batch, remat=remat)
+        x = L.apply_norm(cfg, x, top["ln_f"])
+        return shd.constrain(L.unembed(cfg, top["embed"], x), "logits")
+    x, positions = _inputs(cfg, top, batch)
+    x = shd.constrain(x, "act")
     if cfg.family in ("dense", "moe", "vlm"):
         for p in params["layers"]:
-            x = _dense_body(cfg, x, p, positions)
+            x = _layer(lambda h, q: _dense_body(cfg, h, q, positions), x, p,
+                       remat=remat)
     elif cfg.family == "mla_moe":
         for _, _, p in _mla_layers(params):
-            x = _mla_body(cfg, x, p, positions)
+            x = _layer(lambda h, q: _mla_body(cfg, h, q, positions), x, p,
+                       remat=remat)
     else:
+        if cfg.family == "hybrid":
+            shared = shd.gather_params(params["shared_attn"])
         for i, p in enumerate(params["layers"]):
-            x = _ssm_body(cfg, x, p)
+            x = _layer(lambda h, q: _ssm_body(cfg, h, q), x, p, remat=remat)
             if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                x = _dense_body(cfg, x, params["shared_attn"], positions)
-    x = L.apply_norm(cfg, x, params["ln_f"])
-    return L.unembed(cfg, params["embed"], x)
+                x = _dense_body(cfg, x, shared, positions)
+    x = L.apply_norm(cfg, x, top["ln_f"])
+    return shd.constrain(L.unembed(cfg, top["embed"], x), "logits")
 
 
 # ===========================================================================
 # loss / train step
 # ===========================================================================
 
-def loss_fn(cfg, params, batch) -> torch.Tensor:
+def loss_fn(cfg, params, batch, *, remat=False) -> torch.Tensor:
     """Mean next-token cross entropy (``model.py:300``): the logits cast
     to float32, their log-sum-exp over the padded vocabulary minus the
-    gold logit of ``batch["labels"]`` (B, S)."""
-    logits = forward(cfg, params, batch).float()
+    gold logit of ``batch["labels"]`` (B, S).  ``remat`` as
+    :func:`forward`'s."""
+    logits = forward(cfg, params, batch, remat=remat).float()
     labels = batch["labels"].long()
+    rules = shd.sharded(logits)
+    if rules is not None:
+        return torch.mean(_nll_sharded(rules, logits, labels))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+def _nll_sharded(rules, logits, labels):
+    """``logz - gold`` (B, S) of float32 logits whose vocabulary is split
+    over ``model`` (the rules' ``logits`` spec), on the shards: each rank
+    takes its vocabulary slice's max (all-reduced, max), its sum of
+    ``exp(logit - max)`` and its gold logit where the label falls in its
+    slice (both all-reduced, sum); the vocabulary is never gathered.  The
+    max is taken without gradient: log-sum-exp's gradient does not
+    depend on it."""
+    from torch.distributed.tensor import Partial
+    b = rules.batch_axis
+    spec = rules.spec_for("logits", logits.shape)
+    row = spec[:2]
+    names = rules.mesh.mesh_dim_names
+
+    def partial(op):
+        return tuple(Partial(op) if a == "model" else q for a, q in
+                     zip(names, shd.placements(row, rules.mesh)))
+
+    m = shd.on_shards(lambda lg: lg.detach().amax(-1), [spec],
+                      partial("max"), rules)(logits)
+    m = m.redistribute(rules.mesh, shd.placements(row, rules.mesh))
+
+    def local(lg, mx, lb):
+        lo = rules.mesh.get_local_rank("model") * lg.shape[-1]
+        se = torch.exp(lg - mx[..., None]).sum(-1)
+        mine = (lb >= lo) & (lb < lo + lg.shape[-1])
+        idx = torch.where(mine, lb - lo, torch.zeros_like(lb))
+        gold = torch.gather(lg, -1, idx[..., None])[..., 0]
+        return se, torch.where(mine, gold, torch.zeros_like(gold))
+
+    se, gold = shd.on_shards(local, [spec, row, (b, None)],
+                             [partial("sum"), partial("sum")],
+                             rules)(logits, m, labels)
+    place = shd.placements(row, rules.mesh)
+    se, gold = se.redistribute(rules.mesh, place), gold.redistribute(
+        rules.mesh, place)
+    return torch.log(se) + m - gold
 
 
 def trainable(params) -> list:
@@ -478,10 +584,12 @@ def trainable(params) -> list:
     return [t.requires_grad_(True) for t in _leaves(params)]
 
 
-def make_train_step(cfg, optimizer):
+def make_train_step(cfg, optimizer, *, remat=True):
     """``step(params, batch) -> {"loss", "grad_norm"}`` (``model.py:310``):
     the loss and its gradients by autograd (on the card through K7's and
-    K8's backward kernels), the global norm of the float32 gradients
+    K8's backward kernels; with ``remat``, the reference's default, each
+    layer recomputed in the backward, so K7 and K8 run their forward
+    again there), the global norm of the float32 gradients
     taken before the optimizer clips them, then one ``optimizer.step()``
     (the port's AdamW clips to its own global norm, as the reference's
     does).  ``params``' leaves are the optimizer's (:func:`trainable`);
@@ -492,7 +600,7 @@ def make_train_step(cfg, optimizer):
         leaves = list(_leaves(params))
         for p in leaves:
             p.grad = None
-        loss = loss_fn(cfg, params, batch)
+        loss = loss_fn(cfg, params, batch, remat=remat)
         loss.backward()
         with torch.no_grad():
             gnorm = torch.sqrt(sum(torch.sum(torch.square(p.grad.float()))
@@ -588,32 +696,36 @@ def decode_step(cfg, params, cache, batch):
     rows) and attends over the cross cache that :func:`prefill` built."""
     _require_family(cfg)
     pos = int(batch["pos"])
+    top = _top(params)
     if cfg.family == "vlm":
         x = batch["embeds"].to(L.dtype_of(cfg.compute_dtype))
     else:
-        x = L.embed(cfg, params["embed"], batch["token"])
+        x = L.embed(cfg, top["embed"], batch["token"])
+    x = shd.constrain(x, "act")
+    gp = shd.gather_params
     if cfg.family == "encdec":
         # row pos of dec_pos (IndexError past its max_seq rows)
-        x = x + _learned(params["dec_pos"], pos + 1)[pos].to(x.dtype)
+        x = x + _learned(top["dec_pos"], pos + 1)[pos].to(x.dtype)
         for i, p in enumerate(params["dec_layers"]):
-            x = _encdec_decode(cfg, x, p, cache, i, pos)
+            x = _encdec_decode(cfg, x, gp(p), cache, i, pos)
     elif cfg.family in ("dense", "moe", "vlm"):
         for i, p in enumerate(params["layers"]):
-            x = _dense_decode(cfg, x, p, cache, i, pos)
+            x = _dense_decode(cfg, x, gp(p), cache, i, pos)
     elif cfg.family == "mla_moe":
         for stack, i, p in _mla_layers(params):
-            x = _mla_decode(cfg, x, p, cache[stack], i, pos)
+            x = _mla_decode(cfg, x, gp(p), cache[stack], i, pos)
     elif cfg.family == "ssm":
         for i, p in enumerate(params["layers"]):
-            x = _ssm_decode(cfg, x, p, cache, i)
+            x = _ssm_decode(cfg, x, gp(p), cache, i)
     else:
+        shared = gp(params["shared_attn"])
         for i, p in enumerate(params["layers"]):
-            x = _ssm_decode(cfg, x, p, cache["ssm"], i)
+            x = _ssm_decode(cfg, x, gp(p), cache["ssm"], i)
             if (i + 1) % cfg.attn_every == 0:
-                x = _dense_decode(cfg, x, params["shared_attn"],
-                                  cache["attn"], i // cfg.attn_every, pos)
-    x = L.apply_norm(cfg, x, params["ln_f"])
-    return L.unembed(cfg, params["embed"], x)[:, 0], cache
+                x = _dense_decode(cfg, x, shared, cache["attn"],
+                                  i // cfg.attn_every, pos)
+    x = L.apply_norm(cfg, x, top["ln_f"])
+    return L.unembed(cfg, top["embed"], x)[:, 0], cache
 
 
 def _dense_decode(cfg, x, p, cache, i, pos):
@@ -677,45 +789,55 @@ def prefill(cfg, params, batch):
     decoder's S positions under ``"self"`` and the encoder's keys and
     values under ``"cross"``."""
     _require_family(cfg)
+    top = _top(params)
     if cfg.family == "encdec":
         B, Sd = batch["tokens"].shape
-        dev = batch["tokens"].device
         Se = batch["enc_embeds"].shape[1]
-        cache = {"self": _kv_cache(cfg, cfg.num_layers, B, Sd, dev,
-                                   ring=False),
-                 "cross": _kv_cache(cfg, cfg.num_layers, B, Se, dev,
-                                    ring=False)}
-        x = _encdec(cfg, params, batch, cache)[:, -1:]
-        x = L.apply_norm(cfg, x, params["ln_f"])
-        return L.unembed(cfg, params["embed"], x)[:, 0], cache
-    x, positions = _inputs(cfg, params, batch)
-    B, Ssz, dev = x.shape[0], x.shape[1], x.device
+        cache = _new_cache(batch["tokens"], lambda dev: {
+            "self": _kv_cache(cfg, cfg.num_layers, B, Sd, dev, ring=False),
+            "cross": _kv_cache(cfg, cfg.num_layers, B, Se, dev,
+                               ring=False)})
+        x = shd.gather_seq(_encdec(cfg, {**params, **top}, batch,
+                                   cache))[:, -1:]
+        x = L.apply_norm(cfg, x, top["ln_f"])
+        return L.unembed(cfg, top["embed"], x)[:, 0], cache
+    x, positions = _inputs(cfg, top, batch)
+    x = shd.constrain(x, "act")
+    B, Ssz = x.shape[0], x.shape[1]
     if cfg.family in ("dense", "moe", "vlm"):
-        cache = init_cache(cfg, B, Ssz, device=dev)
+        cache = _new_cache(x, lambda dev: init_cache(cfg, B, Ssz,
+                                                     device=dev))
         for i, p in enumerate(params["layers"]):
-            x = _dense_prefill(cfg, x, p, positions, cache, i)
+            x = _dense_prefill(cfg, x, shd.gather_params(p), positions,
+                               cache, i)
     elif cfg.family == "mla_moe":
-        cache = init_cache(cfg, B, Ssz, device=dev)
+        cache = _new_cache(x, lambda dev: init_cache(cfg, B, Ssz,
+                                                     device=dev))
         for stack, i, p in _mla_layers(params):
-            x = _mla_prefill(cfg, x, p, positions, cache[stack], i)
+            x = _mla_prefill(cfg, x, shd.gather_params(p), positions,
+                             cache[stack], i)
     else:
         states, convs = [], []
         if cfg.family == "hybrid":
             n_groups = _hybrid_groups(cfg)
-            kv = _kv_cache(cfg, n_groups, B, Ssz, dev)
+            kv = _new_cache(x, lambda dev: _kv_cache(cfg, n_groups, B, Ssz,
+                                                     dev))
+            shared = shd.gather_params(params["shared_attn"])
         for i, p in enumerate(params["layers"]):
+            p = shd.gather_params(p)
             hh = L.apply_norm(cfg, x, p["ln"])
             o, (st, cv) = S.ssm_forward(cfg, p["ssm"], hh, return_cache=True)
             x = x + o
             states.append(st)
             convs.append(cv)
             if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-                x = _dense_prefill(cfg, x, params["shared_attn"], positions,
-                                   kv, i // cfg.attn_every)
+                x = _dense_prefill(cfg, x, shared, positions, kv,
+                                   i // cfg.attn_every)
         cache = {"state": torch.stack(states), "conv": torch.stack(convs)}
         if cfg.family == "hybrid":
             cache = {"ssm": cache, "attn": kv}
 
-    x = L.apply_norm(cfg, x, params["ln_f"])
-    logits = L.unembed(cfg, params["embed"], x[:, -1:])[:, 0]
+    # the last position (its rows gathered where the sequence is split)
+    x = L.apply_norm(cfg, shd.gather_seq(x), top["ln_f"])
+    logits = L.unembed(cfg, top["embed"], x[:, -1:])[:, 0]
     return logits, cache

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding as shd
 from repro_torch.models.transformer import layers as L
 
 
@@ -149,7 +150,8 @@ def moe_block(cfg, p, x: torch.Tensor, *,
     """x: (B, S, D) -> (B, S, D), GShard dispatch.  Tokens are flattened
     to T = B·S and grouped into g = min(T, ``group_size``); a T above
     ``group_size`` that is not a multiple of it raises ``ValueError``
-    (the reference fails there in a reshape)."""
+    (the reference fails there in a reshape).  Under sharding rules the
+    experts run on their ``model`` shards (:func:`experts_sharded`)."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     B, S, D = x.shape
@@ -161,11 +163,57 @@ def moe_block(cfg, p, x: torch.Tensor, *,
                          f"{group_size}")
     n = T // g
     C = _capacity(g, k, E, capacity_factor)
+    rules = shd.sharded(x, p["w_in"])
+    if rules is not None:
+        y = experts_sharded(rules, cfg, p, x, group=g, capacity=C)
+        return _shared(cfg, p, x, y)
     xg = x.reshape(n, g, D)
     w, idx, _ = route(cfg, p, xg)
     y = dispatch_combine(cfg, xg, w, idx, C, p["w_gate"], p["w_in"],
                          p["w_out"])
     return _shared(cfg, p, x, y.reshape(B, S, D))
+
+
+def experts_sharded(rules, cfg, p, x, *, group: int,
+                    capacity: int) -> torch.Tensor:
+    """The routed experts of (B, S, D) ``x`` under sharding rules, as the
+    reference's ``shard_map`` expert parallelism computes them
+    (``core/parallel.py:180-214``): the expert weights split over
+    ``model`` (``moe/w_*``: ``P("model", d, None)``, the FSDP shard
+    gathered), tokens over the batch axis, each rank routing its tokens,
+    dispatching to its E/m experts (:func:`dispatch_combine` from its
+    first expert) and adding their weighted outputs; the partial sums are
+    summed over ``model``.  Tokens form groups of ``group`` in order, C
+    = ``capacity`` slots an expert a group; where a rank's tokens do not
+    fill whole groups (a decode step's batch), the batch is gathered
+    first, so every group is the one a single device forms."""
+    from torch.distributed.tensor import Partial
+    B, S, D = x.shape
+    E, m = cfg.num_experts, rules.model_size
+    b = rules.batch_axis
+    if b is not None and (B // shd.shards(b, shd.axis_sizes(rules.mesh))
+                          * S) % group:
+        b = None
+    spec_x = (b, None, None)
+    e_ax = "model" if E % m == 0 else None
+
+    def local(x_l, router, w_gate, w_in, w_out):
+        Bl = x_l.shape[0]
+        first = rules.mesh.get_local_rank("model") * w_in.shape[0] \
+            if e_ax else 0
+        xg = x_l.reshape(Bl * S // group, group, D)
+        w, idx, _ = route(cfg, {"router": router}, xg)
+        y = dispatch_combine(cfg, xg, w, idx, capacity, w_gate, w_in,
+                             w_out, first_expert=first)
+        return y.reshape(Bl, S, D)
+
+    names = rules.mesh.mesh_dim_names
+    out = tuple(Partial() if a == "model" and e_ax else q for a, q in
+                zip(names, shd.placements(spec_x, rules.mesh)))
+    w_spec = (e_ax, None, None)
+    return shd.on_shards(local, [spec_x, (None, None), w_spec, w_spec,
+                                 w_spec], out, rules)(
+        x, p["router"], p["w_gate"], p["w_in"], p["w_out"])
 
 
 def moe_block_gathered(cfg, p, x: torch.Tensor, *,

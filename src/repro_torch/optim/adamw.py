@@ -22,16 +22,25 @@ import torch
 LR = Union[float, Callable[[int], float]]
 
 
+def _on_host():
+    """Host scalars (bias corrections, the schedule) are real tensors
+    even under a ``FakeTensorMode`` (the sharding-plan dry run), so that
+    ``float()`` reads them; a no-op otherwise."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    return unset_fake_temporarily()
+
+
 def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
     """Linear warm-up over ``warmup`` steps, then a cosine decay to 0 at
     ``total``; computed in float32 as the reference does."""
     def lr(step) -> float:
-        step = torch.tensor(float(step), dtype=torch.float32)
-        warm = base_lr * step / max(warmup, 1)
-        frac = torch.clamp((step - warmup) / max(total - warmup, 1),
-                           0.0, 1.0)
-        cos = 0.5 * base_lr * (1.0 + torch.cos(math.pi * frac))
-        return float(torch.where(step < warmup, warm, cos))
+        with _on_host():
+            step = torch.tensor(float(step), dtype=torch.float32)
+            warm = base_lr * step / max(warmup, 1)
+            frac = torch.clamp((step - warmup) / max(total - warmup, 1),
+                               0.0, 1.0)
+            cos = 0.5 * base_lr * (1.0 + torch.cos(math.pi * frac))
+            return float(torch.where(step < warmup, warm, cos))
     return lr
 
 
@@ -40,7 +49,8 @@ def _lr(lr: LR, step: int) -> float:
 
 
 def _grads_f32(params) -> list:
-    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return [torch.zeros_like(p, dtype=torch.float32,
+                             memory_format=torch.contiguous_format)
             if p.grad is None else p.grad.to(torch.float32)
             for p in params]
 
@@ -76,13 +86,15 @@ class AdamW(torch.optim.Optimizer):
                 st = self.state[p]
                 if not st:
                     st["step"] = 0
-                    st["m"] = torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device)
+                    st["m"] = torch.zeros_like(
+                        p, dtype=torch.float32,
+                        memory_format=torch.contiguous_format)
                     st["v"] = torch.zeros_like(st["m"])
                 st["step"] += 1
-                t = torch.tensor(float(st["step"]), dtype=torch.float32)
-                mc = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
-                vc = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
+                with _on_host():
+                    t = torch.tensor(float(st["step"]), dtype=torch.float32)
+                    mc = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
+                    vc = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
                 m = st["m"].mul_(b1).add_(g, alpha=1 - b1)
                 v = st["v"].mul_(b2).add_(g * g, alpha=1 - b2)
                 u = (m / mc) / (torch.sqrt(v / vc) + group["eps"])

@@ -171,11 +171,14 @@ def test_configs_equal_the_reference(arch):
     ("whisper_tiny", "encdec"), ("qwen2_vl_7b", "vlm"),
     ("whisper-tiny", "encdec"), ("qwen2-vl-7b", "vlm")])
 def test_both_families_are_ported(arch, family):
-    """Ids and dashed aliases resolve; the families leave the refused
-    list; an unknown architecture still raises ``KeyError``."""
+    """Ids and dashed aliases resolve; every architecture loads; an
+    unknown architecture still raises ``KeyError``."""
     assert base.get_config(arch).family == family
     assert family in base.PORTED_FAMILIES
-    assert family not in base.ROADMAP_ITEMS
+    assert set(base.PORTED_CONFIGS) == set(base.ARCH_IDS)
+    for other in base.ARCH_ALIASES:
+        assert base.get_config(other).family == base.ARCH_FAMILIES[
+            base.arch_module(other)]
     with pytest.raises(KeyError):
         base.get_config("no-such-model")
 

@@ -198,3 +198,143 @@ def moe_ep_forward(rank, world, dev, *, cfg, tree, tokens):
     logits = TM.forward(cfg, params, {"tokens": torch.from_numpy(
         tokens).to(dev)})
     return {"logits": logits.cpu().numpy()}
+
+
+def _lm_batch(cfg, rng, B, S):
+    """A train batch of ``cfg``'s family drawn from ``rng``: tokens and
+    labels; vlm's embeddings and M-RoPE positions (3, B, S), each stream
+    offset from the others; encdec's encoder frame embeddings."""
+    batch = {"labels": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (B, S)))}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+        pos = np.arange(S)[None, None] + np.arange(3)[:, None, None] * 3
+        batch["positions"] = torch.from_numpy(
+            np.broadcast_to(pos, (3, B, S)).astype(np.int32).copy())
+        return batch
+    batch["tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                    (B, S)))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, S, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def sharded_lm_step(rank, world, dev, *, arch, overrides=None,
+                    plain_overrides=None, seed=0):
+    """One AdamW train step (remat on), a prefill and a decode step of a
+    reduced float32 config in this world, twice: on plain tensors, and on
+    DTensors over a 2x2 ("data", "model") mesh with the params placed by
+    the sharding rules' ``param_specs`` (FSDP for the step, not for the
+    serving calls), the cache by ``cache_specs``, and the rules active.
+    The decode step runs in a cache drawn from the seed (32 positions, a
+    ring of ``sliding_window`` slots when that is smaller), at position 5,
+    or 37 in a ring (past its wrap); with a ring, a second decode step at
+    position 32 runs in the prefill's own cache (the prompt's last rows
+    rolled into their slots).  ``plain_overrides`` change the plain run's
+    config only (``moe_impl="ep"`` differentiates only under the rules).
+    Returns both runs' loss, grad norm, the prefill's logits and the
+    decode steps' logits (the sharded ones gathered; ``None`` for the
+    second step without a ring)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.transformer import model as TM
+    cfg = get_config(arch).reduced().replace(**(overrides or {}))
+    plain_cfg = cfg.replace(**(plain_overrides or {}))
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    B, S = 4, 32
+    rng = np.random.default_rng(seed)
+    batch = _lm_batch(cfg, rng, B, S)
+    serve = {k: v for k, v in batch.items() if k != "labels"}
+    ring = bool(cfg.sliding_window) and cfg.sliding_window < S
+    pos = S + 5 if ring else 5
+    if cfg.family == "vlm":
+        token = {"embeds": torch.from_numpy(rng.standard_normal(
+            (B, 1, cfg.d_model)).astype(np.float32))}
+    else:
+        token = {"token": batch["tokens"][:, :1]}
+
+    def params():
+        return TM.init_params(cfg, torch.Generator().manual_seed(seed),
+                              device="cpu")
+
+    def step(c, p, b):
+        opt = AdamW(TM.trainable(p), lr=1e-3)
+        m = TM.make_train_step(c, opt, remat=True)(p, b)
+        return m["loss"], m["grad_norm"]
+
+    def cache():
+        gen = torch.Generator().manual_seed(seed + 1)
+        return shd.map_tree(lambda t: torch.randn(
+            t.shape, generator=gen).to(t.dtype), TM.init_cache(
+                cfg, B, S, enc_len=S, device="meta"))
+
+    out = {}
+    loss, gnorm = step(plain_cfg, params(), batch)
+    with torch.no_grad():
+        logits, pc = TM.prefill(plain_cfg, params(), serve)
+        dec, _ = TM.decode_step(plain_cfg, params(), cache(),
+                                {**token, "pos": pos})
+        again = TM.decode_step(plain_cfg, params(), pc,
+                               {**token, "pos": S})[0].numpy() if ring \
+            else None
+    out["plain"] = [float(loss), float(gnorm), logits.numpy(), dec.numpy(),
+                    again]
+
+    rules = shd.ShardingRules(mesh, batch_size=B)
+    b_sh = shd.distribute(batch, shd.batch_specs(batch, mesh, rules), mesh)
+    s_sh = {k: v for k, v in b_sh.items() if k != "labels"}
+    p0 = params()
+    p_sh = shd.distribute(p0, shd.param_specs(p0, mesh, fsdp=True), mesh,
+                          requires_grad=True)
+    with rules.activate(), implicit_replication():
+        loss, gnorm = step(cfg, p_sh, b_sh)
+        p_serve = shd.distribute(p0, shd.param_specs(p0, mesh, fsdp=False),
+                                 mesh)
+        c0 = cache()
+        c_sh = shd.distribute(c0, shd.cache_specs(c0, mesh, rules), mesh)
+        t_sh = shd.distribute(token, shd.batch_specs(token, mesh, rules),
+                              mesh)
+        with torch.no_grad():
+            logits, pc = TM.prefill(cfg, p_serve, s_sh)
+            dec, _ = TM.decode_step(cfg, p_serve, c_sh, {**t_sh, "pos": pos})
+            again = TM.decode_step(cfg, p_serve, pc, {**t_sh, "pos": S})[
+                0].full_tensor().numpy() if ring else None
+    out["sharded"] = [float(loss.full_tensor()), float(gnorm.full_tensor()),
+                      logits.full_tensor().numpy(), dec.full_tensor().numpy(),
+                      again]
+    return out
+
+
+def host_mesh_forward(rank, world, dev, *, arch, seed=0):
+    """A reduced float32 config's forward on the 1x1 host mesh
+    (``launch.mesh.make_host_mesh`` on this world's one rank), its params
+    placed by ``param_specs`` and the rules active, beside the same
+    forward on plain tensors.  Returns the mesh's axes and shape and both
+    logits."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import model as TM
+    cfg = get_config(arch).reduced()
+    mesh = make_host_mesh(dev.type)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 16)))}
+    p0 = TM.init_params(cfg, torch.Generator().manual_seed(seed),
+                        device="cpu")
+    with torch.no_grad():
+        plain = TM.forward(cfg, p0, batch)
+        rules = shd.ShardingRules(mesh, batch_size=2)
+        p_sh = shd.distribute(p0, shd.param_specs(p0, mesh, fsdp=True),
+                              mesh)
+        b_sh = shd.distribute(batch, shd.batch_specs(batch, mesh, rules),
+                              mesh)
+        with rules.activate(), implicit_replication():
+            got = TM.forward(cfg, p_sh, b_sh).full_tensor()
+    return {"axes": list(mesh.mesh_dim_names), "shape": list(mesh.shape),
+            "plain": plain.numpy(), "sharded": got.numpy()}
