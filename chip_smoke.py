@@ -305,6 +305,15 @@ Phases, in order; any failure makes the exit code nonzero:
    ``torch.cuda.is_initialized()`` false, and this process's
    ``torch.cuda.memory_allocated()`` and ``max_memory_allocated()`` must
    not move from 21's start to its end (17 runs child processes only);
+22. (started with 21's children, ended after 21, before 14) the port's
+   linter over the port: ``python -m repro_torch.analysis --json`` in a
+   child process (it reads sources only: no card, no kernel build), which
+   must exit 0 with no finding; the ``.py`` and ``.cu`` / ``.cuh`` files
+   it checked, its justified suppressions and its seconds; then, on the
+   card, each raw kernel wrapper (K1-K8 and the VJPs of K3, K7 and K8)
+   given a CUDA input that requires grad, grad enabled, raises
+   ``NotImplementedError`` naming its autograd Function (or saying that
+   nothing differentiates it) and launches nothing;
 17. (run inside 21, before 14) the port's four examples as ``python -m
    repro_torch.examples.<name>`` on the card, each exiting 0, with their
    seconds (``serve_batched``, ``serve_gnn`` and ``quickstart`` side by
@@ -5881,6 +5890,135 @@ def phase_dryrun(torch, run, results):
     require(not problems, "21: " + "; ".join(problems))
 
 
+# phase 22: the linter's child (started beside phase 21's) and its time
+# limit (it took 6.7 s on an H100's host beside phase 17, 8.9 s alone on
+# a CPU-only one)
+LINT_TIMEOUT_S = 120
+
+
+def start_lint() -> dict:
+    """Phase 22's start: ``python -m repro_torch.analysis --json`` over
+    the port's default paths in a child process; a thread reads its
+    output and notes when it exits.  :func:`phase_lint` collects it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = {"t0": time.perf_counter(), "proc": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--json"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)}
+
+    def drain():
+        run["out"] = run["proc"].communicate()
+        run["seconds"] = time.perf_counter() - run["t0"]
+    run["reader"] = threading.Thread(target=drain, daemon=True)
+    run["reader"].start()
+    return run
+
+
+def raw_wrapper_cases(torch, dev) -> list:
+    """``(label, wrapper, args, name)`` for each raw kernel wrapper on
+    small inputs on ``dev``, one floating input of each requiring grad;
+    ``name`` is what its refusal must say."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gat_fused as gf
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.kernels import ssd_chunk as sc
+    gen = torch.Generator().manual_seed(22)
+
+    def f(*shape, grad=False):
+        return torch.randn(*shape, generator=gen).to(dev).requires_grad_(
+            grad)
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    src, order, row_ptr = i32(0, 1, 2), i32(0, 1, 2), i32(0, 2, 3)
+    h, g2, es, ed = f(3, 4), f(2, 4), f(3, 2), f(2, 2)
+    q = f(1, 2, 64, 64).to(torch.bfloat16)
+    x, dt, A, Bm = f(1, 64, 2, 64), f(1, 64, 2).abs(), -f(2).abs(), \
+        f(1, 64, 1, 64)
+    return [
+        ("K1", ss.gather_scale_segment_sum_cuda,
+         (h, src, f(3, grad=True), order, row_ptr, 2),
+         "GatherScaleSegmentSum"),
+        ("K2", ss.segment_sum_cuda, (f(3, 4, grad=True), order, row_ptr, 2),
+         "SegmentSum"),
+        ("K3", gf.gat_attention_cuda,
+         (f(3, 4, grad=True), es, ed, src, order, row_ptr, 2),
+         "GatAttention"),
+        ("K3 VJP", gf.gat_backward_dst_cuda,
+         (f(2, 4, grad=True), h, es, ed, ed, ed, src, order, row_ptr, 3),
+         "no double backward"),
+        ("K4", ss.gather_scale_segment_sum_q_cuda,
+         (torch.zeros(3, 4, dtype=torch.uint8, device=dev), f(3, 1),
+          f(3, 1), src, f(3, grad=True), order, row_ptr, 2),
+         "forward only"),
+        ("K5", ss.gather_rows_cuda, (f(2, 4, grad=True), src, order, 3),
+         "GatherRows"),
+        ("K6", ss.edge_dot_cuda, (h, f(2, 4, grad=True), src, order,
+                                  row_ptr), "forward only"),
+        ("K7", fa.flash_attention_cuda, (q, q, q.detach().requires_grad_()),
+         "FlashAttention"),
+        ("K7 VJP", fa.flash_attention_bwd_cuda,
+         (q, q, q, q, q.detach().requires_grad_(), f(1, 2, 64)),
+         "no double backward"),
+        ("K8", sc.ssd_chunk_state_cuda, (x, dt, A, f(1, 64, 1, 64,
+                                                     grad=True)),
+         "SSDChunkState"),
+        ("K8 VJP", sc.ssd_chunk_state_bwd_cuda,
+         (x, dt, A, Bm, f(1, 2, 64, 64, grad=True)), "no double backward"),
+    ]
+
+
+@phase("22. the port's linter over the port; raw wrappers refuse grad")
+def phase_lint(torch, run, results, dev="cuda"):
+    """Phase 22's end: :func:`start_lint`'s child must exit 0 with no
+    finding within its time limit (counted from its start); one line of
+    its files by kind, suppressions and seconds.  Then each raw wrapper
+    of :func:`raw_wrapper_cases` must refuse its input that requires
+    grad, naming its Function, with no launch counted."""
+    from repro_torch.kernels import ops
+    run["reader"].join(max(1.0, LINT_TIMEOUT_S
+                           - (time.perf_counter() - run["t0"])))
+    if run["reader"].is_alive():
+        run["proc"].kill()
+        run["reader"].join()
+        raise RuntimeError(f"check failed: the linter took over "
+                           f"{LINT_TIMEOUT_S} s")
+    stdout, stderr = run["out"]
+    rc = run["proc"].returncode
+    require(rc == 0, f"the linter exited {rc}: {stdout[-2000:]} "
+            f"{stderr[-2000:]}")
+    report = json.loads(stdout)
+    line = {"exit_code": rc, "findings": len(report["findings"]),
+            "files_checked": report["files_checked"],
+            "files_by_kind": report["files_by_kind"],
+            "suppressed": [f"{d['rule']} {d['path']}:{d['line']}"
+                           for d in report["suppressed"]],
+            "seconds": run["seconds"],
+            "collected_after_s": time.perf_counter() - run["t0"]}
+    print("   linter: " + json.dumps(line), flush=True)
+    require(report["findings"] == [] and report["files_by_kind"]["cuda"],
+            f"the port's linter is clean and read the CUDA sources: "
+            f"{report['findings'][:5]}")
+    refusals = {}
+    before = ops.launch_counts()
+    for label, fn, args, name in raw_wrapper_cases(torch, dev):
+        try:
+            fn(*args)
+        except NotImplementedError as e:
+            refusals[label] = name in str(e)
+            print(f"   raw {label} on an input that requires grad "
+                  f"refused: {str(e).split('gradient.  ')[-1]}", flush=True)
+        else:
+            refusals[label] = False
+            print(f"   raw {label} ran on an input that requires grad",
+                  flush=True)
+    line["refusals"] = refusals
+    results["lint"] = line
+    require(all(refusals.values()), f"every raw wrapper refuses an input "
+            f"that requires grad, naming its Function: {refusals}")
+    require(ops.launch_counts() == before, "a refusal launched nothing")
+
+
 def kernels_line(results) -> dict:
     """One row per kernel: its times from phase 2, 5 or 8, its launches
     from the phase that drives the path through it (phases 6 and 7 train
@@ -6216,8 +6354,10 @@ def main() -> int:
     phase_train_examples(torch, results)
     torch.cuda.empty_cache()
     dryrun = start_dryrun(torch)
+    lint = start_lint()
     phase_examples(torch, results)
     phase_dryrun(torch, dryrun, results)
+    phase_lint(torch, lint, results)
     phase_distributed(torch, g, g_gat, results)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w",

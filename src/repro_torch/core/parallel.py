@@ -124,6 +124,7 @@ def p3_layer1(x_f: torch.Tensor, w1_f: torch.Tensor,
     ``(n_local, H)``.  The backward all-gathers the cotangent, so W1's
     slice gets its complete gradient (see :func:`make_p3_train_step`)."""
     agg = PR.aggregate(x_f, shard.graph, shard.coef)       # (N_pad, F/n)
+    # repro-lint: disable=RL001 -- forward-pass reduce-scatter, exact transpose
     return C.ReduceScatter.apply(agg @ w1_f)              # (N_loc, H)
 
 
@@ -136,6 +137,7 @@ def p3_forward(params: nn.ModuleList, shard: P3Shard) -> torch.Tensor:
     h = p3_layer1(shard.x_f, params[0].w, shard) + params[0].b
     h = F.relu(h)
     for i in range(1, len(params)):
+        # repro-lint: disable=RL001 -- forward-pass all-gather, exact transpose
         h_all = C.AllGather.apply(h @ params[i].w)
         h = PR.aggregate(h_all, shard.graph, shard.coef)[own] + params[i].b
         if i + 1 < len(params):

@@ -250,6 +250,7 @@ def pull_aggregate(h_loc: torch.Tensor, shard: RankShard, *,
     aggregates; masked (pad) edges contribute zero, so pad rows never
     aggregate.  The backward reduce-scatters the gathered rows' cotangent
     to their owners."""
+    # repro-lint: disable=RL001 -- forward-pass all-gather, exact transpose
     h_all = C.AllGather.apply(h_loc)                        # (N_pad, F)
     return aggregate(h_all, shard.graph, coef_e)
 
@@ -262,6 +263,7 @@ def push_aggregate(h_loc: torch.Tensor, shard: RankShard, *,
     slice of the summed aggregate; masked edges contribute zero.  The
     backward all-gathers the cotangent (no second reduction)."""
     partial = aggregate(h_loc, shard.graph, coef_e)        # (N_pad, F)
+    # repro-lint: disable=RL001 -- forward-pass reduce-scatter, exact transpose
     return C.ReduceScatter.apply(partial)                   # (N_loc, F)
 
 

@@ -404,7 +404,11 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
     (B, heads, S, width) view of a (B, S, heads, width) tensor, in the
     inputs' dtype.  q, k, v and do are read through TMA maps
     (:func:`bwd_launch_plan`'s alignment).  Each launch counts under
-    :func:`bwd_launch_plan`'s counter; a refused launch raises."""
+    :func:`bwd_launch_plan`'s counter; a refused launch raises.  Nothing
+    differentiates it: an input that requires grad, with grad enabled,
+    raises ``NotImplementedError`` (``_refuse_grad``)."""
+    _refuse_grad("flash_attention_bwd_cuda (K7's VJP, no double backward)",
+                 None, q, k, v, o, do, lse)
     plan, grads, args = _bwd_prepare(q, k, v, o, do, lse, causal, window,
                                      scale)
     if args is not None:

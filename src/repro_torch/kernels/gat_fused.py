@@ -34,8 +34,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.segment_sum import (_align, _check, _check_layout,
                                              _edge_output, _floats_per_lane,
-                                             _require_cuda, _segments,
-                                             _stream, lane_plan)
+                                             _refuse_grad, _require_cuda,
+                                             _segments, _stream, lane_plan)
 
 NEG_INF = -1e30
 LEAKY_SLOPE = 0.2
@@ -102,6 +102,8 @@ def gat_attention_cuda(hs: torch.Tensor, es: torch.Tensor, ed: torch.Tensor,
                        stats: bool = False):
     """K3 on the card (``csrc/gat_fused.cu``, ``gat_forward``)."""
     dev = _require_cuda(hs, "gat_attention_cuda")
+    _refuse_grad("gat_attention_cuda (K3)", "kernels.gat_fused.GatAttention",
+                 hs, es, ed)
     _check_gat(hs, es, ed, edge_src, order, row_ptr, num_dst, dev)
     heads = es.shape[1]
     hd = hs.shape[1] // heads
@@ -151,6 +153,8 @@ def gat_backward_dst_cuda(g, hs, es, ed, m, l, edge_src, order, row_ptr,
     """The destination pass of K3's VJP on the card (``csrc/gat_fused.cu``,
     ``gat_backward_dst``), counted under ``gat_attention_backward``."""
     dev = _require_cuda(hs, "gat_backward_dst_cuda")
+    _refuse_grad("gat_backward_dst_cuda (K3's VJP, no double backward)",
+                 None, g, hs, es, ed, m, l)
     D = ed.shape[0]
     _check_gat(hs, es, ed, edge_src, order, row_ptr, D, dev)
     heads = es.shape[1]

@@ -36,7 +36,8 @@ per-edge outputs of K5 and K6 are zero there.
 
 The plain versions take the same arguments, layout included, so the CPU
 tests exercise exactly what the kernels read; they stay differentiable
-through autograd.  :func:`pick` chooses one or the other by the tensor's
+through autograd.  The kernel wrappers are not: each refuses an input
+that requires grad, with grad enabled (:func:`_refuse_grad`).  :func:`pick` chooses one or the other by the tensor's
 device.  The ``torch.autograd.Function``\\ s at the end make K1, K2 and
 the row gather differentiable on both devices: their forward and
 backward call :mod:`repro_torch.kernels.ops`, so the CPU tests run the
@@ -176,18 +177,24 @@ def _require_cuda(t: torch.Tensor, what: str) -> torch.device:
     return t.device
 
 
-def _refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:
+def _refuse_grad(what: str, function: Optional[str],
+                 *tensors: torch.Tensor) -> None:
     """Raise ``NotImplementedError`` where autograd would record a call of
-    a raw forward kernel wrapper (K7's, K8's): grad enabled and a floating
-    input that requires it.  The wrapper writes a fresh tensor with no
-    graph; its autograd Function ``function`` (which ``ops`` calls on the
-    card) saves what the backward kernels need."""
+    a raw kernel wrapper: grad enabled and a floating input that requires
+    it (None among ``tensors`` is skipped).  The wrapper writes a fresh
+    tensor with no graph; its autograd Function ``function`` (which
+    ``ops`` calls on the card) saves what the backward kernels need.
+    ``function`` is None where no Function differentiates the kernel: K4
+    and K6, forward only, and the VJPs (no double backward)."""
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors if t.is_floating_point()):
+            t.requires_grad for t in tensors
+            if t is not None and t.is_floating_point()):
+        how = (f"Call it through {function} (what ops calls on the card), "
+               f"or run it" if function
+               else "Nothing differentiates it: run it")
         raise NotImplementedError(
             f"{what} has no backward of its own: an input requires grad, "
-            f"and the kernel's output would carry no gradient.  Call it "
-            f"through {function} (what ops calls on the card), or run "
+            f"and the kernel's output would carry no gradient.  {how} "
             f"under torch.no_grad() or torch.inference_mode()")
 
 
@@ -377,6 +384,8 @@ def gather_scale_segment_sum_cuda(h: torch.Tensor, edge_src: torch.Tensor,
     ``col`` of ``coef``'s shape (E, heads) is summed in the same launch,
     as the plain version does."""
     dev = _require_cuda(h, "gather_scale_segment_sum_cuda")
+    _refuse_grad("gather_scale_segment_sum_cuda (K1)",
+                 "kernels.segment_sum.GatherScaleSegmentSum", h, coef, col)
     _check(h, "h", torch.float32, 2, dev)
     _check(edge_src, "edge_src", torch.int32, 1, dev)
     if coef.dim() not in (1, 2):
@@ -434,6 +443,8 @@ def segment_sum_cuda(msgs: torch.Tensor, order: torch.Tensor,
                      row_ptr: torch.Tensor, num_dst: int) -> torch.Tensor:
     """K2 on the card (``csrc/segment_sum.cu``, ``seg_forward``)."""
     dev = _require_cuda(msgs, "segment_sum_cuda")
+    _refuse_grad("segment_sum_cuda (K2)", "kernels.segment_sum.SegmentSum",
+                 msgs)
     _check(msgs, "msgs", torch.float32, 2, dev)
     _check_layout(order, row_ptr, num_dst, dev)
     F = msgs.shape[1]
@@ -472,6 +483,8 @@ def gather_rows_cuda(g: torch.Tensor, seg: torch.Tensor,
                      order: torch.Tensor, num_edges: int) -> torch.Tensor:
     """K5 on the card (``csrc/segment_sum.cu``, ``gather_rows``)."""
     dev = _require_cuda(g, "gather_rows_cuda")
+    _refuse_grad("gather_rows_cuda (K5)", "kernels.segment_sum.GatherRows",
+                 g)
     _check(g, "g", torch.float32, 2, dev)
     _check(seg, "seg", torch.int32, 1, dev)
     _check(order, "order", torch.int32, 1, dev)
@@ -553,6 +566,7 @@ def edge_dot_cuda(a: torch.Tensor, b: torch.Tensor, edge_src: torch.Tensor,
     :func:`edge_dot_plan`; ``b`` has a row per destination of the
     layout."""
     dev = _require_cuda(a, "edge_dot_cuda")
+    _refuse_grad("edge_dot_cuda (K6, forward only)", None, a, b)
     _check(a, "a", torch.float32, 2, dev)
     _check(b, "b", torch.float32, 2, dev)
     _check(edge_src, "edge_src", torch.int32, 1, dev)
@@ -606,6 +620,8 @@ def gather_scale_segment_sum_q_cuda(q: torch.Tensor, mn: torch.Tensor,
                                     num_dst: int) -> torch.Tensor:
     """K4 on the card (``csrc/segment_sum.cu``, ``gssq_forward``)."""
     dev = _require_cuda(q, "gather_scale_segment_sum_q_cuda")
+    _refuse_grad("gather_scale_segment_sum_q_cuda (K4, forward only)", None,
+                 mn, scale, coef)
     _check(q, "q", torch.uint8, 2, dev)
     S, F = q.shape
     for t, name in ((mn, "mn"), (scale, "scale")):

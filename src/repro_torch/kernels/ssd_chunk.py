@@ -315,7 +315,11 @@ def ssd_chunk_state_bwd_cuda(x, dt, A, Bm, gstate):
     with :func:`bwd_launch_plan`'s alignment), ``gstate`` (C, H, P, N)
     float32 contiguous.  Returns :func:`ssd_chunk_state_bwd_plain`'s
     ``(dx, ddt, dA_part, dBm)``, dx and dBm contiguous.  Each launch counts
-    under :func:`bwd_launch_plan`'s counter; a refused launch raises."""
+    under :func:`bwd_launch_plan`'s counter; a refused launch raises.
+    Nothing differentiates it: an input that requires grad, with grad
+    enabled, raises ``NotImplementedError`` (``_refuse_grad``)."""
+    _refuse_grad("ssd_chunk_state_bwd_cuda (K8's VJP, no double backward)",
+                 None, x, dt, A, Bm, gstate)
     plan, grads, args = _bwd_prepare(x, dt, A, Bm, gstate)
     if args is not None:
         for fn, counter in zip(BWD_ENTRIES, plan["counters"]):
